@@ -7,14 +7,19 @@ its plain PyTorch version on the CPU.  This package imports torch and
 numpy, never JAX or ``rt_tpu``.
 
 Ported so far: the flat forward renderer (scenes with up to 128 triangles
-and 2048 primitives), its scenes, camera, sky, I/O and single-frame CLI.
+and 2048 primitives), its scenes, camera, sky, I/O and single-frame CLI;
+the chunked renderer (``render_pixel_colors(wavefront=False)``,
+``render_chunk``) and pixel gradients (``grad``: ``pixel_loss``,
+``pixel_grad``), with the sphere-nearest kernel in CUDA.
 """
 
 from rt_tpu_torch.config import RenderConfig, CompatConfig, ProgressiveSchedule
 from rt_tpu_torch.camera import Camera, make_camera
 from rt_tpu_torch.scene import SceneData, SceneBuilder
 from rt_tpu_torch.sky import SkyParams
-from rt_tpu_torch.render import render_image, render_pixel_colors
+from rt_tpu_torch.render import render_chunk, render_image, render_pixel_colors
+from rt_tpu_torch import grad
+from rt_tpu_torch.grad import SceneParams, pixel_grad, pixel_loss
 
 __version__ = "0.1.0"
 
@@ -27,6 +32,11 @@ __all__ = [
     "SceneData",
     "SceneBuilder",
     "SkyParams",
+    "render_chunk",
     "render_image",
     "render_pixel_colors",
+    "grad",
+    "SceneParams",
+    "pixel_loss",
+    "pixel_grad",
 ]

@@ -8,8 +8,10 @@ Matches the reference camera math (camera.rs:167-254): look-at basis
 jitter by sample index (optionally scrambled per pixel), and a defocus disk
 drawn from the counter hash keyed on the global work id
 ``sample * W * H + pixel`` (purposes 21/22), as the JAX megakernel and
-wavefront draw it.  Directions are deliberately NOT normalized, matching
-the reference (camera.rs:253).
+wavefront draw it.  ``generate_rays_keyed`` is the JAX ``Camera.generate_rays``
+of the chunked and gradient paths: the same jitter, keyed on a
+``jax.random``-style key.  Directions are deliberately NOT normalized,
+matching the reference (camera.rs:253).
 """
 
 from __future__ import annotations
@@ -115,25 +117,8 @@ def generate_rays(
     pix, sample = torch.broadcast_tensors(pix.to(torch.int64), sample.to(torch.int64))
     n_global = camera.image_width * camera.image_height
     gwork = (sample * n_global + pix) & 0xFFFFFFFF
-
-    off_u, off_v = sampling.halton_pair(sample)
-    if not compat.shared_halton_jitter:
-        # Per-pixel Cranley-Patterson rotation kills the reference's moire
-        # (scenes.rs:140-145); x - floor(x) is the megakernel's wrap.
-        off_u = off_u + rng.uniform(seed, pix, 0, 5)
-        off_u = off_u - torch.floor(off_u)
-        off_v = off_v + rng.uniform(seed, pix, 0, 6)
-        off_v = off_v - torch.floor(off_v)
-
-    fx = (pix % camera.image_width).to(torch.float32) + off_u
-    fy = (pix // camera.image_width).to(torch.float32) + off_v
-    cam = {k: getattr(camera, k).to(device) for k in (
-        "center", "pixel00_loc", "pixel_du", "pixel_dv", "defocus_disk_u", "defocus_disk_v")}
-    pixel_sample = (
-        cam["pixel00_loc"][None, :]
-        + fx[:, None] * cam["pixel_du"][None, :]
-        + fy[:, None] * cam["pixel_dv"][None, :]
-    )
+    pixel_sample = _pixel_sample(camera, pix, sample, seed, compat)
+    cam = {k: getattr(camera, k).to(device) for k in ("center", "defocus_disk_u", "defocus_disk_v")}
     if camera.defocus_on:
         r = torch.sqrt(rng.uniform(seed, gwork, 0, 21))
         theta = rng.uniform(seed, gwork, 0, 22) * (2.0 * math.pi)
@@ -147,3 +132,54 @@ def generate_rays(
     else:
         origin = cam["center"][None, :].expand(pixel_sample.shape)
     return origin, pixel_sample - origin, gwork
+
+
+def _pixel_sample(camera: Camera, pix, sample, seed: int, compat: CompatConfig) -> torch.Tensor:
+    """Jittered points f32[N,3] on the focus plane for flat pixel ids and
+    sample indices (int64, same shape): Halton jitter by sample index,
+    optionally rotated per pixel."""
+    off_u, off_v = sampling.halton_pair(sample)
+    if not compat.shared_halton_jitter:
+        # Per-pixel Cranley-Patterson rotation kills the reference's moire
+        # (scenes.rs:140-145); x - floor(x) is the megakernel's wrap and,
+        # for x in [0, 2), exactly jnp.mod(x, 1.0).
+        off_u = off_u + rng.uniform(seed, pix, 0, 5)
+        off_u = off_u - torch.floor(off_u)
+        off_v = off_v + rng.uniform(seed, pix, 0, 6)
+        off_v = off_v - torch.floor(off_v)
+    fx = (pix % camera.image_width).to(torch.float32) + off_u
+    fy = (pix // camera.image_width).to(torch.float32) + off_v
+    device = pix.device
+    return (
+        camera.pixel00_loc.to(device)[None, :]
+        + fx[:, None] * camera.pixel_du.to(device)[None, :]
+        + fy[:, None] * camera.pixel_dv.to(device)[None, :]
+    )
+
+
+def generate_rays_keyed(
+    camera: Camera,
+    pixel_x: torch.Tensor,
+    pixel_y: torch.Tensor,
+    sample_index: torch.Tensor,
+    key: np.ndarray,
+    compat: CompatConfig = CompatConfig(),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``Camera.generate_rays`` (rt_tpu/camera.py:50-106),
+    the camera of ``render.render_chunk``: rays for pixel coordinates and
+    sample indices under a key (rng.key).  The per-pixel jitter rotation,
+    when on, is keyed on the key's hash seed and the flat pixel id.
+    Returns (origins f32[N,3], directions f32[N,3]).
+
+    JAX draws the thin-lens disc with ``jax.random.uniform``, threefry bits
+    the port does not generate yet, so a defocused camera raises.
+    """
+    if camera.defocus_on:
+        raise NotImplementedError(
+            "defocus on the render_chunk path needs jax.random.uniform's threefry bits, "
+            "which are not ported yet (the megakernel path renders defocus)"
+        )
+    pix = pixel_y.to(torch.int64) * camera.image_width + pixel_x.to(torch.int64)
+    pixel_sample = _pixel_sample(camera, pix, sample_index.to(torch.int64), rng.key_seed(key), compat)
+    origin = camera.center.to(pix.device)[None, :].expand(pixel_sample.shape)
+    return origin, pixel_sample - origin

@@ -1,4 +1,5 @@
-"""Carry scenes, cameras and skies across from the JAX package.
+"""Carry scenes, cameras, skies and scene parameters across from the JAX
+package.
 
 The functions take the JAX package's objects with their arrays already on
 the host, e.g. ``jax.tree.map(np.asarray, scene)``, and read them by
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from rt_tpu_torch.camera import Camera
+from rt_tpu_torch.grad import SceneParams
 from rt_tpu_torch.scene import TABLES, SceneData
 from rt_tpu_torch.sky import SkyParams
 
@@ -43,6 +45,12 @@ def camera_from_arrays(camera) -> Camera:
         image_width=int(camera.image_width),
         image_height=int(camera.image_height),
     )
+
+
+def params_from_arrays(p) -> SceneParams:
+    """The port's SceneParams from the JAX package's, leaf by name."""
+    return SceneParams(**{name: _tensor(getattr(p, name)).to(torch.float32)
+                          for name in SceneParams._fields})
 
 
 def scene_from_arrays(scene) -> SceneData:

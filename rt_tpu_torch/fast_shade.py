@@ -1,17 +1,26 @@
-"""Per-primitive shade table and the bounce math of the megakernel.
+"""Per-primitive shade table and the scalarized bounce of the chunked and
+gradient paths (the JAX package's ``rt_tpu/fast_shade.py``).
 
 ``build_shade_table`` packs every per-primitive shading parameter into one
 dense f32[F_ROWS, P_pad] table at scene-build time, exactly as the JAX
 package does (one column per global primitive id).  The CUDA megakernel
 reads the winner's column directly (transposed to rows).
 
-The torch functions below are the building blocks of the megakernel's plain
-version (megakernel.render_megakernel_plain): brute-force nearest sphere and
-triangle over [prims, rays] broadcasts, one bounce of shading, and the sky.
-Their arithmetic follows the TPU megakernel (rt_tpu/megakernel.py
-`_mega_kernel`, flat mode) operation for operation, with the native
-transcendentals the CUDA kernel uses.  Vectors live as separate component
-rows ([B] tensors), as in the JAX package.
+The torch functions below are the counterparts of the JAX functions of the
+same names, differentiable with respect to the scene parameters:
+
+- ``build_shade_table_diff`` re-assembles the parameter rows (fuzz, IOR,
+  texture colors) from the live scene tensors;
+- ``fetch_params`` fetches each lane's winner column with one one-hot
+  matmul, whose backward is a deterministic matrix product;
+- ``shade_bounce`` shades one bounce on component rows ([B] tensors) and
+  ``_sky_rows`` evaluates the sky from the live ``SkyParams`` tensors, so
+  that sun direction, turbidity and exposure get gradients.
+
+Their arithmetic follows the JAX functions operation for operation, with
+JAX's derivative rules at ties (``elementwise``).  ``triangle_nearest_rows``
+is the brute-force triangle search of the megakernel's plain version; K1's
+bounce itself lives in ``megakernel.py``.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ import math
 import numpy as np
 import torch
 
-from rt_tpu_torch import color, rng
+from rt_tpu_torch import color, rng, sky as sky_mod
+from rt_tpu_torch.elementwise import clip, div, maximum, minimum, take_rows
 from rt_tpu_torch.scene import MAT_DIELECTRIC, TEX_CHECKER, TEX_IMAGE, TEX_SOLID
 
 BIG = 3.0e38
@@ -46,11 +56,6 @@ F_UVA = 29  # triangle uvs: a.u a.v b.u b.v c.u c.v -> 29..34
 # and pitch, hittable.rs:379-391).
 F_CYW, F_SYW, F_CP, F_SP = 35, 36, 37, 38
 F_ROWS = 40
-
-# Uncharted2 white-point scale, folded in double precision as the JAX
-# megakernel folds it (megakernel.py:135), then used as one f32.
-WHITE_SCALE = 1.0 / color.uncharted2_tonemap(11.2)
-
 
 def build_shade_table(
     sph_center, sph_radius, sph_front, sph_mat,
@@ -123,37 +128,6 @@ def build_shade_table(
     return table
 
 
-def _div(num: float, x: torch.Tensor) -> torch.Tensor:
-    """num / x as one rounded division (``float / tensor`` in torch is
-    reciprocal(x) * num, which rounds twice)."""
-    return torch.full_like(x, num) / x
-
-
-def sphere_nearest_rows(scene, rays: torch.Tensor, t_min: float, t_max: float):
-    """Nearest sphere per ray over [S, B] broadcasts (hittable.rs:319-338,
-    megakernel.py:752-787).  ``rays`` is f32[>=6, B] (origin xyz, direction
-    xyz).  Returns (t f32[B], BIG on a miss; idx int64[B], -1 on a miss);
-    the lowest index wins ties."""
-    ox, oy, oz = rays[0][None], rays[1][None], rays[2][None]
-    dx, dy, dz = rays[3][None], rays[4][None], rays[5][None]
-    c = scene.sph_packed[: scene.num_spheres]
-    cx, cy, cz, rad = c[:, 0:1], c[:, 1:2], c[:, 2:3], c[:, 3:4]
-    a = dx * dx + dy * dy + dz * dz
-    inv_a = 1.0 / a
-    ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
-    h = dx * ocx + dy * ocy + dz * ocz
-    cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-    disc = h * h - a * cc
-    sd = torch.sqrt(torch.clamp(disc, min=0.0))
-    t0 = (h - sd) * inv_a
-    t1 = (h + sd) * inv_a
-    t_cand = torch.where(t0 >= t_min, t0, t1)
-    ok = (disc >= 0.0) & (rad > 0.0) & (t_cand >= t_min) & (t_cand < t_max)
-    t_cand = torch.where(ok, t_cand, BIG)
-    t_best, idx = torch.min(t_cand, dim=0)
-    return t_best, torch.where(t_best < BIG, idx, -1)
-
-
 def triangle_nearest_rows(scene, rays: torch.Tensor, t_min: float, t_max: float, compat):
     """Brute-force Möller–Trumbore over all triangles via [T, B] broadcasts
     (hittable.rs:411-461, megakernel.py:789-838).  Returns (t f32[B], BIG on
@@ -186,75 +160,80 @@ def triangle_nearest_rows(scene, rays: torch.Tensor, t_min: float, t_max: float,
     return t_best, torch.where(t_best < BIG, idx, -1)
 
 
-def _tonemap(v: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(WHITE_SCALE * color.uncharted2_tonemap(1.1 * v), min=0.0)
+def build_shade_table_diff(scene) -> torch.Tensor | None:
+    """``scene.shade_table`` with its parameter rows re-assembled from the
+    live scene tensors (fast_shade.py:160-199): the static rows (geometry,
+    flags, trig) are the baked table's, and the rows of ``mat_fuzz``,
+    ``mat_ior`` and ``tex_color`` are gathered so that gradients reach
+    them.  A new tensor; the scene's table is not changed."""
+    base = scene.shade_table
+    if base is None:
+        return None
+    ns, nt = scene.num_spheres, scene.num_triangles
+    p = ns + nt
+    mids = torch.cat([scene.sph_material[:ns], scene.tri_material[:nt]]).to(torch.int64)
+    kinds = scene.mat_kind[mids]
+    tids = scene.mat_texture[mids].to(torch.int64)
+    tkind = scene.tex_kind[tids]
+    is_diel = kinds == MAT_DIELECTRIC
+    checker = (tkind == TEX_CHECKER) & ~is_diel
+    even = scene.tex_children[tids, 0].to(torch.int64)
+    odd = scene.tex_children[tids, 1].to(torch.int64)
+    solid_rgb = take_rows(scene.tex_color, tids)
+    even_rgb = torch.where(checker[:, None], take_rows(scene.tex_color, even), solid_rgb)
+    even_rgb = torch.where(is_diel[:, None], 1.0, even_rgb)
+    odd_rgb = torch.where(checker[:, None], take_rows(scene.tex_color, odd), 0.0)
+    table = base.clone()
+    table[F_FUZZ, :p] = take_rows(scene.mat_fuzz, mids)
+    table[F_IOR, :p] = take_rows(scene.mat_ior, mids)
+    table[F_CE : F_CE + 3, :p] = even_rgb.T
+    table[F_CO : F_CO + 3, :p] = odd_rgb.T
+    return table
 
 
-def _perez(c, cos_theta, gamma, cos_gamma):
-    return (1.0 + c[0] * torch.exp(_div(c[1], torch.clamp(cos_theta, min=0.01)))) * (
-        1.0 + c[2] * torch.exp(c[3] * gamma) + c[4] * cos_gamma * cos_gamma
-    )
+def fetch_params(table: torch.Tensor, prim: torch.Tensor) -> torch.Tensor:
+    """Shading parameters of each lane's winning primitive, f32[F, B]: the
+    one-hot product ``table @ onehot`` of fast_shade.py:207-222.  It is
+    exact in float32 (one nonzero term per sum), and its backward is a
+    matrix product, so the gradient of the table is deterministic.  The
+    port builds flat scenes only (P_pad <= 2048), where the JAX package
+    takes this branch too.  TF32 would round the parameters, so it must be
+    off (PyTorch's default)."""
+    if table.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("fetch_params needs full-float32 matmuls: set "
+                           "torch.set_float32_matmul_precision('highest')")
+    ids = torch.arange(table.shape[1], device=table.device)
+    onehot = (ids[:, None] == prim[None, :]).to(table.dtype)  # [P, B]
+    return torch.matmul(table, onehot)
 
 
-def _sky_rows(sky_k: dict, dx, dy, dz):
-    """Tonemapped sky radiance rows toward unit direction rows, from the
-    per-frame scalars of ``sky.frame_scalars`` (megakernel.py:3094-3153)."""
-    sx, sy, sz = sky_k["sun"]
-    cos_theta = torch.clamp(dz, 0.01, 1.0)
-    cos_gamma = torch.clamp(dx * sx + dy * sy + dz * sz, -1.0, 1.0)
-    if sky_k["cos_gamma_as_angle"]:  # hittable.rs:86 quirk
-        gamma = cos_gamma
-        cos_gamma = torch.cos(gamma)
-    else:
-        gamma = torch.arccos(torch.clamp(cos_gamma, -1.0 + 1e-6, 1.0 - 1e-6))
-    if sky_k["hosek"]:
-        sq = torch.sqrt(torch.clamp(cos_theta, min=0.0))
-        out = []
-        for a, b, c, d, e, f, g, h, i, sc in sky_k["hw"]:
-            one_hh = float(np.float32(1.0) + np.float32(h) * np.float32(h))  # f32 rounding
-            den = torch.clamp(one_hh - 2.0 * h * cos_gamma, min=1e-6)
-            chi = (1.0 + cos_gamma * cos_gamma) / (den * torch.sqrt(den))
-            val = (1.0 + a * torch.exp(_div(b, torch.clamp(cos_theta, min=0.01)))) * (
-                c + d * torch.exp(e * gamma) + f * cos_gamma * cos_gamma + g * chi + i * sq
-            )
-            out.append(_tonemap(torch.clamp(val * sc, min=0.0)))
-        return tuple(out)
-    y_lum = torch.clamp(_perez(sky_k["coef_y"], cos_theta, gamma, cos_gamma) * sky_k["zy"], min=0.0)
-    x_c = _perez(sky_k["coef_x"], cos_theta, gamma, cos_gamma) * sky_k["zx"]
-    y_c = torch.clamp(_perez(sky_k["coef_yc"], cos_theta, gamma, cos_gamma) * sky_k["zyc"], min=1e-6)
-    big_x = x_c / y_c * y_lum
-    big_z = (1.0 - x_c - y_c) / y_c * y_lum
-    from rt_tpu_torch.sky import XYZ_TO_SRGB as m
+def shade_bounce(scene, rays, t, prim, seed: int, work, depth: int, cfg, table=None) -> dict:
+    """One scalarized bounce after intersection (fast_shade.py:225-457).
 
-    m = m.tolist()
-    return tuple(
-        _tonemap(torch.clamp(m[k][0] * big_x + m[k][1] * y_lum + m[k][2] * big_z, min=0.0))
-        for k in range(3)
-    )
-
-
-def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: dict) -> dict:
-    """One bounce after intersection, for rays that all sit at ``depth``.
-
-    ``prim`` is the global winner id (-1 on a miss), ``gid`` the u32 work
-    id of each path (int64).  Returns new_rays f32[6,B], att (RR-scaled
-    attenuation rows), sky rows, emit rows, and bool rows hit, emissive,
-    survive.
+    ``rays`` f32[8, B] (origin xyz, direction xyz, two pad rows), ``t``
+    f32[B] (BIG on a miss), ``prim`` int[B] global winner ids (-1 on a
+    miss), ``seed`` the hash seed, ``work`` int64[B] the lane ids that key
+    the draws, ``table`` the shade table (default ``scene.shade_table``).
+    Returns new_rays f32[8, B], att (attenuation / p_rr rows), sky rows,
+    emit rows, and bool rows emissive, hit and survive.
     """
     compat = cfg.compat
+    if table is None:
+        table = scene.shade_table
     ox, oy, oz = rays[0], rays[1], rays[2]
     dx, dy, dz = rays[3], rays[4], rays[5]
-    hit = t < BIG
-    prim = torch.where(hit, prim, 0)
-    f = scene.shade_table[:, prim]  # [F, B] direct gather of the winner's column
+
+    hit = (prim >= 0) & (t < BIG)
     ts = torch.where(hit, t, 0.0)
     px = ox + ts * dx
     py = oy + ts * dy
     pz = oz + ts * dz
 
-    # Normal + front face (hittable.rs:340-346, 464).
+    f = fetch_params(table, torch.where(hit, prim, 0))
     is_sphere = f[F_IS_SPHERE] > 0.5
-    inv_r = 1.0 / torch.clamp(f[F_RADIUS], min=1e-20)
+
+    # Normal + front face (hittable.rs:340-346, 464).
+    inv_r = div(1.0, maximum(f[F_RADIUS], 1e-20))
     snx = (px - f[F_AX]) * inv_r
     sny = (py - f[F_AY]) * inv_r
     snz = (pz - f[F_AZ]) * inv_r
@@ -268,19 +247,20 @@ def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
     nz = torch.where(is_sphere, snz, tnz)
     front = torch.where(is_sphere, s_front, t_front)
 
-    # Texture: solid / checker (texture.rs:44-74) / image.
+    # Texture: solid / checker (texture.rs:44-74).
     tex_kind = f[F_TEX_KIND]
-    inv_scale = f[F_INV_SCALE]
     cells = (
-        torch.floor(inv_scale * px).to(torch.int32)
-        + torch.floor(inv_scale * py).to(torch.int32)
-        + torch.floor(inv_scale * pz).to(torch.int32)
+        torch.floor(f[F_INV_SCALE] * px).to(torch.int32)
+        + torch.floor(f[F_INV_SCALE] * py).to(torch.int32)
+        + torch.floor(f[F_INV_SCALE] * pz).to(torch.int32)
     )
-    use_even = (tex_kind < 0.5) | ((cells & 1) == 0)
+    use_even = (tex_kind < 0.5) | ((cells & 1) == 0)  # solid always uses CE rows
     tr = torch.where(use_even, f[F_CE + 0], f[F_CO + 0])
     tg = torch.where(use_even, f[F_CE + 1], f[F_CO + 1])
     tb = torch.where(use_even, f[F_CE + 2], f[F_CO + 2])
     if scene.has_image_textures:
+        # UVs feed only the texel index, which carries no gradient, so they
+        # are computed only where an image texture can use them.
         # Sphere UV from the per-primitive facing trig (hittable.rs:367-406).
         qx = f[F_CYW] * snx + f[F_SYW] * sny
         qy = -f[F_SYW] * snx + f[F_CYW] * sny
@@ -288,11 +268,9 @@ def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
         ry = qy
         rz = -f[F_SP] * qx + f[F_CP] * snz
         rx = torch.where(rx * rx + ry * ry < 1e-12, 1.0, rx)
-        theta = torch.arccos(torch.clamp(-rz, -1.0 + 1e-7, 1.0 - 1e-7))
+        theta = torch.arccos(clip(-rz, -1.0 + 1e-7, 1.0 - 1e-7))
         phi = torch.atan2(ry, rx) + math.pi
-        two_pi = 2.0 * math.pi
-        phi_m = phi - torch.floor(phi / two_pi) * two_pi
-        s_u = phi_m * (0.5 / math.pi)
+        s_u = torch.remainder(phi, 2.0 * math.pi) * (0.5 / math.pi)
         s_v = theta * (1.0 / math.pi)
         # Triangle barycentrics recomputed for the winner (hittable.rs:433-452).
         e1x, e1y, e1z = f[F_BX] - f[F_AX], f[F_BY] - f[F_AY], f[F_BZ] - f[F_AZ]
@@ -301,7 +279,7 @@ def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
         uvy = dz * e2x - dx * e2z
         uvz = dx * e2y - dy * e2x
         det = e1x * uvx + e1y * uvy + e1z * uvz
-        inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det, 1.0)
+        inv_det = div(1.0, torch.where(torch.abs(det) > 1e-20, det, 1.0))
         aox, aoy, aoz = ox - f[F_AX], oy - f[F_AY], oz - f[F_AZ]
         bu = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det
         vvx = aoy * e1z - aoz * e1y
@@ -325,31 +303,38 @@ def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
         u = torch.where(is_sphere, s_u, t_u)
         v = torch.where(is_sphere, s_v, t_v)
         # Nearest texel, clamped, index truncated (texture.rs:107-117).
-        w_img = torch.clamp(f[F_RECT + 2], min=1.0)
-        h_img = torch.clamp(f[F_RECT + 3], min=1.0)
-        ix = (torch.clamp(u, 0.0, 1.0) * (w_img - 1.0)).to(torch.int64)
-        iy = (torch.clamp(v, 0.0, 1.0) * (h_img - 1.0)).to(torch.int64)
+        w_img = maximum(f[F_RECT + 2], 1.0)
+        h_img = maximum(f[F_RECT + 3], 1.0)
+        ix = (clip(u, 0.0, 1.0) * (w_img - 1.0)).to(torch.int64)
+        iy = (clip(v, 0.0, 1.0) * (h_img - 1.0)).to(torch.int64)
         atlas = scene.atlas
         ax = torch.clamp(f[F_RECT + 0].to(torch.int64) + ix, 0, atlas.shape[1] - 1)
         ay = torch.clamp(f[F_RECT + 1].to(torch.int64) + iy, 0, atlas.shape[0] - 1)
-        texel = atlas[ay, ax]
         is_image = tex_kind > 1.5
+        # A lane without an image texture fetches a texel chosen by its lane
+        # id: the value is discarded below, and were all such lanes to fetch
+        # texel 0, the backward's deterministic scatter would add their
+        # zeros one after another (14 ms a bounce on an H100 at 90,000 lanes).
+        n_texels = atlas.shape[0] * atlas.shape[1]
+        texel_id = torch.where(is_image, ay * atlas.shape[1] + ax, work % n_texels)
+        texel = take_rows(atlas.reshape(-1, 3), texel_id)  # [B, 3]
         tr = torch.where(is_image, texel[:, 0], tr)
         tg = torch.where(is_image, texel[:, 1], tg)
         tb = torch.where(is_image, texel[:, 2], tb)
 
-    # Scatter draws, purposes 3..9 keyed on (gid, depth) (material.rs).
-    ux3 = rng.uniform(seed, gid, depth, 3) * 2.0 - 1.0
-    uy3 = rng.uniform(seed, gid, depth, 4) * 2.0 - 1.0
-    uz3 = rng.uniform(seed, gid, depth, 5) * 2.0 - 1.0
-    inv_n1 = 1.0 / torch.clamp(torch.sqrt(ux3 * ux3 + uy3 * uy3 + uz3 * uz3), min=1e-12)
+    # Scatter draws, purposes 3..9 keyed on (lane, depth) (material.rs).
+    kind = f[F_MAT_KIND]
+    ux3 = rng.uniform(seed, work, depth, 3) * 2.0 - 1.0
+    uy3 = rng.uniform(seed, work, depth, 4) * 2.0 - 1.0
+    uz3 = rng.uniform(seed, work, depth, 5) * 2.0 - 1.0
+    inv_n1 = div(1.0, maximum(torch.sqrt(ux3 * ux3 + uy3 * uy3 + uz3 * uz3), 1e-12))
     r1x, r1y, r1z = ux3 * inv_n1, uy3 * inv_n1, uz3 * inv_n1
-    vx3 = rng.uniform(seed, gid, depth, 6) * 2.0 - 1.0
-    vy3 = rng.uniform(seed, gid, depth, 7) * 2.0 - 1.0
-    vz3 = rng.uniform(seed, gid, depth, 8) * 2.0 - 1.0
-    inv_n2 = 1.0 / torch.clamp(torch.sqrt(vx3 * vx3 + vy3 * vy3 + vz3 * vz3), min=1e-12)
+    vx3 = rng.uniform(seed, work, depth, 6) * 2.0 - 1.0
+    vy3 = rng.uniform(seed, work, depth, 7) * 2.0 - 1.0
+    vz3 = rng.uniform(seed, work, depth, 8) * 2.0 - 1.0
+    inv_n2 = div(1.0, maximum(torch.sqrt(vx3 * vx3 + vy3 * vy3 + vz3 * vz3), 1e-12))
     r2x, r2y, r2z = vx3 * inv_n2, vy3 * inv_n2, vz3 * inv_n2
-    noise = rng.uniform(seed, gid, depth, 9)
+    noise = rng.uniform(seed, work, depth, 9)
 
     # Lambertian: n + unit, near-zero fallback (material.rs:110-120).
     lx, ly, lz = nx + r1x, ny + r1y, nz + r1z
@@ -365,26 +350,24 @@ def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
     my = dy - 2.0 * d_dot_n * ny + fuzz * r2y
     mz = dz - 2.0 * d_dot_n * nz + fuzz * r2z
 
-    # Dielectric with optional frost (material.rs:150-178).
-    a = dx * dx + dy * dy + dz * dz
-    inv_dn = 1.0 / torch.clamp(torch.sqrt(a), min=1e-20)
+    # Dielectric (material.rs:150-178).
+    inv_dn = div(1.0, maximum(torch.sqrt(dx * dx + dy * dy + dz * dz), 1e-20))
     udx, udy, udz = dx * inv_dn, dy * inv_dn, dz * inv_dn
-    ior = f[F_IOR]
-    ri = torch.where(front, 1.0 / ior, ior)
-    cos_t = torch.clamp(-(udx * nx + udy * ny + udz * nz), max=1.0)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    ri = torch.where(front, div(1.0, f[F_IOR]), f[F_IOR])
+    cos_t = minimum(-(udx * nx + udy * ny + udz * nz), 1.0)
+    sin_t = torch.sqrt(maximum(1.0 - cos_t * cos_t, 0.0))
     cannot = ri * sin_t > 1.0
-    r0 = (1.0 - ri) / (1.0 + ri)
+    r0 = (1.0 - ri) / (1.0 + ri)  # Schlick on the active ratio (material.rs:181-186)
     r0 = r0 * r0
     omc = 1.0 - cos_t
     omc2 = omc * omc
-    reflectance = r0 + (1.0 - r0) * omc2 * omc2 * omc
+    reflectance = r0 + (1.0 - r0) * (omc * (omc2 * omc2))  # x**5 as JAX's integer_pow
     choose_reflect = cannot | (reflectance > noise)
     rpx = (udx + nx * cos_t) * ri
     rpy = (udy + ny * cos_t) * ri
     rpz = (udz + nz * cos_t) * ri
     perp_sq = rpx * rpx + rpy * rpy + rpz * rpz
-    par = -torch.sqrt(torch.clamp(torch.abs(1.0 - perp_sq), min=1e-12))
+    par = -torch.sqrt(maximum(torch.abs(1.0 - perp_sq), 1e-12))
     fzx = rpx + par * nx + fuzz * r2x
     fzy = rpy + par * ny + fuzz * r2y
     fzz = rpz + par * nz + fuzz * r2z
@@ -395,10 +378,9 @@ def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
     ddx = torch.where(choose_reflect, rfx, fzx)
     ddy = torch.where(choose_reflect, rfy, fzy)
     ddz = torch.where(choose_reflect, rfz, fzz)
-    inv_dd = 1.0 / torch.clamp(torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz), min=1e-20)
+    inv_dd = div(1.0, maximum(torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz), 1e-20))
     ddx, ddy, ddz = ddx * inv_dd, ddy * inv_dd, ddz * inv_dd
 
-    kind = f[F_MAT_KIND]
     is_lam = kind < 0.5
     is_metal = (kind > 0.5) & (kind < 1.5)
     is_diel = (kind > 1.5) & (kind < 2.5)
@@ -410,28 +392,75 @@ def shade_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
     att_g = torch.where(is_diel, 1.0, tg)
     att_b = torch.where(is_diel, 1.0, tb)
 
-    # Russian roulette, purpose 10 (camera.rs:280-293; clamped).
-    p_rr = torch.clamp(torch.maximum(torch.maximum(att_r, att_g), att_b), 0.0, compat.rr_clamp)
-    survive = rng.uniform(seed, gid, depth, 10) < p_rr
-    inv_p = 1.0 / torch.clamp(p_rr, min=1e-12)
+    # Russian roulette, purpose 10 (camera.rs:280-293; clamped, never
+    # panics).  Not detached: gradients flow through 1/p as in JAX, whose
+    # max and clip split the cotangent at ties.
+    p_rr = clip(torch.maximum(torch.maximum(att_r, att_g), att_b), 0.0, compat.rr_clamp)
+    survive = rng.uniform(seed, work, depth, 10) < p_rr
+    inv_p = div(1.0, maximum(p_rr, 1e-12))
 
     # New origin offset along the outgoing side, scaled with the hit point.
-    scale = torch.clamp(
-        torch.maximum(torch.abs(px), torch.maximum(torch.abs(py), torch.abs(pz))), min=1.0
-    )
-    off = cfg.origin_offset * scale * torch.sign(new_dx * nx + new_dy * ny + new_dz * nz)
+    scale = maximum(torch.maximum(torch.abs(px), torch.maximum(torch.abs(py), torch.abs(pz))), 1.0)
+    side = torch.sign(new_dx * nx + new_dy * ny + new_dz * nz)
+    off = cfg.origin_offset * scale * side
+    zero = torch.zeros_like(px)
     new_rays = torch.stack(
-        [px + off * nx, py + off * ny, pz + off * nz, new_dx, new_dy, new_dz], dim=0
+        [px + off * nx, py + off * ny, pz + off * nz, new_dx, new_dy, new_dz, zero, zero], dim=0
     )
 
-    sky_r, sky_g, sky_b = _sky_rows(sky_k, udx, udy, udz)
+    sky_r, sky_g, sky_b = _sky_rows(scene.sky, dx * inv_dn, dy * inv_dn, dz * inv_dn)
     return dict(
         new_rays=new_rays,
-        att=(att_r, att_g, att_b),
-        inv_p=inv_p,
+        att=(att_r * inv_p, att_g * inv_p, att_b * inv_p),
         sky=(sky_r, sky_g, sky_b),
         emit=(tr, tg, tb),
         emissive=is_emissive,
         hit=hit,
         survive=survive,
+    )
+
+
+def _sky_rows(sky, dx, dy, dz):
+    """``sky.sky_color_toward`` on unit direction rows, from the live
+    ``SkyParams`` tensors (fast_shade.py:535-590): differentiable in the
+    sun direction, turbidity and exposure.  The sky's tensors are moved to
+    the rows' device, differentiably."""
+    dev = dx.device
+    sun_dir = sky.sun_direction.to(dev)
+    sun = sun_dir / torch.sqrt(sun_dir[0] * sun_dir[0] + sun_dir[1] * sun_dir[1]
+                               + sun_dir[2] * sun_dir[2])
+    cos_theta = clip(dz, 0.01, 1.0)
+    cos_gamma = clip(dx * sun[0] + dy * sun[1] + dz * sun[2], -1.0, 1.0)
+    if sky.cos_gamma_as_angle:  # hittable.rs:86 quirk (sky.py)
+        gamma = cos_gamma
+        cos_gamma = torch.cos(gamma)
+    else:
+        gamma = torch.arccos(clip(cos_gamma, -1.0 + 1e-6, 1.0 - 1e-6))
+
+    white_scale = div(1.0, color.uncharted2_tonemap(torch.tensor(11.2, device=dev)))
+    tm = lambda x: maximum(white_scale * color.uncharted2_tonemap(1.1 * x), 0.0)
+    exposure = sky.exposure.to(dev)
+    if sky.hw_params is not None:  # Hosek-Wilkie mode (sky.py)
+        r, g, b = sky_mod.hosek_radiance_rgb(sky.hw_params.to(dev), cos_theta, gamma, cos_gamma)
+        return tm(r * exposure), tm(g * exposure), tm(b * exposure)
+    turbidity = sky.turbidity.to(dev)
+    theta_s = torch.arccos(clip(sun[2], 0.0, 1.0 - 1e-6))
+    cos_theta_s = torch.cos(theta_s)
+    coef_y, coef_x, coef_yc = sky_mod.perez_coefficients(turbidity)
+    yz, xz, yz_c = sky_mod.zenith_values(turbidity, theta_s)
+    one = torch.tensor(1.0, device=dev)
+
+    def channel(coef, zenith):
+        num = sky_mod._perez(coef, cos_theta, gamma, cos_gamma)
+        den = sky_mod._perez(coef, one, theta_s, cos_theta_s)
+        return zenith * num / den
+
+    y_lum = maximum(channel(coef_y, yz), 0.0) * exposure
+    x_c = channel(coef_x, xz)
+    y_c = maximum(channel(coef_yc, yz_c), 1e-6)
+    big_x = x_c / y_c * y_lum
+    big_z = (1.0 - x_c - y_c) / y_c * y_lum
+    m = sky_mod.XYZ_TO_SRGB.tolist()
+    return tuple(
+        tm(maximum(m[k][0] * big_x + m[k][1] * y_lum + m[k][2] * big_z, 0.0)) for k in range(3)
     )

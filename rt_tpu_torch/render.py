@@ -1,12 +1,18 @@
 """Frame rendering: the user-facing entry points.
 
-Reference analog: ``Camera::render_image`` (camera.rs:315-341).  A frame is
-one call of the flat megakernel over all pixels and samples:
+Reference analog: ``Camera::render_image`` (camera.rs:315-341).  Two routes,
+as in the JAX package (rt_tpu/render.py):
 
-- on a CUDA device, the hand-written CUDA kernel;
-- on the CPU, its plain PyTorch version;
-- a scene the megakernel cannot take (not ported yet) raises, as does a
-  CUDA device on a machine without one.  Nothing falls back.
+- ``wavefront=True`` (the default): one call of the flat megakernel (K1)
+  over all pixels and samples, the hand-written CUDA kernel on a CUDA
+  device and its plain PyTorch version on the CPU;
+- ``wavefront=False``: the chunked megabatch, ``render_chunk`` over chunks
+  of pixels, each traced by ``integrator.trace_radiance`` with K2 as its
+  sphere search.  ``render_chunk(differentiable=True)`` is the gradient
+  path's renderer (grad.py).
+
+A scene a route cannot take (not ported yet) raises, as does a CUDA device
+on a machine without one.  Nothing falls back.
 
 The Mray/s metric follows the reference definition (window.rs:315-324):
 rays = spp * W * H camera samples (bounces NOT counted), divided by wall
@@ -19,10 +25,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from rt_tpu_torch import megakernel
-from rt_tpu_torch.camera import Camera
+from rt_tpu_torch import megakernel, nearest_ops, rng
+from rt_tpu_torch.camera import Camera, generate_rays_keyed
 from rt_tpu_torch.config import RenderConfig
+from rt_tpu_torch.integrator import trace_radiance, trace_radiance_diff
 from rt_tpu_torch.scene import SceneData
 
 
@@ -36,6 +44,35 @@ def _device(device) -> torch.device:
     return device
 
 
+def render_chunk(
+    scene: SceneData,
+    camera: Camera,
+    pixel_idx: torch.Tensor,
+    cfg: RenderConfig,
+    spp: int,
+    sample_offset: int,
+    key: np.ndarray,
+    differentiable: bool = False,
+    *,
+    sphere_nearest=nearest_ops.sphere_nearest,
+) -> torch.Tensor:
+    """Mean radiance f32[P,3] of ``spp`` samples for flat pixel ids
+    ``pixel_idx`` int[P] (y * W + x) on the scene's device, samples
+    [sample_offset, sample_offset + spp) (rt_tpu/render.py:29-63).  ``key``
+    is an rng.key: the camera folds in 0xCA0 and the paths 0x7ACE, as in
+    JAX.  ``sphere_nearest`` is K2 (see geometry)."""
+    p = pixel_idx.shape[0]
+    device = pixel_idx.device
+    pix = pixel_idx.to(torch.int64).repeat_interleave(spp)
+    sample = torch.arange(spp, device=device).repeat(p) + sample_offset
+    width = camera.image_width
+    org, dirn = generate_rays_keyed(camera, pix % width, pix // width, sample,
+                                    rng.fold_in(key, 0xCA0), cfg.compat)
+    trace = trace_radiance_diff if differentiable else trace_radiance
+    radiance = trace(scene, org, dirn, rng.fold_in(key, 0x7ACE), cfg, sphere_nearest)
+    return radiance.reshape(p, spp, 3).mean(dim=1)
+
+
 def render_pixel_colors(
     scene: SceneData,
     camera: Camera,
@@ -44,19 +81,44 @@ def render_pixel_colors(
     device,
     spp: int | None = None,
     sample_offset: int = 0,
-    seed: int | None = None,
+    key: np.ndarray | None = None,
+    wavefront: bool = True,
 ) -> torch.Tensor:
     """Render the full frame to linear color f32[H, W, 3] on ``device``
-    (the scene's tables are moved there).  ``seed`` defaults to
-    ``cfg.seed``."""
+    (the scene's tables are moved there).  ``key`` (rng.key) defaults to
+    ``rng.key(cfg.seed)``; the megakernel draws from the key's hash seed.  ``wavefront=False`` takes the chunked route,
+    ``cfg.max_rays_per_batch // spp`` pixels per ``render_chunk`` call, the
+    ragged tail padded and each chunk's key folded with its first pixel, as
+    rt_tpu/render.py:151-168 does."""
     device = _device(device)
-    if cfg.renderer not in ("auto", "megakernel"):
-        raise NotImplementedError(f"renderer {cfg.renderer!r} is not ported yet")
     spp = spp if spp is not None else cfg.samples_per_pixel
-    seed = seed if seed is not None else cfg.seed
+    if key is None:
+        key = rng.key(cfg.seed)
     scene.to(device)
-    flat = megakernel.render_megakernel(scene, camera, cfg, spp, sample_offset, seed)
-    return flat.reshape(camera.image_height, camera.image_width, 3)
+    w, h = camera.image_width, camera.image_height
+    n_pixels = w * h
+    if wavefront:
+        if cfg.renderer not in ("auto", "megakernel"):
+            raise NotImplementedError(f"renderer {cfg.renderer!r} is not ported yet")
+        flat = megakernel.render_megakernel(scene, camera, cfg, spp, sample_offset, rng.key_seed(key))
+        return flat.reshape(h, w, 3)
+
+    pixels_per_chunk = max(cfg.max_rays_per_batch // max(spp, 1), 1)
+    all_idx = torch.arange(n_pixels, device=device)
+    padded = n_pixels > pixels_per_chunk
+    chunks = []
+    for start in range(0, n_pixels, pixels_per_chunk):
+        idx = all_idx[start : start + pixels_per_chunk]
+        # Pad the ragged tail to the chunk size (the JAX package reuses one
+        # compiled program that way; the real lanes' draws do not change).
+        pad = pixels_per_chunk - idx.shape[0]
+        if pad and padded:
+            idx = F.pad(idx, (0, pad))
+        colors = render_chunk(scene, camera, idx, cfg, spp, sample_offset, rng.fold_in(key, start))
+        if pad and padded:
+            colors = colors[: pixels_per_chunk - pad]
+        chunks.append(colors)
+    return torch.cat(chunks).reshape(h, w, 3)
 
 
 def render_image(

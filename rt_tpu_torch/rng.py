@@ -12,12 +12,19 @@ the JAX package draws.
 torch has little uint32 arithmetic, so values travel as int64 holding the
 u32 bit pattern (0 <= x < 2**32).  Products are split into 16-bit halves so
 no intermediate leaves int64's range.
+
+The host-side keys of the JAX package's public API (``jax.random.key``,
+``fold_in``) are here too, as ``key``, ``fold_in`` and ``key_seed``: a key
+is the numpy ``uint32[2]`` that ``jax.random.key_data`` returns, and
+``fold_in`` is threefry-2x32, so the hash seeds derived from a key are the
+JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -25,6 +32,41 @@ _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
 _WEYL = 0x9E3779B9
 _INV_24 = 5.9604645e-8  # 2^-24 as the f32 the JAX package multiplies by
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
+    """Threefry-2x32 with 20 rounds on one counter pair (Salmon et al.
+    2011), as ``jax.random``'s default implementation computes it."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def key(seed: int) -> np.ndarray:
+    """``jax.random.key_data(jax.random.key(seed))`` with 64-bit values off
+    (JAX's default): the seed wraps to int32, giving (0, seed mod 2**32)."""
+    return np.array([0, int(seed) & _MASK], np.uint32)
+
+
+def fold_in(k: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in``: threefry of the counter (0, data) under the
+    key."""
+    return np.array(_threefry2x32(int(k[0]), int(k[1]), 0, int(data) & _MASK), np.uint32)
+
+
+def key_seed(k: np.ndarray) -> int:
+    """The 32-bit hash seed the JAX package derives from a key: the last
+    word of its data (wavefront._seed_from_key)."""
+    return int(k[-1])
 
 
 def as_u32(x, device=None) -> torch.Tensor:

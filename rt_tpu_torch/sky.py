@@ -112,7 +112,8 @@ def _safe_arccos(x: torch.Tensor) -> torch.Tensor:
 def perez_coefficients(turbidity: torch.Tensor):
     """(A..E) Perez coefficients for (Y, x, y) at the given turbidity."""
     t = torch.as_tensor(turbidity, dtype=torch.float32)
-    coef = lambda tab: torch.from_numpy(tab[:, 0]) * t + torch.from_numpy(tab[:, 1])
+    table = lambda col: torch.from_numpy(col).to(t.device)
+    coef = lambda tab: table(tab[:, 0]) * t + table(tab[:, 1])
     return coef(_PEREZ_Y), coef(_PEREZ_X), coef(_PEREZ_YC)
 
 
@@ -131,8 +132,8 @@ def zenith_values(turbidity: torch.Tensor, theta_s: torch.Tensor):
     y_lum = (4.0453 * t - 4.9710) * torch.tan(chi) - 0.2155 * t + 2.4192
     tv = torch.stack([t * t, t, torch.ones_like(t)])
     sv = torch.stack([theta_s**3, theta_s**2, theta_s, torch.ones_like(theta_s)])
-    x_z = tv @ torch.from_numpy(_ZENITH_X) @ sv
-    y_z = tv @ torch.from_numpy(_ZENITH_Y) @ sv
+    x_z = tv @ torch.from_numpy(_ZENITH_X).to(t.device) @ sv
+    y_z = tv @ torch.from_numpy(_ZENITH_Y).to(t.device) @ sv
     return y_lum, x_z, y_z
 
 

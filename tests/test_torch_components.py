@@ -25,7 +25,7 @@ from rt_tpu import sampling as jsampling
 from rt_tpu import scenes as jscenes
 from rt_tpu import sky as jsky
 from rt_tpu.config import CompatConfig as JCompat
-from rt_tpu_torch import color, fast_shade, rng, sampling, scenes, sky
+from rt_tpu_torch import color, fast_shade, megakernel, rng, sampling, scenes, sky
 from rt_tpu_torch.camera import generate_rays
 from rt_tpu_torch.config import CompatConfig
 
@@ -170,7 +170,10 @@ def test_sky_color_toward_close(name):
     np.testing.assert_allclose(got, ref, **tol)
     # The megakernel's per-frame scalars give the same sky, up to the
     # kernel's folding of the zenith normalization into one factor.
-    rows = fast_shade._sky_rows(sky.frame_scalars(tp), *torch.from_numpy(dirs).T)
+    rows = megakernel._mega_sky_rows(sky.frame_scalars(tp), *torch.from_numpy(dirs).T)
+    np.testing.assert_allclose(torch.stack(rows, 1).numpy(), ref, atol=1e-5, rtol=1e-5)
+    # So does the gradient path's sky on the live SkyParams tensors.
+    rows = fast_shade._sky_rows(tp, *torch.from_numpy(dirs).T)
     np.testing.assert_allclose(torch.stack(rows, 1).numpy(), ref, atol=1e-5, rtol=1e-5)
 
 

@@ -9,7 +9,9 @@ XLA transcendentals, summation order).  Each side builds the scene with its
 own SceneBuilder (tables bit-equal, test_torch_scene.py).
 
 The CUDA kernel itself is held against the plain version by the ``cuda``
-test below, which runs only where a card is present.
+test below, which runs only where a card is present.  ``rt_tpu`` is
+imported only where the JAX side is built, so that the ``cuda`` test also
+runs on a machine without the JAX package's dependencies.
 """
 
 import jax
@@ -18,12 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from rt_tpu.camera import make_camera as j_make_camera
-from rt_tpu.config import CompatConfig as JCompat
-from rt_tpu.config import RenderConfig as JConfig
-from rt_tpu.scene import SceneBuilder as JBuilder
-from rt_tpu.sky import SkyParams as JSky
-from rt_tpu.wavefront import _render_generic
 from rt_tpu_torch import megakernel
 from rt_tpu_torch.camera import make_camera
 from rt_tpu_torch.config import CompatConfig, RenderConfig
@@ -57,27 +53,38 @@ def _sky(mod, kind):
     return sky.replace(cos_gamma_as_angle=True) if kind == "quirk" else sky
 
 
+def _case(name, builder, make, sky_mod, cfg_cls, compat_cls):
+    """(scene, camera, cfg) of one case, built with one package's classes."""
+    mat_fn, defocus, compat, sky_kind = CASES[name]
+    b = builder()
+    b.add_sphere((0, 0, -1000), 1000, b.lambertian(b.solid_color((0.5, 0.5, 0.5))))
+    mat_fn(b)
+    scene = b.build(sky=_sky(sky_mod, sky_kind))
+    camera = make((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=defocus,
+                  image_width=W, image_height=H, vertical_fov=30.0)
+    cfg = cfg_cls(width=W, height=H, samples_per_pixel=2, max_depth=8, compat=compat_cls(**compat))
+    return scene, camera, cfg
+
+
+def _port_case(name):
+    return _case(name, SceneBuilder, make_camera, SkyParams, RenderConfig, CompatConfig)
+
+
 def _pair(name):
     """(JAX scene, camera, cfg) and (port scene, camera, cfg) of one case."""
-    mat_fn, defocus, compat, sky_kind = CASES[name]
-    out = []
-    for builder, make, sky_mod, cfg_cls, compat_cls in (
-        (JBuilder, j_make_camera, JSky, JConfig, JCompat),
-        (SceneBuilder, make_camera, SkyParams, RenderConfig, CompatConfig),
-    ):
-        b = builder()
-        b.add_sphere((0, 0, -1000), 1000, b.lambertian(b.solid_color((0.5, 0.5, 0.5))))
-        mat_fn(b)
-        scene = b.build(sky=_sky(sky_mod, sky_kind))
-        camera = make((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=defocus,
-                      image_width=W, image_height=H, vertical_fov=30.0)
-        cfg = cfg_cls(width=W, height=H, samples_per_pixel=2, max_depth=8, compat=compat_cls(**compat))
-        out.append((scene, camera, cfg))
-    return out
+    from rt_tpu.camera import make_camera as j_make_camera
+    from rt_tpu.config import CompatConfig as JCompat
+    from rt_tpu.config import RenderConfig as JConfig
+    from rt_tpu.scene import SceneBuilder as JBuilder
+    from rt_tpu.sky import SkyParams as JSky
+
+    return _case(name, JBuilder, j_make_camera, JSky, JConfig, JCompat), _port_case(name)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_megakernel_matches_generic(name):
+    from rt_tpu.wavefront import _render_generic
+
     (js, jc, jcfg), (ts, tc, tcfg) = _pair(name)
     assert megakernel.eligible(ts, tcfg)
     ref = np.asarray(_render_generic(
@@ -94,7 +101,7 @@ def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     for name in CASES:
-        _, (scene, camera, cfg) = _pair(name)
+        scene, camera, cfg = _port_case(name)
         scene.to("cuda")
         for off, base, n in ((0, 0, None), (3, W * H // 2, W * H // 2)):
             before = megakernel.LAUNCHES
