@@ -6,15 +6,22 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from csrc/ (K1, the flat megakernel; K2/K2b,
-the nearest-sphere kernel), holds each against its plain PyTorch version on
-the card, and drives each path at the bench configuration, with the launch
+the nearest-sphere kernel; K3/K3b, the nearest-primitive kernel with the
+shade-table fetch), holds each against its plain PyTorch version on the
+card, and drives each path at the bench configuration, with the launch
 counts set to 0 just before and read just after:
 
 - the forward megakernel path (``render_image`` and the CLI), K1;
 - the gradient path (``grad.pixel_grad`` at 400x225, 1 spp), K2: finite
   gradients that agree with the same path run on K2's plain version,
   bit-identical repeats, and autograd against finite differences;
-- the chunked forward path (``render_pixel_colors(wavefront=False)``), K2.
+- the chunked forward path (``render_pixel_colors(wavefront=False)``), K2;
+- the persistent wavefront (``render_pixel_colors`` with renderer
+  "wavefront"), K3: bit-identical repeats and the same frame on K3's plain
+  version; its generic path on a scene without a shade table, K2;
+- progressive rendering (``ProgressiveRenderer`` and the CLI's
+  ``--progressive``), K3: a checkpointed and resumed run bit-identical to
+  an uninterrupted one.
 
 It prints the card, the timings, the kernel table and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -104,6 +111,22 @@ def small_scenes():
 # last bit; the bound allows for reductions that the two runs order alike.
 GRAD_LOSS_RTOL = 1e-5
 GRAD_LEAF_TOL = 1e-3
+
+
+# The card's peaks for the least-time bounds (NVIDIA's H100 SXM data sheet,
+# at the full 700 W): FP32 outside the tensor cores, and HBM3.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Floating-point operations per pair, counted from the kernels' code
+# (csrc/nearest.cu, csrc/prim_nearest.cu); compares and selects not counted.
+FLOPS_SPHERE_PAIR = 24  # 3 sub, 5 for h, 7 for c, 3 for disc, max, sqrt, 2 + 2 for the roots
+FLOPS_TRIANGLE_PAIR = 46  # 9 + 9 for the crosses, 5 det, 1 div, 3 sub, 6 u, 6 v, 6 t, 1 u+v
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes")."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def compare(got, ref):
@@ -376,6 +399,282 @@ def atlas_backward_phase(dev, atlas, timer, n: int = 90_000):
     return det_ms, plain_ms
 
 
+def prim_rays(scene, camera, cfg, n: int, dev):
+    """n rays in the kernel layout f32[8, n]: the bench frame's first n/2
+    camera rays (sample 0) and n/2 random rays."""
+    import torch
+
+    from rt_tpu_torch.camera import generate_rays
+
+    half = n // 2
+    pix = torch.arange(half, device=dev)
+    org, dirn, _ = generate_rays(camera, pix, torch.zeros_like(pix), cfg.seed, cfg.compat)
+    r_org, r_dir = random_rays(n - half, 6, dev)
+    rays = torch.zeros((8, n), device=dev)
+    rays[0:3], rays[3:6] = torch.cat([org, r_org]).T, torch.cat([dirn, r_dir]).T
+    return rays
+
+
+def prim_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
+    """K3 and K3b against their plain versions at the wavefront pool's
+    shape (n rays x the bench scene's tables): winners, t and params equal
+    bit for bit, with culling on and off.  Returns, for K3 and K3b, (max |d
+    t|, kernel ms, plain ms, bound ms, bound_by)."""
+    import torch
+
+    from rt_tpu_torch import prim_ops as po
+
+    rays = prim_rays(scene, camera, cfg, n, dev)
+    tables = (scene.sph_packed, scene.tri_packed)
+    table = scene.shade_table
+    ns, nt = scene.num_spheres, scene.num_triangles
+    for cull in (True, False):
+        k3 = po.prim_nearest_shaded(rays, *tables, table, ns, 1e-3, 3e38, cull)
+        k3b = po.prim_nearest_packed(rays, *tables, ns, 1e-3, 3e38, cull)
+        ref = po.prim_nearest_shaded_plain(rays, *tables, table, ns, 1e-3, 3e38, cull)
+        hit = ref[1] >= 0
+        err = float((k3[0] - ref[0])[hit].abs().max())
+        same = (all(bool(torch.equal(a, b)) for a, b in zip(k3, ref))
+                and bool(torch.equal(k3b[0], ref[0])) and bool(torch.equal(k3b[1], ref[1])))
+        tri_hits = int((ref[1] >= ns).sum())
+        print(f"[K3] {n} rays x {ns} spheres + {nt} triangles, cull {cull}: t, prim and params "
+              f"equal to plain {same} (K3b too), hits {int(hit.sum())} ({tri_hits} on triangles), "
+              f"max|d t| {err:.3e}")
+        check(same and err == 0.0 and tri_hits > 0, "K3/K3b: kernel and plain version disagree")
+    args = (rays, *tables)
+    _, k3_ms = timer(lambda: po.prim_nearest_shaded(*args, table, ns, 1e-3, 3e38), 5)
+    _, k3_plain_ms = timer(lambda: po.prim_nearest_shaded_plain(*args, table, ns, 1e-3, 3e38), 5)
+    _, k3b_ms = timer(lambda: po.prim_nearest_packed(*args, ns, 1e-3, 3e38), 5)
+    _, k3b_plain_ms = timer(lambda: po.prim_nearest_packed_plain(*args, ns, 1e-3, 3e38), 5)
+    # Least work: every real (ray, primitive) pair once; the rays' six rows
+    # and the tables read once, t and prim (and K3's params) written once.
+    flops = n * (ns * FLOPS_SPHERE_PAIR + nt * FLOPS_TRIANGLE_PAIR)
+    read = n * 6 * 4 + scene.sph_packed.numel() * 4 + scene.tri_packed.numel() * 4
+    k3_bound = bound(flops, read + table.numel() * 4 + n * 8 + n * table.shape[0] * 4)
+    k3b_bound = bound(flops, read + n * 8)
+    print(f"[K3] least time on this card: K3 {k3_bound[0] * 1e3:.2f} us, K3b "
+          f"{k3b_bound[0] * 1e3:.2f} us, both bound by {k3_bound[1]} ({flops / 1e9:.3f} GFLOP)")
+    return (err, k3_ms, k3_plain_ms, *k3_bound), (err, k3b_ms, k3b_plain_ms, *k3b_bound)
+
+
+def wavefront_phase(dev, k1_frame):
+    """The bench frame through render_pixel_colors with renderer
+    "wavefront": K3 launches equal to the loop's iterations, a repeat
+    bit-identical, the same frame on K3's plain version bit-identical, and
+    the image against K1's of the same frame (the same hash streams).
+    Returns (kernel launches, wavefront counts, wall s)."""
+    import numpy as np
+    import torch
+
+    from rt_tpu_torch import prim_ops, rng, wavefront
+    from rt_tpu_torch.render import render_pixel_colors
+    from rt_tpu_torch.scenes import bench_cover_config
+
+    scene, camera, cfg = bench_cover_config()
+    cfg = cfg.replace(renderer="wavefront")
+    scene.to(dev)
+    spp, w, h = cfg.samples_per_pixel, camera.image_width, camera.image_height
+    for name in prim_ops.LAUNCHES:
+        prim_ops.LAUNCHES[name] = 0
+    wavefront.COUNTS.update(iterations=0, segments=0)
+    sync(dev)
+    t0 = time.perf_counter()
+    img = render_pixel_colors(scene, camera, cfg, device=dev)
+    host = img.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    launches, counts = dict(prim_ops.LAUNCHES), dict(wavefront.COUNTS)
+    rays = spp * w * h
+    print(f"[wavefront] render_pixel_colors(renderer='wavefront') {w}x{h} {spp} spp depth "
+          f"{cfg.max_depth}: {seconds:.4f} s, {rays / seconds / 1e6:.3f} Mray/s; K3 launches "
+          f"{launches['prim_nearest_shaded']}, iterations {counts['iterations']}, ray segments "
+          f"{counts['segments']}")
+    check(launches["prim_nearest_shaded"] == counts["iterations"] > 0,
+          "the wavefront did not go through K3 once per iteration")
+    check(host.shape == (h, w, 3) and bool(np.isfinite(host).all()), "wavefront image is not finite")
+    again = render_pixel_colors(scene, camera, cfg, device=dev)
+    check(bool(torch.equal(img, again)), "two wavefront renders differ")
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    plain = wavefront.render_wavefront(scene, camera, pix, cfg, spp, 0, rng.key(cfg.seed),
+                                       prim_nearest=prim_ops.prim_nearest_shaded_plain)
+    check(bool(torch.equal(img.reshape(-1, 3), plain)), "the wavefront on plain K3 differs")
+    print("[wavefront] a repeat and the same frame on K3's plain version are bit-identical")
+    d = np.abs(host - k1_frame)
+    within = float((d <= ATOL + RTOL * np.abs(k1_frame)).all(axis=-1).mean())
+    print(f"[wavefront] against K1's image of the frame: max|d| {d.max():.4e}, mean|d| "
+          f"{d.mean():.3e}, pixels within 1e-3 {within:.4%}")
+    check(within > 0.99, "the wavefront image differs from K1's")
+    return launches, counts, seconds
+
+
+def generic_phase(dev):
+    """_render_generic on a scene without a shade table (a checker with an
+    image child): K2 launches, and the same frame on K2's plain version
+    bit-identical."""
+    import numpy as np
+    import torch
+
+    from rt_tpu_torch import nearest_ops, rng, scenes, wavefront
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    img = np.linspace(0.2, 0.9, 8 * 8 * 3, dtype=np.float32).reshape(8, 8, 3)
+    b.add_sphere((0, 0, -1000), 1000, b.lambertian(b.checker(0.5, b.image_texture(img),
+                                                             b.solid_color((0.9, 0.9, 0.9)))))
+    b.add_sphere((0, 0, 1), 1, b.metal_solid((0.8, 0.7, 0.6), 0.1))
+    b.add_sphere((1.5, -1, 0.6), 0.6, b.dielectric(1.5))
+    scene = b.build()
+    check(scene.shade_table is None, "the generic scene has a shade table")
+    scene.to(dev)
+    w, h, spp = 200, 112, 2
+    camera = scenes.cam1(w, h)
+    cfg = RenderConfig(width=w, height=h, max_depth=16)
+    pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+    for name in nearest_ops.LAUNCHES:
+        nearest_ops.LAUNCHES[name] = 0
+    wavefront.COUNTS.update(iterations=0, segments=0)
+    sync(dev)
+    t0 = time.perf_counter()
+    got = wavefront.render_wavefront(scene, camera, pix, cfg, spp, 0, rng.key(0))
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches, iterations = dict(nearest_ops.LAUNCHES), wavefront.COUNTS["iterations"]
+    plain = wavefront._render_generic(scene, camera, pix, cfg, spp, 0, rng.key(0),
+                                      sphere_nearest=nearest_ops.sphere_nearest_plain)
+    same = bool(torch.equal(got, plain))
+    print(f"[generic] _render_generic, checker with an image child, {w}x{h} {spp} spp: "
+          f"{seconds:.4f} s, K2 launches {launches}, iterations {iterations}; "
+          f"equal to the plain-K2 run {same}")
+    check(launches["sphere_nearest"] == iterations > 0,
+          "the generic path did not go through K2")
+    check(same and bool(torch.isfinite(got).all()), "the generic path on plain K2 differs")
+
+
+def profile_phase(dev, card: str, spp: int = 2, top: int = 6):
+    """One warm wavefront frame of the bench scene at ``spp`` under
+    ``profiling.device_trace``: wall with and without the profiler, the
+    device's busy share, K3's share of device time and the largest device
+    items.  The trace goes to build/wavefront_trace.json."""
+    from rt_tpu_torch import profiling, wavefront
+    from rt_tpu_torch.render import render_pixel_colors
+    from rt_tpu_torch.scenes import bench_cover_config
+
+    scene, camera, cfg = bench_cover_config()
+    cfg = cfg.replace(renderer="wavefront")
+    frame = lambda: render_pixel_colors(scene, camera, cfg, device=dev, spp=spp)
+    plain_s = wall(frame, 1, dev)
+    os.makedirs("build", exist_ok=True)
+    trace = os.path.join("build", "wavefront_trace.json")
+    wavefront.COUNTS.update(iterations=0, segments=0)
+    t0 = time.perf_counter()
+    with profiling.device_trace(trace) as prof:
+        frame()
+        sync(dev)
+    traced_s = time.perf_counter() - t0
+    iterations = wavefront.COUNTS["iterations"]
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    print(f"[profile] wavefront frame {camera.image_width}x{camera.image_height} {spp} spp on "
+          f"{card}: wall {plain_s:.4f} s, under the "
+          f"profiler {traced_s:.4f} s; trace {trace}")
+    if not rows:
+        print("[profile] the profiler recorded no device time: device busy share not measured")
+        return
+    k3_us = sum(r[0] for r in rows if "prim_nearest_kernel" in r[2])
+    kernels = sum(r[1] for r in rows)
+    print(f"[profile] device busy {busy_us / 1e3:.2f} ms = {busy_us / 1e4 / traced_s:.1f}% of the "
+          f"profiled wall, {busy_us / 1e4 / plain_s:.1f}% of the unprofiled wall; K3 "
+          f"{k3_us / 1e3:.3f} ms ({100 * k3_us / busy_us:.1f}% of device time); {kernels} device "
+          f"kernels in {iterations} iterations ({kernels / max(iterations, 1):.0f} per iteration)")
+    for us, count, key in rows[:top]:
+        print(f"[profile]   {us / 1e3:9.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def progressive_phase(dev, card: str, passes: int = 9, cut: int = 5):
+    """ProgressiveRenderer on the bench scene for the reference schedule's
+    first ``passes`` passes: per-sweep Mray/s; a run checkpointed after
+    pass ``cut`` and resumed by a fresh renderer, bit-identical to the
+    uninterrupted run; and the "mega" engine once.  Returns (K3 launches,
+    wall s of the uninterrupted run)."""
+    import numpy as np
+
+    from rt_tpu_torch import prim_ops
+    from rt_tpu_torch.progressive import ProgressiveRenderer
+    from rt_tpu_torch.scenes import bench_cover_config
+
+    scene, camera, cfg = bench_cover_config()
+    os.makedirs("build", exist_ok=True)
+    ckpt = os.path.join("build", "progressive_smoke.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    for name in prim_ops.LAUNCHES:
+        prim_ops.LAUNCHES[name] = 0
+    sweeps = []
+    t0 = time.perf_counter()
+    whole = ProgressiveRenderer(scene, camera, cfg, device=dev)
+    whole.run(max_passes=passes, on_sweep=lambda img, m: sweeps.append(m))
+    seconds = time.perf_counter() - t0
+    launches = prim_ops.LAUNCHES["prim_nearest_shaded"]
+    spp, w, h = whole.state.total_spp, camera.image_width, camera.image_height
+    print(f"[progressive] {passes} passes, {spp} spp at {w}x{h} on {card}: {seconds:.3f} s, "
+          f"{spp * w * h / seconds / 1e6:.3f} Mray/s overall, K3 launches {launches}")
+    print("[progressive] per sweep (spp: Mray/s): " + ", ".join(
+        f"{m['sweep_spp']}: {m['mray_per_s']:.3f}" for m in sweeps))
+    check(launches > 0 and spp == sum(whole.passes[:passes])
+          and bool(np.isfinite(whole.state.image).all()),
+          "the progressive run failed")
+    first = ProgressiveRenderer(scene, camera, cfg, checkpoint_path=ckpt, device=dev)
+    first.run(max_passes=cut)
+    resumed = ProgressiveRenderer(scene, camera, cfg, checkpoint_path=ckpt, device=dev)
+    check(resumed.state.pass_index == cut, "the checkpoint did not resume")
+    resumed.run(max_passes=passes - cut)
+    same = np.array_equal(resumed.state.accum, whole.state.accum)
+    print(f"[progressive] checkpointed after pass {cut}, resumed by a fresh renderer: accumulator "
+          f"bit-identical to the uninterrupted run {same}")
+    check(same, "the resumed progressive run differs")
+    t0 = time.perf_counter()
+    mega = ProgressiveRenderer(scene, camera, cfg, engine="mega", device=dev)
+    mega.run(max_passes=passes)
+    mega_s = time.perf_counter() - t0
+    d = float(np.abs(mega.state.image - whole.state.image).mean())
+    print(f"[progressive] engine 'mega' (K1), {passes} passes: {mega_s:.3f} s, "
+          f"{spp * w * h / mega_s / 1e6:.3f} Mray/s; mean |d| to the wavefront image {d:.3e}")
+    check(mega.engine == "mega" and d < 1e-2, "the mega engine's image differs")
+    return launches, seconds
+
+
+def cli_progressive_phase():
+    """The CLI's --progressive on the card: 4 passes with a checkpoint."""
+    import numpy as np
+
+    png = os.path.join("build", "cover_progressive.png")
+    ckpt = os.path.join("build", "cover_progressive.npz")
+    for path in (png, ckpt):
+        if os.path.exists(path):
+            os.remove(path)
+    cmd = [sys.executable, "-m", "rt_tpu_torch.cli", "--scene", "cover", "--size", "400x225",
+           "--max-depth", "50", "--progressive", "--passes", "4", "--checkpoint", ckpt,
+           "--device", "cuda", "--out", png]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    print(f"[cli] {' '.join(cmd[1:])}: rc {res.returncode}, {time.perf_counter() - t0:.1f} s")
+    for line in res.stdout.strip().splitlines()[-2:]:
+        print(f"[cli] {line}")
+    check(res.returncode == 0, f"the progressive CLI failed: {res.stderr[-2000:]}")
+    with open(png, "rb") as f:
+        check(f.read(8) == b"\x89PNG\r\n\x1a\n", "the progressive CLI wrote no PNG")
+    with np.load(ckpt) as data:
+        check(int(data["total_spp"]) == 15 and int(data["pass_index"]) == 4,
+              "the progressive CLI's checkpoint is wrong")
+    print(f"[cli] wrote {png} and {ckpt} (15 spp, 4 passes)")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -397,7 +696,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- 2. build K1 and K2 from the repository's sources ------------------------
+    # -- 2. build K1, K2 and K3 from the repository's sources ---------------------
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {_build.build_info['path']}: nvcc {_build.build_info['seconds']:.2f} s "
@@ -426,6 +725,7 @@ def main() -> int:
     check(bad <= BENCH_OUTLIER_SHARE * total, "bench frame: kernel and plain version disagree")
     print(f"[time] bench frame {spp} spp on {card}: kernel {kernel_ms:.3f} ms "
           f"(CUDA events, mean of 5 after a warm-up)")
+    k1_frame = got.reshape(225, 400, 3).cpu().numpy()
 
     # -- 4. the main path through render_image ----------------------------------
     mk.LAUNCHES = 0
@@ -516,43 +816,68 @@ def main() -> int:
     print(f"[chunked] against the 640-spp K1 image: mean |d| per pixel {pixel_mad:.5f}, "
           f"of 16x16 tile means {tile_mad:.5f} (limit 1e-2)")
 
-    # -- 11. result -------------------------------------------------------------------
+    # -- 11. K3/K3b kernel vs plain on the card ------------------------------------
+    scene, camera, cfg = bench_cover_config()
+    scene.to(dev)
+    k3, k3b = prim_phase(dev, scene, camera, cfg, timed_cuda)
+    print(f"[time] K3 prim_nearest_shaded 65536 rays x {scene.num_spheres} spheres + "
+          f"{scene.num_triangles} triangles on {card}: kernel {k3[1]:.4f} ms, plain {k3[2]:.4f} ms, "
+          f"bound {k3[3]:.4f} ms (CUDA events, mean of 5 after a warm-up)")
+    print(f"[time] K3b prim_nearest_packed, the same rays on {card}: kernel {k3b[1]:.4f} ms, "
+          f"plain {k3b[2]:.4f} ms, bound {k3b[3]:.4f} ms")
+
+    # -- 12. the persistent wavefront (K3) --------------------------------------------
+    wf_launches, wf_counts, wf_s = wavefront_phase(dev, k1_frame)
+
+    # -- 13. the wavefront's generic path (K2) ----------------------------------------
+    generic_phase(dev)
+
+    # -- 14. where the wavefront's time goes (torch.profiler) ---------------------------
+    profile_phase(dev, card)
+
+    # -- 15. progressive rendering, and its CLI ----------------------------------------
+    progressive_phase(dev, card)
+    cli_progressive_phase()
+
+    # -- 16. result -------------------------------------------------------------------
     check(all(math.isfinite(v) for v in (bench_err, kernel_ms, plain_ms, k2_ms, k2_plain_ms,
-                                          k2b_ms, k2b_plain_ms)), "non-finite measurement")
-    print("[kernels] sphere_nearest_packed (K2b) has no caller on any path, as in rt_tpu; "
-          "it is held against its plain version above")
+                                          k2b_ms, k2b_plain_ms, *k3[:4], *k3b[:4], wf_s)),
+          "non-finite measurement")
+    # Least times: K1 does at least the pair tests of the ray segments the
+    # wavefront counted for the same frame (the same paths); K2/K2b the pair
+    # tests of phase 7's rays (90,000, and 90,112 packed) with the bench
+    # scene's spheres, reading the rays once and writing t and idx once.
+    ns, nt = bench_scene.num_spheres, bench_scene.num_triangles
+    seg = wf_counts["segments"]
+    k1_bound = bound(seg * (ns * FLOPS_SPHERE_PAIR + nt * FLOPS_TRIANGLE_PAIR), 90_000 * 12)
+    k2_bound = bound(90_000 * ns * FLOPS_SPHERE_PAIR, 90_000 * (24 + 8) + ns * 16)
+    k2b_bound = bound(90_112 * ns * FLOPS_SPHERE_PAIR, 90_112 * (24 + 8) + 512 * 16)
+    print(f"[kernels] least time on this card ({PEAK_FP32 / 1e12:.0f} TFLOP/s FP32, "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s): K1 {k1_bound[0]:.4f} ms ({seg} ray segments), "
+          f"K2 {k2_bound[0]:.4f} ms, K2b {k2b_bound[0]:.4f} ms, K3 {k3[3]:.4f} ms, "
+          f"K3b {k3b[3]:.4f} ms")
+    print("[kernels] sphere_nearest_packed (K2b) and prim_nearest_packed (K3b) have no caller on "
+          "any path, as in rt_tpu; each is held against its plain version above")
+
+    def entry(name, source, replaces, n_launches, err, ms, p_ms, bnd):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     print(card_line())
     print(json.dumps({"kernels": [
-        {
-            "name": "megakernel_flat",
-            "route": "cuda",
-            "source": "rt_tpu_torch/csrc/megakernel.cu",
-            "replaces": "rt_tpu/megakernel.py:288",
-            "launches": launches,
-            "max_abs_err": bench_err,
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-        },
-        {
-            "name": "sphere_nearest",
-            "route": "cuda",
-            "source": "rt_tpu_torch/csrc/nearest.cu",
-            "replaces": "rt_tpu/pallas_ops.py:123",
-            "launches": grad_launches["sphere_nearest"],
-            "max_abs_err": k2_err,
-            "ms": k2_ms,
-            "plain_ms": k2_plain_ms,
-        },
-        {
-            "name": "sphere_nearest_packed",
-            "route": "cuda",
-            "source": "rt_tpu_torch/csrc/nearest.cu",
-            "replaces": "rt_tpu/pallas_ops.py:313",
-            "launches": grad_launches["sphere_nearest_packed"],
-            "max_abs_err": k2b_err,
-            "ms": k2b_ms,
-            "plain_ms": k2b_plain_ms,
-        },
+        entry("megakernel_flat", "rt_tpu_torch/csrc/megakernel.cu", "rt_tpu/megakernel.py:288",
+              launches, bench_err, kernel_ms, plain_ms, k1_bound),
+        entry("sphere_nearest", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:123",
+              grad_launches["sphere_nearest"], k2_err, k2_ms, k2_plain_ms, k2_bound),
+        entry("sphere_nearest_packed", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:313",
+              grad_launches["sphere_nearest_packed"], k2b_err, k2b_ms, k2b_plain_ms, k2b_bound),
+        entry("prim_nearest_shaded", "rt_tpu_torch/csrc/prim_nearest.cu",
+              "rt_tpu/pallas_ops.py:936", wf_launches["prim_nearest_shaded"], k3[0], k3[1], k3[2],
+              k3[3:5]),
+        entry("prim_nearest_packed", "rt_tpu_torch/csrc/prim_nearest.cu",
+              "rt_tpu/pallas_ops.py:270", wf_launches["prim_nearest_packed"], k3b[0], k3b[1],
+              k3b[2], k3b[3:5]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

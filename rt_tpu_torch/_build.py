@@ -101,6 +101,10 @@ def library() -> ctypes.CDLL:
         fn = lib.rt_sphere_nearest
         fn.argtypes = [ptr, i64, i64, ptr, i64, i64, i32, ptr, i32, f32, f32, ptr, ptr, ptr]
         fn.restype = i32
+        fn = lib.rt_prim_nearest
+        fn.argtypes = [ptr, i32, ptr, i32, ptr, i32, i32, f32, f32, i32, ptr, i32, i32,
+                       ptr, ptr, ptr, ptr]
+        fn.restype = i32
         _lib = lib
     return _lib
 

@@ -1,8 +1,11 @@
-"""Command-line interface: render one frame and write it as PNG or PPM.
+"""Command-line interface: render one frame, or run the progressive sweep
+schedule, and write the image as PNG or PPM.
 
 Examples:
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --spp 10 --out out.png
     python -m rt_tpu_torch.cli --scene textured --camera cam2 --device cpu --out t.ppm
+    python -m rt_tpu_torch.cli --scene cover --size 400x225 --progressive --passes 4 \
+        --checkpoint cover.npz --out cover.png
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import json
 import sys
 
 # Front ends of the JAX package that are not ported yet.
-_NOT_PORTED = ("--progressive", "--serve", "--probe")
+_NOT_PORTED = ("--serve", "--probe", "--term-preview")
 
 
 def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
@@ -51,6 +54,17 @@ def main(argv=None) -> int:
     parser.add_argument("--texture-dir", default=None,
                         help="directory with earth/mars/moon/saul textures")
     parser.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
+    parser.add_argument("--progressive", action="store_true",
+                        help="run the reference's 237-pass sweep schedule")
+    parser.add_argument("--passes", type=int, default=None, help="limit progressive passes")
+    parser.add_argument("--checkpoint", default=None,
+                        help="progressive checkpoint .npz (resumed if it exists)")
+    parser.add_argument("--engine", default="wavefront", choices=["wavefront", "mega"],
+                        help="progressive sweep engine: the persistent wavefront (K3) or "
+                        "the flat megakernel (K1)")
+    parser.add_argument("--checkpoint-every", type=int, default=1,
+                        help="sweeps between checkpoint writes")
+    parser.add_argument("--metrics", default=None, help="JSONL metrics path")
     args = parser.parse_args(argv)
 
     from rt_tpu_torch import scenes
@@ -67,8 +81,18 @@ def main(argv=None) -> int:
     scene = build_scene(args.scene, camera, args.seed, args.texture_dir)
     print(f"Rendering a scene with {scene.num_prims} shapes", file=sys.stderr)
 
-    image, metrics = render_image(scene, camera, cfg, device=args.device)
-    print(json.dumps(metrics), file=sys.stderr)
+    if args.progressive:
+        from rt_tpu_torch.progressive import ProgressiveRenderer
+
+        renderer = ProgressiveRenderer(
+            scene, camera, cfg, checkpoint_path=args.checkpoint, metrics_path=args.metrics,
+            progress=True, engine=args.engine, checkpoint_every=args.checkpoint_every,
+            device=args.device,
+        )
+        image = renderer.run(max_passes=args.passes)
+    else:
+        image, metrics = render_image(scene, camera, cfg, device=args.device)
+        print(json.dumps(metrics), file=sys.stderr)
     if args.out.endswith(".ppm"):
         write_ppm(args.out, image)
     else:

@@ -93,8 +93,9 @@ class RenderConfig:
     bin_lanes: str = "auto"
     # Accepted, no effect: expansion sweep of the clustered TPU megakernel.
     expand_sweep: str = "auto"
-    # Renderer selection.  "auto" and "megakernel" both take the flat
-    # megakernel, the only renderer ported so far; anything else raises.
+    # Renderer of render_pixel_colors(wavefront=True): "megakernel" (K1),
+    # "wavefront" (the persistent wavefront, K3), or "auto" (K1 where it
+    # is eligible, else the wavefront).
     renderer: str = "auto"
     compat: CompatConfig = dataclasses.field(default_factory=CompatConfig)
 

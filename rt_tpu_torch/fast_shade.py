@@ -18,9 +18,10 @@ same names, differentiable with respect to the scene parameters:
   that sun direction, turbidity and exposure get gradients.
 
 Their arithmetic follows the JAX functions operation for operation, with
-JAX's derivative rules at ties (``elementwise``).  ``triangle_nearest_rows``
-is the brute-force triangle search of the megakernel's plain version; K1's
-bounce itself lives in ``megakernel.py``.
+JAX's derivative rules at ties (``elementwise``).  ``shade_bounce`` also
+serves the persistent wavefront, whose lanes sit at different depths and
+whose intersection kernel (K3, prim_ops) hands it the winners' columns.
+K1's bounce itself lives in ``megakernel.py``.
 """
 
 from __future__ import annotations
@@ -128,38 +129,6 @@ def build_shade_table(
     return table
 
 
-def triangle_nearest_rows(scene, rays: torch.Tensor, t_min: float, t_max: float, compat):
-    """Brute-force Möller–Trumbore over all triangles via [T, B] broadcasts
-    (hittable.rs:411-461, megakernel.py:789-838).  Returns (t f32[B], BIG on
-    a miss; idx int64[B] into triangles, -1 on a miss)."""
-    ox, oy, oz = rays[0][None], rays[1][None], rays[2][None]
-    dx, dy, dz = rays[3][None], rays[4][None], rays[5][None]
-    tri = scene.tri_packed[: scene.num_triangles]
-    ax_, ay_, az_ = tri[:, 0:1], tri[:, 1:2], tri[:, 2:3]
-    e1x, e1y, e1z = tri[:, 3:4], tri[:, 4:5], tri[:, 5:6]
-    e2x, e2y, e2z = tri[:, 6:7], tri[:, 7:8], tri[:, 8:9]
-    uvx = dy * e2z - dz * e2y
-    uvy = dz * e2x - dx * e2z
-    uvz = dx * e2y - dy * e2x
-    det = e1x * uvx + e1y * uvy + e1z * uvz
-    det_ok = det > 1e-7 if compat.triangle_backface_cull else torch.abs(det) > 1e-7
-    inv_det = 1.0 / torch.where(det_ok, det, 1.0)
-    aox, aoy, aoz = ox - ax_, oy - ay_, oz - az_
-    u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det
-    vvx = aoy * e1z - aoz * e1y
-    vvy = aoz * e1x - aox * e1z
-    vvz = aox * e1y - aoy * e1x
-    v = (dx * vvx + dy * vvy + dz * vvz) * inv_det
-    t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det
-    ok = (
-        det_ok & (tri[:, 9:10] > 0.5) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-        & (u + v <= 1.0) & (t >= t_min) & (t < t_max) & (t > 1e-7)
-    )
-    t = torch.where(ok, t, BIG)
-    t_best, idx = torch.min(t, dim=0)
-    return t_best, torch.where(t_best < BIG, idx, -1)
-
-
 def build_shade_table_diff(scene) -> torch.Tensor | None:
     """``scene.shade_table`` with its parameter rows re-assembled from the
     live scene tensors (fast_shade.py:160-199): the static rows (geometry,
@@ -207,13 +176,17 @@ def fetch_params(table: torch.Tensor, prim: torch.Tensor) -> torch.Tensor:
     return torch.matmul(table, onehot)
 
 
-def shade_bounce(scene, rays, t, prim, seed: int, work, depth: int, cfg, table=None) -> dict:
+def shade_bounce(scene, rays, t, prim, seed: int, work, depth, cfg, table=None,
+                 params=None) -> dict:
     """One scalarized bounce after intersection (fast_shade.py:225-457).
 
     ``rays`` f32[8, B] (origin xyz, direction xyz, two pad rows), ``t``
     f32[B] (BIG on a miss), ``prim`` int[B] global winner ids (-1 on a
-    miss), ``seed`` the hash seed, ``work`` int64[B] the lane ids that key
-    the draws, ``table`` the shade table (default ``scene.shade_table``).
+    miss), ``seed`` the hash seed, ``work`` int64[B] the ids that key the
+    draws, ``depth`` the bounce depth that keys them too (an int, or an int
+    tensor [B] of per-lane depths), ``table`` the shade table (default
+    ``scene.shade_table``).  ``params`` f32[F, B], when given, holds the
+    winners' table columns already fetched (K3) and replaces the fetch.
     Returns new_rays f32[8, B], att (attenuation / p_rr rows), sky rows,
     emit rows, and bool rows emissive, hit and survive.
     """
@@ -229,7 +202,7 @@ def shade_bounce(scene, rays, t, prim, seed: int, work, depth: int, cfg, table=N
     py = oy + ts * dy
     pz = oz + ts * dz
 
-    f = fetch_params(table, torch.where(hit, prim, 0))
+    f = params if params is not None else fetch_params(table, torch.where(hit, prim, 0))
     is_sphere = f[F_IS_SPHERE] > 0.5
 
     # Normal + front face (hittable.rs:340-346, 464).

@@ -1,0 +1,109 @@
+"""Tag-dispatched BSDF scattering on the scene's material tables
+(rt_tpu/materials.py).
+
+Reference behavior (material.rs), math as the JAX package computes it:
+- Lambertian (material.rs:110-120): normal + random unit vector, falling
+  back to the normal when the sum is near zero; attenuation = texture.
+- Metal (material.rs:94-108): mirror reflection of the unnormalized
+  incoming direction plus fuzz * random unit; no below-horizon check.
+- Dielectric (material.rs:150-179): Schlick reflectance against a uniform
+  draw, total internal reflection, optional frost on the refracted
+  direction, attenuation (1, 1, 1), the direction normalized.
+
+All three are evaluated for every lane and a select on the material tag
+picks the result.  The draws come from the counter hash keyed on (seed,
+work id, depth) (``scatter_hashed``), the streams ``fast_shade`` draws, so
+the wavefront's two paths agree per sample.  ``scatter``, which draws from
+``jax.random`` keys in the JAX package, is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rt_tpu_torch import rng
+from rt_tpu_torch.elementwise import div
+from rt_tpu_torch.scene import MAT_LAMBERTIAN, MAT_METAL
+from rt_tpu_torch.textures import texture_value
+
+# f32 analog of the reference's near-zero test (vec3.rs:105-111).
+NEAR_ZERO_EPS = 3.45e-4
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of 3-vectors, in jnp.sum's order."""
+    p = a * b
+    return p[..., 0:1] + p[..., 1:2] + p[..., 2:3]
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """|v| over the last axis, keepdim, as jnp.linalg.norm computes it."""
+    return torch.sqrt(_dot(v, v))
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection (material.rs:46-51); ``d`` need not be unit."""
+    return d - 2.0 * _dot(d, n) * n
+
+
+def refract(unit_d: torch.Tensor, n: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
+    """Snell refraction (material.rs:53-60) of unit ``unit_d``; ``ratio``
+    f32[..., 1]."""
+    cos_theta = torch.clamp(-_dot(unit_d, n), max=1.0)
+    r_out_perp = (unit_d + n * cos_theta) * ratio
+    perp_sq = _dot(r_out_perp, r_out_perp)
+    r_out_parallel = n * -torch.sqrt(torch.clamp(torch.abs(1.0 - perp_sq), min=1.0e-12))
+    return r_out_parallel + r_out_perp
+
+
+def schlick_reflectance(cosine: torch.Tensor, refractive_index: torch.Tensor) -> torch.Tensor:
+    """Schlick's approximation (material.rs:181-186)."""
+    r0 = (1.0 - refractive_index) / (1.0 + refractive_index)
+    r0 = r0 * r0
+    omc = 1.0 - cosine
+    omc2 = omc * omc
+    return r0 + (1.0 - r0) * (omc * (omc2 * omc2))  # x**5 as JAX's integer_pow
+
+
+def scatter_hashed(scene, rec, dir_in: torch.Tensor, seed: int, work, depth):
+    """Scatter with the counter-hash draws keyed on (seed, work, depth):
+    unit vectors of purposes 1 and 2 (draws 3-8) and the Fresnel noise of
+    purpose 9, as fast_shade draws them.  Returns (attenuation f32[N, 3],
+    scattered direction f32[N, 3])."""
+    u_lam = rng.unit_vector(seed, work, depth, 1)
+    u_fuzz = rng.unit_vector(seed, work, depth, 2)
+    noise = rng.uniform(seed, work, depth, 9)
+    return scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise)
+
+
+def scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise):
+    """The BSDFs given drawn randoms: unit u_lam, u_fuzz f32[N, 3] and
+    uniform noise f32[N].  ``rec`` is a geometry.HitRecord."""
+    mat_id = torch.clamp(rec.material.to(torch.int64), 0, scene.mat_kind.shape[0] - 1)
+    kind = scene.mat_kind[mat_id]
+    fuzz = scene.mat_fuzz[mat_id]
+    ior = scene.mat_ior[mat_id]
+    tex_rgb = texture_value(scene, scene.mat_texture[mat_id], rec.uv, rec.point)
+    normal = rec.normal
+
+    lam_dir = normal + u_lam
+    lam_small = torch.all(torch.abs(lam_dir) < NEAR_ZERO_EPS, dim=-1, keepdim=True)
+    lam_dir = torch.where(lam_small, normal, lam_dir)
+
+    metal_dir = reflect(dir_in, normal) + fuzz[:, None] * u_fuzz
+
+    ri = torch.where(rec.front, div(1.0, ior), ior)[:, None]
+    unit_d = dir_in / torch.clamp(norm3(dir_in), min=1.0e-20)
+    cos_theta = torch.clamp(-_dot(unit_d, normal)[:, 0], max=1.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    cannot_refract = ri[:, 0] * sin_theta > 1.0
+    choose_reflect = cannot_refract | (schlick_reflectance(cos_theta, ri[:, 0]) > noise)
+    refracted = refract(unit_d, normal, ri) + fuzz[:, None] * u_fuzz
+    diel_dir = torch.where(choose_reflect[:, None], reflect(unit_d, normal), refracted)
+    diel_dir = diel_dir / torch.clamp(norm3(diel_dir), min=1.0e-20)
+
+    is_lam = (kind == MAT_LAMBERTIAN)[:, None]
+    is_metal = (kind == MAT_METAL)[:, None]
+    out_dir = torch.where(is_lam, lam_dir, torch.where(is_metal, metal_dir, diel_dir))
+    attenuation = torch.where(is_lam | is_metal, tex_rgb, 1.0)
+    return attenuation, out_dir

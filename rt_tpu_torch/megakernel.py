@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from rt_tpu_torch import _build, color, fast_shade, nearest_ops, rng
+from rt_tpu_torch import _build, color, fast_shade, prim_ops, rng
 from rt_tpu_torch.camera import Camera, generate_rays
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.elementwise import div
@@ -446,20 +446,6 @@ def _mega_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
     )
 
 
-def _nearest(scene: SceneData, rays: torch.Tensor, cfg: RenderConfig):
-    """(t, global prim id) of the nearest hit: spheres first, a triangle
-    wins only when strictly nearer."""
-    t_best, prim = nearest_ops.sphere_nearest_packed_plain(
-        rays, scene.sph_packed[: scene.num_spheres], cfg.t_min, cfg.t_max
-    )
-    if scene.num_triangles:
-        t_t, id_t = fast_shade.triangle_nearest_rows(scene, rays, cfg.t_min, cfg.t_max, cfg.compat)
-        better = t_t < t_best
-        t_best = torch.where(better, t_t, t_best)
-        prim = torch.where(better, id_t + scene.num_spheres, prim)
-    return t_best, prim
-
-
 def trace_paths(scene, cfg, seed: int, sky_k: dict, org, dirn, gwork) -> torch.Tensor:
     """Radiance f32[N, 3] of N paths from (org, dirn) with work ids gwork:
     the megakernel's bounce loop, with finished paths compacted away."""
@@ -472,7 +458,11 @@ def trace_paths(scene, cfg, seed: int, sky_k: dict, org, dirn, gwork) -> torch.T
     depth = 0
     while live.numel():
         hits = [
-            _nearest(scene, rays[:, k : k + _PLAIN_CHUNK], cfg)
+            prim_ops.prim_nearest_packed_plain(
+                rays[:, k : k + _PLAIN_CHUNK], scene.sph_packed[: scene.num_spheres],
+                scene.tri_packed[: scene.num_triangles], scene.num_spheres, cfg.t_min, cfg.t_max,
+                cfg.compat.triangle_backface_cull,
+            )
             for k in range(0, rays.shape[1], _PLAIN_CHUNK)
         ]
         t = torch.cat([h[0] for h in hits])

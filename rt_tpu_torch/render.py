@@ -1,11 +1,15 @@
 """Frame rendering: the user-facing entry points.
 
-Reference analog: ``Camera::render_image`` (camera.rs:315-341).  Two routes,
-as in the JAX package (rt_tpu/render.py):
+Reference analog: ``Camera::render_image`` (camera.rs:315-341).  The routes
+of the JAX package (rt_tpu/render.py):
 
-- ``wavefront=True`` (the default): one call of the flat megakernel (K1)
-  over all pixels and samples, the hand-written CUDA kernel on a CUDA
-  device and its plain PyTorch version on the CPU;
+- ``wavefront=True`` (the default), by ``cfg.renderer``: "megakernel" is
+  one call of the flat megakernel (K1) over all pixels and samples, the
+  hand-written CUDA kernel on a CUDA device and its plain PyTorch version
+  on the CPU; "wavefront" is the persistent wavefront
+  (``wavefront.render_wavefront``, with K3), in calls of at most
+  ``(16 << 20) // pixels`` samples per pixel; "auto" takes the megakernel
+  where ``megakernel.eligible`` holds and the wavefront otherwise;
 - ``wavefront=False``: the chunked megabatch, ``render_chunk`` over chunks
   of pixels, each traced by ``integrator.trace_radiance`` with K2 as its
   sphere search.  ``render_chunk(differentiable=True)`` is the gradient
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from rt_tpu_torch import megakernel, nearest_ops, rng
+from rt_tpu_torch import wavefront as wavefront_mod
 from rt_tpu_torch.camera import Camera, generate_rays_keyed
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.integrator import trace_radiance, trace_radiance_diff
@@ -86,7 +91,9 @@ def render_pixel_colors(
 ) -> torch.Tensor:
     """Render the full frame to linear color f32[H, W, 3] on ``device``
     (the scene's tables are moved there).  ``key`` (rng.key) defaults to
-    ``rng.key(cfg.seed)``; the megakernel draws from the key's hash seed.  ``wavefront=False`` takes the chunked route,
+    ``rng.key(cfg.seed)``; the megakernel and the wavefront draw from the
+    key's hash seed.  ``wavefront=True`` routes by ``cfg.renderer`` (see
+    the module docstring).  ``wavefront=False`` takes the chunked route,
     ``cfg.max_rays_per_batch // spp`` pixels per ``render_chunk`` call, the
     ragged tail padded and each chunk's key folded with its first pixel, as
     rt_tpu/render.py:151-168 does."""
@@ -98,10 +105,31 @@ def render_pixel_colors(
     w, h = camera.image_width, camera.image_height
     n_pixels = w * h
     if wavefront:
-        if cfg.renderer not in ("auto", "megakernel"):
-            raise NotImplementedError(f"renderer {cfg.renderer!r} is not ported yet")
-        flat = megakernel.render_megakernel(scene, camera, cfg, spp, sample_offset, rng.key_seed(key))
-        return flat.reshape(h, w, 3)
+        if cfg.renderer not in ("auto", "megakernel", "wavefront"):
+            raise ValueError(f"unknown renderer {cfg.renderer!r}")
+        if cfg.renderer == "megakernel" or (
+                cfg.renderer == "auto" and megakernel.eligible(scene, cfg)):
+            flat = megakernel.render_megakernel(scene, camera, cfg, spp, sample_offset,
+                                                rng.key_seed(key))
+            return flat.reshape(h, w, 3)
+        # The per-work deposit buffer grows with pixels x spp: chunk the
+        # samples (rt_tpu/render.py:129-149); draws key on the global work
+        # id, so chunking changes no draw.
+        pixel_idx = torch.arange(n_pixels, dtype=torch.int32, device=device)
+        spp_chunk = max(1, min(spp, (16 << 20) // n_pixels))
+        if spp_chunk >= spp:
+            flat = wavefront_mod.render_wavefront(scene, camera, pixel_idx, cfg, spp,
+                                                  sample_offset, key)
+            return flat.reshape(h, w, 3)
+        accum = torch.zeros((n_pixels, 3), device=device)
+        done = 0
+        while done < spp:
+            ns = min(spp_chunk, spp - done)
+            part = wavefront_mod.render_wavefront(scene, camera, pixel_idx, cfg, ns,
+                                                  sample_offset + done, key)
+            accum = accum + part * ns
+            done += ns
+        return (accum / spp).reshape(h, w, 3)
 
     pixels_per_chunk = max(cfg.max_rays_per_batch // max(spp, 1), 1)
     all_idx = torch.arange(n_pixels, device=device)

@@ -89,7 +89,7 @@ def test_cli_writes_png(tmp_path):
     assert cli.main(["--scene", "cover", "--size", "32x18", "--spp", "1", "--max-depth", "8",
                      "--device", "cpu", "--out", str(out)]) == 0
     assert Image.open(out).size == (32, 18)
-    for argv in (["--progressive"], ["--serve", "8000"], ["--probe", "1,1"],
+    for argv in (["--term-preview"], ["--serve", "8000"], ["--probe", "1,1"],
                  ["--scene", "cover-large"], ["--scene", "obj:x.obj"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "x.png")])
@@ -100,6 +100,8 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import rt_tpu_torch, rt_tpu_torch.cli, rt_tpu_torch.convert, rt_tpu_torch.megakernel\n"
         "import rt_tpu_torch.render, rt_tpu_torch.scenes, rt_tpu_torch.io, rt_tpu_torch._build\n"
+        "import rt_tpu_torch.wavefront, rt_tpu_torch.progressive, rt_tpu_torch.profiling\n"
+        "import rt_tpu_torch.materials, rt_tpu_torch.textures, rt_tpu_torch.prim_ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rt_tpu', 'flax'))\n"
         "assert not bad, bad\n"
     )
@@ -117,8 +119,8 @@ def test_cuda_device_raises_without_a_card():
         render_pixel_colors(scene, camera, cfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         render_image(scene, camera, cfg, device="cuda")
-    with pytest.raises(NotImplementedError):
-        render_pixel_colors(scene, camera, cfg.replace(renderer="wavefront"), device="cpu")
+    with pytest.raises(ValueError, match="unknown renderer"):
+        render_pixel_colors(scene, camera, cfg.replace(renderer="bogus"), device="cpu")
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
