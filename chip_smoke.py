@@ -7,9 +7,10 @@ Run from the repository root with no arguments:
 
 It builds the CUDA kernels from csrc/ (K1, the flat megakernel; K2/K2b,
 the nearest-sphere kernel; K3/K3b, the nearest-primitive kernel with the
-shade-table fetch), holds each against its plain PyTorch version on the
-card, and drives each path at the bench configuration, with the launch
-counts set to 0 just before and read just after:
+shade-table fetch; K4/K4b, the cluster walk; K5, the clustered megakernel)
+and the C++ BVH builder, holds each kernel against its plain PyTorch
+version on the card, and drives each path at the bench configuration, with
+the launch counts set to 0 just before and read just after:
 
 - the forward megakernel path (``render_image`` and the CLI), K1;
 - the gradient path (``grad.pixel_grad`` at 400x225, 1 spp), K2: finite
@@ -21,7 +22,12 @@ counts set to 0 just before and read just after:
   version; its generic path on a scene without a shade table, K2;
 - progressive rendering (``ProgressiveRenderer`` and the CLI's
   ``--progressive``), K3: a checkpointed and resumed run bit-identical to
-  an uninterrupted one.
+  an uninterrupted one;
+- mesh scenes (BASELINE config 3: ``mesh_with_area_light`` of a 99,908-
+  triangle closed mesh, and 3b, a 100,356-triangle height field, at
+  800x450 and max depth 16, with 8 samples per pixel in place of the
+  config's 64): ``render_image`` through K5, the wavefront through K4, one
+  progressive pass with the "mega" engine, and the CLI's ``obj:`` scene.
 
 It prints the card, the timings, the kernel table and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -121,6 +127,11 @@ PEAK_BYTES = 3.35e12
 # (csrc/nearest.cu, csrc/prim_nearest.cu); compares and selects not counted.
 FLOPS_SPHERE_PAIR = 24  # 3 sub, 5 for h, 7 for c, 3 for disc, max, sqrt, 2 + 2 for the roots
 FLOPS_TRIANGLE_PAIR = 46  # 9 + 9 for the crosses, 5 det, 1 div, 3 sub, 6 u, 6 v, 6 t, 1 u+v
+FLOPS_SLAB = 20  # a box test of the cluster walk: 6 sub, 6 mul, min/max of the slabs, the pad
+
+# BASELINE config 3 (bench_scenes.py:92-141): 800x450, max depth 16; the
+# sample count is cut from 64 to 8 to fit this script's time.
+MESH_W, MESH_H, MESH_DEPTH, MESH_SPP = 800, 450, 16, 8
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -675,6 +686,347 @@ def cli_progressive_phase():
     print(f"[cli] wrote {png} and {ckpt} (15 spp, 4 passes)")
 
 
+def mesh_cam(w: int, h: int, dist: float = 5.5, height: float = 2.2):
+    """bench_scenes.py's ``_mesh_cam``: the config-3 camera."""
+    from rt_tpu_torch.camera import make_camera
+
+    return make_camera((dist, -dist, height), (0.0, 0.0, 1.0), (0.0, 0.0, 1.0),
+                       focus_distance=float((2 * dist * dist + (height - 1) ** 2) ** 0.5),
+                       defocus_angle=0.0, image_width=w, image_height=h, vertical_fov=32.0)
+
+
+def mesh_setup():
+    """Build the BVH library (asserting that the native builder runs) and
+    write the config-3 fixtures to build/fixtures: the closed blob (skull
+    class) and the height field, from tools/gen_fixtures.py (numpy only).
+    Returns {name: path}."""
+    from rt_tpu_torch.bvh import builder, native
+    from tools.gen_fixtures import make_obj_heightfield, make_obj_mesh
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    print(f"[mesh] native BVH builder built and loaded: {ok} ({time.perf_counter() - t0:.2f} s), "
+          f"builder that runs: {builder.which()}")
+    check(ok and builder.which() == "native", "the native BVH builder did not build or load")
+    os.makedirs(os.path.join("build", "fixtures"), exist_ok=True)
+    paths = {name: os.path.join("build", "fixtures", name + ".obj")
+             for name in ("skull_class", "heightfield")}
+    t0 = time.perf_counter()
+    n_blob = make_obj_mesh(paths["skull_class"])
+    n_hf = make_obj_heightfield(paths["heightfield"])
+    print(f"[mesh] fixtures {paths['skull_class']} ({n_blob} triangles) and "
+          f"{paths['heightfield']} ({n_hf} triangles) in {time.perf_counter() - t0:.2f} s")
+    return paths
+
+
+def mesh_scene(path: str, dev):
+    """mesh_with_area_light(path) on the card, with its build time."""
+    from rt_tpu_torch import scenes
+
+    t0 = time.perf_counter()
+    scene = scenes.mesh_with_area_light(path)
+    seconds = time.perf_counter() - t0
+    cl = scene.clusters
+    live = int((cl.tri_cluster[:, 0] <= cl.tri_cluster[:, 3]).sum())
+    print(f"[mesh] {path}: {scene.num_triangles} triangles, built in {seconds:.2f} s: "
+          f"{live} triangle clusters in {cl.tri_super.shape[0]} supers, {len(cl.pages)} pages, "
+          f"slot table {tuple(cl.shade_table.shape)}, BVH {scene.bvh.node_min.shape[0]} nodes")
+    return scene.to(dev)
+
+
+def walk_bound(work: dict, nbytes: float) -> tuple[float, str]:
+    """Least time of a cluster walk that made ``work``'s tests."""
+    flops = (work.get("slab", 0) * FLOPS_SLAB + work.get("sphere_pairs", 0) * FLOPS_SPHERE_PAIR
+             + work.get("triangle_pairs", 0) * FLOPS_TRIANGLE_PAIR)
+    return bound(flops, nbytes)
+
+
+def walk_bytes(tables, n_rays: int) -> int:
+    """Bytes a walk must move: the rays' six rows read once, t and slot
+    written once, the AABB tables and the slot rows it reads (4 for
+    spheres, 10 for triangles) read once."""
+    s_sup, s_cl, s_slots, t_sup, t_cl, t_slots = tables
+    return (n_rays * (24 + 8) + 4 * (s_sup.numel() + s_cl.numel() + t_sup.numel() + t_cl.numel())
+            + 4 * (4 * s_slots.shape[1] + 10 * t_slots.shape[1]))
+
+
+def mesh_rays(scene, camera, cfg, n: int, dev):
+    """n rays in the kernel layout: n/2 camera rays of the frame (sample 0,
+    pixels spread over it) and n/2 rays of the camera rays' first bounce."""
+    import torch
+
+    from rt_tpu_torch import cluster_ops, fast_shade, megakernel as mk
+    from rt_tpu_torch.camera import generate_rays
+
+    n_pix = camera.image_width * camera.image_height
+    pix = torch.arange(n, device=dev) * (n_pix // n)
+    org, dirn, gwork = generate_rays(camera, pix, torch.zeros_like(pix), cfg.seed, cfg.compat)
+    cam_rays = torch.zeros((8, n), device=dev)
+    cam_rays[0:3], cam_rays[3:6] = org.T, dirn.T
+    cl = scene.clusters
+    t, slot = cluster_ops.cluster_nearest(cam_rays, *mk.cluster_tables(cl), cl.n_sph_slots,
+                                          cfg.t_min, cfg.t_max, cfg.compat.triangle_backface_cull)
+    params = cl.shade_table.index_select(1, torch.clamp(slot, min=0))
+    out = fast_shade.shade_bounce(scene, cam_rays, t, slot, cfg.seed, gwork, 0, cfg, params=params)
+    bounce = out["new_rays"][:, out["hit"]]
+    check(bounce.shape[1] >= n // 2, "too few camera rays hit the mesh scene")
+    rays = torch.zeros((8, n), device=dev)
+    rays[0:6, : n // 2] = cam_rays[0:6, : n // 2]
+    rays[0:6, n // 2 :] = bounce[0:6, : n - n // 2]
+    return rays
+
+
+def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
+    """K4 (per page, as the wavefront launches it) and K4b (the whole
+    tables) against their plain versions on ``n`` rays of the config-3 blob
+    frame: t and slot ids bit for bit on every ray, culling on and off.
+    Returns, for K4 (one intersect: every page) and K4b, (max |d t|, kernel
+    ms, plain ms, bound ms, bound_by)."""
+    import torch
+
+    from rt_tpu_torch import cluster_ops, megakernel as mk
+
+    cl = scene.clusters
+    rays = mesh_rays(scene, camera, cfg, n, dev)
+    whole = mk.cluster_tables(cl)
+    pages = [(mk.cluster_tables(p), p.sph_slot_base, p.tri_slot_base) for p in cl.pages]
+    ns = cl.n_sph_slots
+    for cull in (True, False):
+        args = (ns, cfg.t_min, cfg.t_max, cull)
+        got = cluster_ops.cluster_nearest(rays, *whole, *args)
+        ref = cluster_ops.cluster_nearest_plain(rays, *whole, *args)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
+        merged_k = merged_p = None
+        for tables, s_base, t_base in pages:
+            k = cluster_ops.cluster_worklist_nearest(rays, *tables, *args, s_base, t_base)
+            p = cluster_ops.cluster_nearest_plain(rays, *tables, *args, s_base, t_base)
+            same = same and all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+            if merged_k is None:
+                merged_k, merged_p = k, p
+            else:
+                merged_k = [torch.where(k[0] < merged_k[0], a, b) for a, b in zip(k, merged_k)]
+                merged_p = [torch.where(p[0] < merged_p[0], a, b) for a, b in zip(p, merged_p)]
+        paged_same = all(bool(torch.equal(a, b)) for a, b in zip(merged_k, ref))
+        hit = ref[1] >= 0
+        print(f"[K4] {n} rays (camera + first bounce) x {scene.num_triangles} triangles, cull "
+              f"{cull}: K4b and every K4 page equal to plain {same}; the {len(pages)} pages merged "
+              f"equal to the whole tables {paged_same}; hits {int(hit.sum())}")
+        check(same and paged_same and int(hit.sum()) > n // 4,
+              "K4/K4b: kernel and plain version disagree")
+    args = (ns, cfg.t_min, cfg.t_max, cfg.compat.triangle_backface_cull)
+
+    def intersect(fn):
+        return [fn(rays, *tables, *args, s_base, t_base) for tables, s_base, t_base in pages]
+
+    _, k4_ms = timer(lambda: intersect(cluster_ops.cluster_worklist_nearest), 5)
+    _, k4_plain_ms = timer(lambda: intersect(cluster_ops.cluster_nearest_plain), 1)
+    _, k4b_ms = timer(lambda: cluster_ops.cluster_nearest(rays, *whole, *args), 5)
+    _, k4b_plain_ms = timer(lambda: cluster_ops.cluster_nearest_plain(rays, *whole, *args), 1)
+    work_b, work_4 = {}, {}
+    cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work_b)
+    for tables, s_base, t_base in pages:
+        cluster_ops.cluster_nearest_plain(rays, *tables, *args, s_base, t_base, work=work_4)
+    k4_bound = walk_bound(work_4, sum(walk_bytes(t, n) for t, _, _ in pages))
+    k4b_bound = walk_bound(work_b, walk_bytes(whole, n))
+    print(f"[K4] walk work on these rays: whole tables {work_b}, the {len(pages)} pages {work_4}")
+    # Coherent against incoherent rays: K4b's time per test of the walk on
+    # each half alone (a warp runs the union of its rays' walks).
+    for label, part in (("camera rays", rays[:, : n // 2]), ("first bounces", rays[:, n // 2 :])):
+        part = part.contiguous()
+        work = {}
+        cluster_ops.cluster_nearest_plain(part, *whole, *args, work=work)
+        _, ms = timer(lambda: cluster_ops.cluster_nearest(part, *whole, *args), 5)
+        tests = sum(work.values())
+        print(f"[K4] {label} alone ({n // 2}): K4b {ms:.4f} ms, walk work {work}, "
+              f"{ms * 1e6 / max(tests, 1):.3f} ns per test")
+    # Occupancy: the same rays four times over fill four times the warps
+    # per SM with the same work per ray.
+    tests = sum(work_b.values())
+    four = rays.repeat(1, 4)
+    _, ms4 = timer(lambda: cluster_ops.cluster_nearest(four, *whole, *args), 5)
+    print(f"[K4] K4b on the rays four times over ({4 * n}): {ms4:.4f} ms, "
+          f"{ms4 * 1e6 / (4 * tests):.3f} ns per test (at {n}: "
+          f"{k4b_ms * 1e6 / tests:.3f})")
+    return (0.0, k4_ms, k4_plain_ms, *k4_bound), (0.0, k4b_ms, k4b_plain_ms, *k4b_bound)
+
+
+def k5_phase(dev, scene, camera, cfg, timer, spp: int = 2):
+    """K5 against its plain version: a 64x36-pixel range of the config-3
+    blob frame at ``spp``, and the 32x24 triangle-cloud and image-textured
+    triangle scenes of tests/test_megakernel_cluster.py, bit for bit.
+    Returns (max |d|, kernel ms and plain ms on the range, bound)."""
+    import torch
+
+    from rt_tpu_torch import cluster_ops, megakernel as mk
+    from rt_tpu_torch import scene as tscene
+    from rt_tpu_torch.camera import make_camera
+    from rt_tpu_torch.config import RenderConfig
+
+    # The test suite's builders of these scenes (port only, no JAX); by
+    # path, since another installed package may be named "tests".
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_cluster_cases as cases
+
+    small_cam = make_camera((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=0.0,
+                            image_width=32, image_height=24, vertical_fov=30.0)
+    small_cfg = RenderConfig(width=32, height=24, samples_per_pixel=2, max_depth=6)
+    for name, factory in (("triangle cloud", cases.tri_cloud), ("image triangles", cases.image_tris)):
+        small = factory(tscene).build().to(dev)
+        got = mk.render_megakernel(small, small_cam, small_cfg, 2, 0, 0)
+        ref = mk.render_megakernel_plain(small, small_cam, small_cfg, 2, 0, 0)
+        print(f"[K5] {name} 32x24 2 spp depth 6: equal to plain {bool(torch.equal(got, ref))}")
+        check(bool(torch.equal(got, ref)), f"K5 {name}: kernel and plain version disagree")
+
+    n_pix = 64 * 36
+    base = (camera.image_height // 2) * camera.image_width + camera.image_width // 2 - n_pix // 2
+    rng_args = (scene, camera, cfg, spp, 0, cfg.seed)
+    work = {}
+    search = mk.cluster_search
+
+    def counted(scene_, cfg_, rays):
+        c = scene_.clusters
+        return cluster_ops.cluster_nearest_plain(
+            rays, *mk.cluster_tables(c), c.n_sph_slots, cfg_.t_min, cfg_.t_max,
+            cfg_.compat.triangle_backface_cull, work=work)
+
+    mk.cluster_search = counted
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        ref = mk.render_megakernel_plain(*rng_args, pixel_base=base, n_pixels=n_pix)
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        mk.cluster_search = search
+    got, kernel_ms = timer(lambda: mk.render_megakernel(*rng_args, pixel_base=base,
+                                                        n_pixels=n_pix), 5)
+    err = float((got - ref).abs().max())
+    same = bool(torch.equal(got, ref))
+    print(f"[K5] config-3 blob, pixels [{base}, {base + n_pix}) (64x36), {spp} spp, depth "
+          f"{cfg.max_depth}: equal to plain {same}, max|d| {err:.3e}, image mean "
+          f"{float(ref.mean()):.4f}; walk work {work}")
+    check(same and bool(torch.isfinite(ref).all()) and float(ref.mean()) > 0.01,
+          "K5: kernel and plain version disagree on the blob range")
+    cl = scene.clusters
+    nbytes = (4 * (cl.shade_table.numel() + scene.atlas.numel()) + walk_bytes(mk.cluster_tables(cl), 0)
+              + 12 * n_pix)
+    return err, kernel_ms, plain_ms, *walk_bound(work, nbytes)
+
+
+def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
+    """render_image of BASELINE config 3 and 3b through K5 (800x450, depth
+    16, 8 spp): wall s, Mray/s, a repeat bit-identical, and K5's ms per
+    launch.  Returns (K5 launches of the render_image calls, {name: K5 ms},
+    {name: image})."""
+    import numpy as np
+
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.render import render_image
+
+    camera = mesh_cam(MESH_W, MESH_H)
+    cfg = RenderConfig(width=MESH_W, height=MESH_H, samples_per_pixel=MESH_SPP,
+                       max_depth=MESH_DEPTH)
+    images, runs = {}, {}
+    mk.LAUNCHES_CLUSTERED = 0
+    for name, scene in scenes_.items():
+        img, m = render_image(scene, camera, cfg, device=dev)
+        again, m2 = render_image(scene, camera, cfg, device=dev)
+        runs[name] = (img, m, again, m2)
+    launches = mk.LAUNCHES_CLUSTERED
+    kernel_ms = {}
+    for name, (img, m, again, m2) in runs.items():
+        print(f"[config3] {name} {MESH_W}x{MESH_H} {MESH_SPP} spp (the config's 64 cut to "
+              f"{MESH_SPP}) depth {MESH_DEPTH} on {card}: render_image {m['wall_s']:.4f} s "
+              f"({m['mray_per_s']:.3f} Mray/s), repeat {m2['wall_s']:.4f} s "
+              f"({m2['mray_per_s']:.3f} Mray/s), image mean {float(img.mean()):.4f}")
+        check(img.shape == (MESH_H, MESH_W, 3) and bool(np.isfinite(img).all())
+              and 0.01 < float(img.mean()) < 5.0, f"{name}: implausible image")
+        check(np.array_equal(img, again), f"{name}: two render_image frames differ")
+        scene = scenes_[name]
+        _, kernel_ms[name] = timer(lambda: mk.render_megakernel(scene, camera, cfg, MESH_SPP, 0,
+                                                                cfg.seed), 3)
+        rays = MESH_SPP * MESH_W * MESH_H
+        print(f"[config3] {name}: K5 {kernel_ms[name]:.3f} ms per launch (CUDA events, mean of 3 "
+              f"after a warm-up), {rays / kernel_ms[name] / 1e3:.3f} Mray/s in the kernel")
+        images[name] = img
+    print(f"[config3] K5 launches during the render_image frames: {launches}")
+    check(launches == 2 * len(scenes_), "the config-3 frames did not go through K5")
+    return launches, kernel_ms, images
+
+
+def mesh_wavefront_phase(dev, scene, spp: int = 2):
+    """The blob frame at ``spp`` through render_pixel_colors with renderer
+    "wavefront": K4 launches equal to pages x iterations, and the image
+    against K5's image of the same frame (the same hash streams).  Returns
+    (K4 launches by name, wavefront counts, wall s)."""
+    import numpy as np
+
+    from rt_tpu_torch import cluster_ops, megakernel as mk, rng, wavefront
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.render import render_pixel_colors
+
+    camera = mesh_cam(MESH_W, MESH_H)
+    cfg = RenderConfig(width=MESH_W, height=MESH_H, samples_per_pixel=spp, max_depth=MESH_DEPTH,
+                       renderer="wavefront")
+    for name in cluster_ops.LAUNCHES:
+        cluster_ops.LAUNCHES[name] = 0
+    wavefront.COUNTS.update(iterations=0, segments=0)
+    sync(dev)
+    t0 = time.perf_counter()
+    img = render_pixel_colors(scene, camera, cfg, device=dev).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    launches, counts = dict(cluster_ops.LAUNCHES), dict(wavefront.COUNTS)
+    pages = len(scene.clusters.pages)
+    print(f"[wavefront-mesh] blob {MESH_W}x{MESH_H} {spp} spp depth {MESH_DEPTH}: {seconds:.4f} s, "
+          f"{spp * MESH_W * MESH_H / seconds / 1e6:.3f} Mray/s; iterations {counts['iterations']}, "
+          f"ray segments {counts['segments']}, K4 launches {launches} ({pages} pages)")
+    check(launches["cluster_worklist_nearest"] == pages * counts["iterations"] > 0,
+          "the clustered wavefront did not go through K4 once per page per iteration")
+    k5 = mk.render_megakernel(scene, camera, cfg, spp, 0, rng.key_seed(rng.key(cfg.seed)))
+    k5 = k5.reshape(MESH_H, MESH_W, 3).cpu().numpy()
+    d = np.abs(img - k5)
+    within = float((d <= ATOL + RTOL * np.abs(k5)).all(axis=-1).mean())
+    print(f"[wavefront-mesh] against K5's image of the frame: max|d| {d.max():.4e}, mean|d| "
+          f"{d.mean():.3e}, pixels within 1e-3 {within:.4%}")
+    check(bool(np.isfinite(img).all()) and within >= 0.999,
+          "the clustered wavefront's image differs from K5's")
+    return launches, counts, seconds
+
+
+def mesh_progressive_cli_phase(dev, scene, obj_path: str):
+    """One progressive pass with the "mega" engine on the blob (K5), and
+    the CLI's obj: scene on the card."""
+    import numpy as np
+
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.progressive import ProgressiveRenderer
+
+    cfg = RenderConfig(width=MESH_W, height=MESH_H, max_depth=MESH_DEPTH)
+    before = mk.LAUNCHES_CLUSTERED
+    t0 = time.perf_counter()
+    prog = ProgressiveRenderer(scene, mesh_cam(MESH_W, MESH_H), cfg, engine="mega", device=dev)
+    prog.run(max_passes=1)
+    print(f"[progressive-mesh] one 'mega' pass on the blob: {time.perf_counter() - t0:.3f} s, "
+          f"K5 launches {mk.LAUNCHES_CLUSTERED - before}")
+    check(prog.engine == "mega" and mk.LAUNCHES_CLUSTERED == before + 1
+          and bool(np.isfinite(prog.state.image).all()), "the mega engine did not run K5")
+    png = os.path.join("build", "obj_cli.png")
+    if os.path.exists(png):
+        os.remove(png)
+    cmd = [sys.executable, "-m", "rt_tpu_torch.cli", "--scene", f"obj:{obj_path}", "--size",
+           "200x112", "--spp", "2", "--out", png]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    print(f"[cli] {' '.join(cmd[1:])}: rc {res.returncode}, {time.perf_counter() - t0:.1f} s")
+    for line in res.stderr.strip().splitlines()[-2:]:
+        print(f"[cli] {line}")
+    check(res.returncode == 0, f"the obj: CLI failed: {res.stderr[-2000:]}")
+    with open(png, "rb") as f:
+        check(f.read(8) == b"\x89PNG\r\n\x1a\n", "the obj: CLI wrote no PNG")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -683,6 +1035,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from rt_tpu_torch import _build, megakernel as mk
+    from rt_tpu_torch.config import RenderConfig
     from rt_tpu_torch.render import render_image
     from rt_tpu_torch.scenes import bench_cover_config
 
@@ -696,7 +1049,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- 2. build K1, K2 and K3 from the repository's sources ---------------------
+    # -- 2. build K1-K5 from the repository's sources ---------------------------------
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {_build.build_info['path']}: nvcc {_build.build_info['seconds']:.2f} s "
@@ -839,9 +1192,42 @@ def main() -> int:
     progressive_phase(dev, card)
     cli_progressive_phase()
 
-    # -- 16. result -------------------------------------------------------------------
+    # -- 16. mesh scenes: the BVH builder, the config-3 fixtures and scenes ------------
+    fixtures = mesh_setup()
+    blob = mesh_scene(fixtures["skull_class"], dev)
+    heightfield = mesh_scene(fixtures["heightfield"], dev)
+    mesh_cfg = RenderConfig(width=MESH_W, height=MESH_H, samples_per_pixel=MESH_SPP,
+                            max_depth=MESH_DEPTH)
+    mesh_camera = mesh_cam(MESH_W, MESH_H)
+
+    # -- 17. K4/K4b kernel vs plain on the card ------------------------------------------
+    k4, k4b = cluster_phase(dev, blob, mesh_camera, mesh_cfg, timed_cuda)
+    print(f"[time] K4 cluster_worklist_nearest, 65536 rays x the blob's {len(blob.clusters.pages)} "
+          f"pages (one wavefront intersect) on {card}: kernel {k4[1]:.4f} ms, plain {k4[2]:.2f} ms, "
+          f"bound {k4[3]:.4f} ms (CUDA events, mean of 5 after a warm-up; plain: one run after one)")
+    print(f"[time] K4b cluster_nearest, the same rays x the whole tables on {card}: kernel "
+          f"{k4b[1]:.4f} ms, plain {k4b[2]:.2f} ms, bound {k4b[3]:.4f} ms")
+
+    # -- 18. K5 kernel vs plain on the card -----------------------------------------------
+    k5 = k5_phase(dev, blob, mesh_camera, mesh_cfg, timed_cuda)
+    print(f"[time] K5 megakernel_clustered, the 64x36 blob range at 2 spp on {card}: kernel "
+          f"{k5[1]:.4f} ms, plain {k5[2]:.1f} ms (one run, wall), bound {k5[3]:.4f} ms")
+
+    # -- 19. the slice at full width: render_image of config 3 and 3b (K5) ---------------
+    k5_launches, k5_frame_ms, _ = mesh_frames_phase(
+        dev, card, {"blob": blob, "heightfield": heightfield}, timed_cuda)
+
+    # -- 20. the wavefront on K4 -------------------------------------------------------------
+    k4_launches, mesh_wf_counts, mesh_wf_s = mesh_wavefront_phase(dev, blob)
+
+    # -- 21. progressive ("mega" engine) and the CLI on the mesh ----------------------------
+    mesh_progressive_cli_phase(dev, blob, fixtures["skull_class"])
+
+    # -- 22. result -------------------------------------------------------------------
     check(all(math.isfinite(v) for v in (bench_err, kernel_ms, plain_ms, k2_ms, k2_plain_ms,
-                                          k2b_ms, k2b_plain_ms, *k3[:4], *k3b[:4], wf_s)),
+                                          k2b_ms, k2b_plain_ms, *k3[:4], *k3b[:4], wf_s,
+                                          *k4[:4], *k4b[:4], *k5[:4], mesh_wf_s,
+                                          *k5_frame_ms.values())),
           "non-finite measurement")
     # Least times: K1 does at least the pair tests of the ray segments the
     # wavefront counted for the same frame (the same paths); K2/K2b the pair
@@ -856,8 +1242,12 @@ def main() -> int:
           f"{PEAK_BYTES / 1e12:.2f} TB/s): K1 {k1_bound[0]:.4f} ms ({seg} ray segments), "
           f"K2 {k2_bound[0]:.4f} ms, K2b {k2b_bound[0]:.4f} ms, K3 {k3[3]:.4f} ms, "
           f"K3b {k3b[3]:.4f} ms")
-    print("[kernels] sphere_nearest_packed (K2b) and prim_nearest_packed (K3b) have no caller on "
-          "any path, as in rt_tpu; each is held against its plain version above")
+    print(f"[kernels] K4 {k4[3]:.4f} ms and K4b {k4b[3]:.4f} ms from the walk's counted slab and "
+          f"pair tests on phase 17's rays, K5 {k5[3]:.4f} ms from those of phase 18's range "
+          f"({FLOPS_SLAB} FLOP a slab test)")
+    print("[kernels] sphere_nearest_packed (K2b), prim_nearest_packed (K3b) and cluster_nearest "
+          "(K4b) have no caller on any path, as in rt_tpu; each is held against its plain "
+          "version above")
 
     def entry(name, source, replaces, n_launches, err, ms, p_ms, bnd):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -878,6 +1268,14 @@ def main() -> int:
         entry("prim_nearest_packed", "rt_tpu_torch/csrc/prim_nearest.cu",
               "rt_tpu/pallas_ops.py:270", wf_launches["prim_nearest_packed"], k3b[0], k3b[1],
               k3b[2], k3b[3:5]),
+        entry("cluster_nearest", "rt_tpu_torch/csrc/cluster_nearest.cu",
+              "rt_tpu/pallas_ops.py:1015", k4_launches["cluster_worklist_nearest"], k4[0], k4[1],
+              k4[2], k4[3:5]),
+        entry("cluster_nearest_predicated", "rt_tpu_torch/csrc/cluster_nearest.cu",
+              "rt_tpu/pallas_ops.py:533", k4_launches["cluster_nearest"], k4b[0], k4b[1], k4b[2],
+              k4b[3:5]),
+        entry("megakernel_clustered", "rt_tpu_torch/csrc/megakernel.cu",
+              "rt_tpu/megakernel.py:3768", k5_launches, k5[0], k5[1], k5[2], k5[3:5]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -105,6 +105,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [ptr, i32, ptr, i32, ptr, i32, i32, f32, f32, i32, ptr, i32, i32,
                        ptr, ptr, ptr, ptr]
         fn.restype = i32
+        fn = lib.rt_cluster_nearest
+        fn.argtypes = [ptr, i32] + [ptr, i32, ptr, i32, ptr, i32] * 2 + [f32, f32, i32, ptr, ptr,
+                                                                         ptr]
+        fn.restype = i32
+        fn = lib.rt_megakernel_clustered
+        fn.argtypes = ([ptr] + [i32] * 4 + [ctypes.c_uint] + [i32] * 6
+                       + [ptr, i32, ptr, i32, ptr] * 2 + [i32, ptr, ptr, ptr, ptr])
+        fn.restype = i32
         _lib = lib
     return _lib
 

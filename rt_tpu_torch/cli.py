@@ -4,6 +4,7 @@ schedule, and write the image as PNG or PPM.
 Examples:
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --spp 10 --out out.png
     python -m rt_tpu_torch.cli --scene textured --camera cam2 --device cpu --out t.ppm
+    python -m rt_tpu_torch.cli --scene obj:model.obj --size 200x112 --spp 2 --out m.png
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --progressive --passes 4 \
         --checkpoint cover.npz --out cover.png
 """
@@ -23,6 +24,8 @@ def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
 
     if spec == "cover":
         return scenes.cover_scene(11, 11, camera, z=-0.2, seed=seed, texture_dir=texture_dir)
+    if spec == "cover-large":
+        return scenes.cover_scene(300, 300, camera, z=-0.2, seed=seed, texture_dir=texture_dir)
     if spec == "earth":
         return scenes.earth_scene(texture_dir)
     if spec == "checkered":
@@ -31,7 +34,20 @@ def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
         return scenes.textured_spheres_scene(texture_dir)
     if spec == "triangles":
         return scenes.triangle_scene(texture_dir)
-    if spec == "cover-large" or spec.startswith(("obj:", "gltf:")):
+    if spec.startswith("obj:"):
+        from rt_tpu_torch.io.obj_loader import load_obj
+        from rt_tpu_torch.scene import SceneBuilder
+
+        b = SceneBuilder()
+        mat = b.lambertian_rgb(0.8, 0.8, 0.8)
+        for model in load_obj(spec[4:]):
+            b.add_triangles(model["vertices"], model["uvs"], mat)
+        even = b.solid_color((0.1, 0.1, 0.1))
+        odd = b.solid_color((0.95, 0.95, 0.95))
+        ground = b.lambertian(b.checker(0.75, even, odd))
+        scenes.add_ground_plane(b, 1000.0, 1000.0, -0.2, ground)
+        return b.build()
+    if spec.startswith("gltf:"):
         raise SystemExit(f"scene {spec!r}: not yet ported")
     raise SystemExit(f"unknown scene: {spec!r}")
 
@@ -44,7 +60,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(prog="rt_tpu_torch", description=__doc__)
     parser.add_argument("--scene", default="cover",
-                        help="cover | earth | checkered | textured | triangles")
+                        help="cover | cover-large | earth | checkered | textured | triangles | "
+                        "obj:PATH")
     parser.add_argument("--camera", default="cam1", choices=["cam1", "cam2", "widecam", "topdown"])
     parser.add_argument("--size", default="800x600", help="WIDTHxHEIGHT")
     parser.add_argument("--spp", type=int, default=32)
@@ -60,8 +77,8 @@ def main(argv=None) -> int:
     parser.add_argument("--checkpoint", default=None,
                         help="progressive checkpoint .npz (resumed if it exists)")
     parser.add_argument("--engine", default="wavefront", choices=["wavefront", "mega"],
-                        help="progressive sweep engine: the persistent wavefront (K3) or "
-                        "the flat megakernel (K1)")
+                        help="progressive sweep engine: the persistent wavefront (K3/K4) or "
+                        "the megakernel (K1/K5)")
     parser.add_argument("--checkpoint-every", type=int, default=1,
                         help="sweeps between checkpoint writes")
     parser.add_argument("--metrics", default=None, help="JSONL metrics path")

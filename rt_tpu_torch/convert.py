@@ -14,7 +14,10 @@ import torch
 
 from rt_tpu_torch.camera import Camera
 from rt_tpu_torch.grad import SceneParams
-from rt_tpu_torch.scene import TABLES, SceneData
+from rt_tpu_torch.scene import (
+    BVH_TABLES, CLUSTER_TABLES, PAGE_TABLES, TABLES, BvhArrays, ClusterData, ClusterPage,
+    SceneData,
+)
 from rt_tpu_torch.sky import SkyParams
 
 
@@ -53,22 +56,30 @@ def params_from_arrays(p) -> SceneParams:
                           for name in SceneParams._fields})
 
 
+def _tables(obj, names) -> dict:
+    return {name: None if getattr(obj, name) is None else _tensor(getattr(obj, name))
+            for name in names}
+
+
+def clusters_from_arrays(cl) -> ClusterData:
+    """The port's ClusterData holding the JAX ClusterData's tables, pages
+    and slot bases."""
+    pages = [ClusterPage(sph_slot_base=int(page.sph_slot_base),
+                         tri_slot_base=int(page.tri_slot_base), **_tables(page, PAGE_TABLES))
+             for page in cl.pages]
+    return ClusterData(pages=pages, n_sph_slots=int(cl.n_sph_slots), inline_ok=bool(cl.inline_ok),
+                       chord_clusters=float(cl.chord_clusters), **_tables(cl, CLUSTER_TABLES))
+
+
 def scene_from_arrays(scene) -> SceneData:
-    """The port's SceneData holding the same tables.  A scene with cluster
-    tables or a BVH needs a later slice of the port and raises
-    NotImplementedError."""
-    if getattr(scene, "clusters", None) is not None or getattr(scene, "bvh", None) is not None:
-        raise NotImplementedError(
-            "clustered and BVH scenes are a later slice of the port"
-        )
-    tables = {
-        name: None if getattr(scene, name) is None else _tensor(getattr(scene, name))
-        for name in TABLES
-    }
+    """The port's SceneData holding the same tables, cluster tables and
+    BVH arrays included."""
     return SceneData(
         sky=sky_from_arrays(scene.sky),
         num_spheres=int(scene.num_spheres),
         num_triangles=int(scene.num_triangles),
         has_image_textures=bool(scene.has_image_textures),
-        **tables,
+        clusters=None if scene.clusters is None else clusters_from_arrays(scene.clusters),
+        bvh=None if scene.bvh is None else BvhArrays(*_tables(scene.bvh, BVH_TABLES).values()),
+        **_tables(scene, TABLES),
     )

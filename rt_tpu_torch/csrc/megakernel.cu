@@ -1,14 +1,21 @@
-// Flat path-tracing megakernel for Hopper (sm_90a).
+// Path-tracing megakernels for Hopper (sm_90a): K1 (flat) and K5
+// (clustered).
 //
-// Replaces the TPU kernel rt_tpu/megakernel.py `_mega_kernel` in flat mode
-// (launched by `_mega_exec`, rt_tpu/megakernel.py:3479).  It computes the
+// Replace the TPU kernel rt_tpu/megakernel.py `_mega_kernel` in flat mode
+// (K1, launched by `_mega_exec`, rt_tpu/megakernel.py:3479) and in clustered
+// mode (K5, launched by `_mega_exec_clustered`, :3768).  Both compute the
 // same thing: for each pixel of a contiguous range, `spp` camera samples,
 // each traced through the whole bounce loop (Halton camera ray + thin-lens
-// defocus, brute-force nearest sphere/triangle, shade-table fetch,
-// solid/checker/image texture, lambertian/metal/dielectric(+frost)/emissive
-// scatter, Russian roulette, Perez or Hosek sky through Uncharted2), and
-// writes the mean radiance of the pixel.  The plain PyTorch version is
-// `render_megakernel_plain` in rt_tpu_torch/megakernel.py.
+// defocus, nearest sphere/triangle, shade-table fetch, solid/checker/image
+// texture, lambertian/metal/dielectric(+frost)/emissive scatter, Russian
+// roulette, Perez or Hosek sky through Uncharted2), and write the mean
+// radiance of the pixel.  They differ in the search and in the shade table
+// it indexes: K1 brute-forces every primitive and reads the per-primitive
+// table; K5 walks the cluster tables (cluster_walk.cuh) and reads the
+// slot-ordered table by the winner's slot id, the full table and not the
+// TPU kernel's inline essentials (which quantize fuzz to 12 bits).  The
+// plain PyTorch version of both is `render_megakernel_plain` in
+// rt_tpu_torch/megakernel.py.
 //
 // Design.  One thread owns one pixel, loops over its samples in order and
 // over each path's bounces, and writes the pixel once: no float atomics, so
@@ -20,15 +27,22 @@
 // loads, the argmin is exact with the lowest id winning ties (spheres
 // first), and sqrt/sin/cos/acos/atan2/exp are the native functions.
 //
-// What bounds it on this card: the brute-force intersection, ~25 FLOPs per
-// (ray segment, primitive) over every primitive of the scene, and warp
-// divergence on path length (a warp runs until its longest path ends,
-// dielectric chains run to max_depth).  Left for later: regenerating a
-// persistent pool so finished lanes pick up new paths, staging the
-// primitive tables in shared memory, and sorting or binning rays.
+// K5 keeps this design and drops the TPU's clustered machinery (row sweep,
+// streamed DMA ring, expansion sweep, lane binning, winner fetch): each
+// thread walks its own ray through the clusters.
+//
+// What bounds it on this card: the intersection.  For K1, ~25 FLOPs per
+// (ray segment, primitive) over every primitive of the scene; for K5 the
+// slab tests of the supers and clusters a ray enters and the pair tests of
+// the entered clusters' slots.  Then warp divergence on path length (a warp
+// runs until its longest path ends, dielectric chains run to max_depth)
+// and, for K5, on walk length.  Left for later: regenerating a persistent
+// pool so finished lanes pick up new paths, staging the primitive tables in
+// shared memory, and sorting or binning rays.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cluster_walk.cuh"
 #include "rt_common.cuh"
 
 namespace rt {
@@ -89,6 +103,28 @@ __device__ Hit nearest(const Params& p, const Ints& q, const float4* __restrict_
   }
   return best;
 }
+
+// K1's search: brute force over the packed tables.
+struct FlatSearch {
+  const float4* sph;
+  const float* tri;
+  __device__ Hit operator()(const Params& p, const Ints& q, float ox, float oy, float oz,
+                            float dx, float dy, float dz, float a, float inv_a) const {
+    return nearest(p, q, sph, tri, ox, oy, oz, dx, dy, dz, a, inv_a);
+  }
+};
+
+// K5's search: the cluster walk; the winner is a slot id.
+struct ClusterSearch {
+  ClusterSet sph, tri;
+  __device__ Hit operator()(const Params& p, const Ints& q, float ox, float oy, float oz,
+                            float dx, float dy, float dz, float a, float inv_a) const {
+    Hit best{BIG, -1};
+    cluster_walk(sph, tri, walk_ray(ox, oy, oz, dx, dy, dz, a, inv_a), p.t_min, p.t_max,
+                 q.flags & FLAG_BACKFACE_CULL, best.t, best.prim);
+    return best;
+  }
+};
 
 __device__ __forceinline__ float uncharted2(float x) {
   // (x(Ax + CB) + DE) / (x(Ax + B) + DF) - E/F, constants folded in double
@@ -194,16 +230,18 @@ __device__ float2 hit_uv(const float* __restrict__ f, bool is_sphere, bool bbox_
   return make_float2(w0 * ua_u + bu * ub_u + bv * uc_u, w0 * ua_v + bu * ub_v + bv * uc_v);
 }
 
-// Radiance of one path (megakernel.py:2788-3216 for one lane).
-__device__ float3 trace(const Params& p, const Ints& q, const float4* __restrict__ sph,
-                        const float* __restrict__ tri, const float* __restrict__ table,
-                        const float* __restrict__ atlas, uint32_t gid, float ox, float oy,
-                        float oz, float dx, float dy, float dz) {
+// Radiance of one path (megakernel.py:2788-3216 for one lane).  `table`
+// holds one row of F_ROWS values per id the search returns.
+template <class Search>
+__device__ float3 trace(const Params& p, const Ints& q, const Search& search,
+                        const float* __restrict__ table, const float* __restrict__ atlas,
+                        uint32_t gid, float ox, float oy, float oz, float dx, float dy,
+                        float dz) {
   float tpr = 1.0f, tpg = 1.0f, tpb = 1.0f;
   for (int depth = 0;; ++depth) {
     const float a = dx * dx + dy * dy + dz * dz;
     const float inv_a = 1.0f / a;
-    const Hit hit = nearest(p, q, sph, tri, ox, oy, oz, dx, dy, dz, a, inv_a);
+    const Hit hit = search(p, q, ox, oy, oz, dx, dy, dz, a, inv_a);
     const float inv_dn = 1.0f / fmaxf(sqrtf(a), 1e-20f);
     const float udx = dx * inv_dn, udy = dy * inv_dn, udz = dz * inv_dn;
     if (!(hit.t < BIG)) {
@@ -351,10 +389,11 @@ __device__ float3 trace(const Params& p, const Ints& q, const float4* __restrict
   }
 }
 
+template <class Search>
 __global__ void __launch_bounds__(kBlock)
-    megakernel_flat(const Params p, const Ints q, const float4* __restrict__ sph,
-                    const float* __restrict__ tri, const float* __restrict__ table,
-                    const float* __restrict__ atlas, float* __restrict__ out) {
+    megakernel(const Params p, const Ints q, const Search search,
+               const float* __restrict__ table, const float* __restrict__ atlas,
+               float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= q.n_pixels) return;
   const uint32_t pix = (uint32_t)(q.pixel_base + i);
@@ -388,7 +427,7 @@ __global__ void __launch_bounds__(kBlock)
       oy = p.center[1] + dskx * p.dku[1] + dsky * p.dkv[1];
       oz = p.center[2] + dskx * p.dku[2] + dsky * p.dkv[2];
     }
-    const float3 c = trace(p, q, sph, tri, table, atlas, gwork, ox, oy, oz, sx - ox, sy - oy,
+    const float3 c = trace(p, q, search, table, atlas, gwork, ox, oy, oz, sx - ox, sy - oy,
                            sz - oz);
     acc_r = acc_r + c.x;
     acc_g = acc_g + c.y;
@@ -402,23 +441,59 @@ __global__ void __launch_bounds__(kBlock)
 }  // namespace
 }  // namespace rt
 
-// C entry point, bound with ctypes by rt_tpu_torch/megakernel.py.
+namespace rt {
+namespace {
+
+template <class Search>
+int launch(const float* params, const Ints& q, const Search& search, const float* table,
+           const float* atlas, float* out, void* stream) {
+  Params p;
+  const float* src = params;
+  float* dst = reinterpret_cast<float*>(&p);
+  for (int k = 0; k < 80; ++k) dst[k] = src[k];
+  const int blocks = (q.n_pixels + kBlock - 1) / kBlock;
+  megakernel<Search><<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, q, search, table, atlas, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace rt
+
+// C entry points, bound with ctypes by rt_tpu_torch/megakernel.py.
 // `params` is a host pointer to 80 floats (rt::Params); every other pointer
-// is device memory.  Launches on `stream` and returns cudaGetLastError().
+// is device memory.  Each launches on `stream` and returns
+// cudaGetLastError().
+
+// K1: `table` is the per-primitive shade table, one row per primitive.
 extern "C" int rt_megakernel_flat(const float* params, int n_pixels, int pixel_base, int spp,
                                   int sample_offset, unsigned int seed, int width, int n_global,
                                   int max_depth, int n_spheres, int n_tris, int atlas_h,
                                   int atlas_w, int flags, const float* sph, const float* tri,
                                   const float* table, const float* atlas, float* out,
                                   void* stream) {
-  rt::Params p;
-  const float* src = params;
-  float* dst = reinterpret_cast<float*>(&p);
-  for (int k = 0; k < 80; ++k) dst[k] = src[k];
   const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
                    n_spheres, n_tris, atlas_h, atlas_w, flags};
-  const int blocks = (n_pixels + rt::kBlock - 1) / rt::kBlock;
-  rt::megakernel_flat<<<blocks, rt::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, q, reinterpret_cast<const float4*>(sph), tri, table, atlas, out);
-  return static_cast<int>(cudaGetLastError());
+  return rt::launch(params, q, rt::FlatSearch{reinterpret_cast<const float4*>(sph), tri}, table,
+                    atlas, out, stream);
+}
+
+// K5: per kind the super and cluster AABBs f32[., 8] and the slot table
+// f32[rows, n_clusters * 128] of scene.ClusterData; triangle slot ids start
+// at n_sph_slots.  `table` is the slot-ordered shade table, one row per slot.
+extern "C" int rt_megakernel_clustered(
+    const float* params, int n_pixels, int pixel_base, int spp, int sample_offset,
+    unsigned int seed, int width, int n_global, int max_depth, int atlas_h, int atlas_w,
+    int flags, const float* sph_super, int n_sph_super, const float* sph_cluster,
+    int n_sph_cluster, const float* sph_slots, const float* tri_super, int n_tri_super,
+    const float* tri_cluster, int n_tri_cluster, const float* tri_slots, int n_sph_slots,
+    const float* table, const float* atlas, float* out, void* stream) {
+  const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
+                   0, 0, atlas_h, atlas_w, flags};
+  const rt::ClusterSearch search{
+      rt::ClusterSet{sph_super, sph_cluster, sph_slots, n_sph_super, n_sph_cluster,
+                     (long long)n_sph_cluster * rt::kClusterSlots, 0},
+      rt::ClusterSet{tri_super, tri_cluster, tri_slots, n_tri_super, n_tri_cluster,
+                     (long long)n_tri_cluster * rt::kClusterSlots, n_sph_slots}};
+  return rt::launch(params, q, search, table, atlas, out, stream);
 }

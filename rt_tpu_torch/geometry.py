@@ -217,7 +217,10 @@ def nearest_hit(scene, org, dirn, t_min, t_max, compat: CompatConfig = CompatCon
     hittable.rs:135-149).  ``impl``: "pallas" searches with K2 for the
     spheres (``_nearest_kernel``), "auto" by brute force; both give the
     same winners up to rounding.  (The gradient path calls
-    ``nearest_search_detached`` directly.)"""
+    ``nearest_search_detached`` directly.)  A scene with a BVH, which the
+    JAX package walks here, raises: the traversal is not ported yet."""
+    if scene.bvh is not None:
+        raise NotImplementedError("BVH traversal (bvh/traverse.nearest_hit_bvh) is not ported yet")
     if impl == "pallas":
         t, prim = _nearest_kernel(scene, org, dirn, t_min, t_max, compat, sphere_nearest)
     elif impl == "auto":

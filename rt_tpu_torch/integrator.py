@@ -1,8 +1,7 @@
 """Path-tracing integrators of the chunked and gradient paths.
 
 Counterparts of the JAX package's rt_tpu/integrator.py on its fast-shade
-branch (scenes with a shade table and no BVH, which is every scene the
-port builds):
+branch (scenes with a shade table and no BVH):
 
 - ``trace_radiance`` (integrator.py:91-120): forward radiance with early
   exit once every path has ended, up to ``cfg.max_depth``;
@@ -21,8 +20,8 @@ pixel-major, and on the bounce depth.
 
 Discrete events (hit ids, RR survival, reflect vs refract) are decided
 with detached quantities; the continuous factors carry gradients.
-A scene without a shade table needs the generic bounce step, which is not
-ported yet, and raises.
+A scene without a shade table needs the generic bounce step, and a scene
+with a BVH the BVH traversal; neither is ported yet, and both raise.
 """
 
 from __future__ import annotations
@@ -42,6 +41,11 @@ def _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest):
         raise NotImplementedError(
             "scenes without a packed shade table need the generic bounce step "
             "(materials/textures), which is not ported yet"
+        )
+    if scene.bvh is not None:
+        raise NotImplementedError(
+            "scenes with a BVH take the JAX package's BVH traversal here, which is not "
+            "ported yet"
         )
     n = origins.shape[0]
     device = origins.device

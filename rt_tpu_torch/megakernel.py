@@ -1,9 +1,12 @@
-"""Flat megakernel: the whole bounce loop of every path in one kernel.
+"""Megakernels: the whole bounce loop of every path in one kernel.
 
-Port of the JAX package's flat-mode megakernel (rt_tpu/megakernel.py
-`_mega_kernel`, launched by `_mega_exec`).  ``render_megakernel`` returns
-the mean radiance of a contiguous pixel range, like the JAX function of the
-same name:
+Port of the JAX package's megakernel (rt_tpu/megakernel.py `_mega_kernel`)
+in its two modes: flat (K1, launched by `_mega_exec`) for scenes small
+enough to brute-force, and clustered (K5, launched by
+`_mega_exec_clustered`) for scenes with cluster tables, which it walks per
+ray.  ``render_megakernel`` returns the mean radiance of a contiguous pixel
+range, like the JAX function of the same name, through K1 where
+``eligible`` holds and K5 where ``eligible_clustered`` holds:
 
 - on a CUDA device it launches the hand-written CUDA kernel
   (csrc/megakernel.cu), one thread per pixel;
@@ -28,7 +31,7 @@ import math
 import numpy as np
 import torch
 
-from rt_tpu_torch import _build, color, fast_shade, prim_ops, rng
+from rt_tpu_torch import _build, cluster_ops, color, fast_shade, prim_ops, rng
 from rt_tpu_torch.camera import Camera, generate_rays
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.elementwise import div
@@ -40,10 +43,11 @@ from rt_tpu_torch.fast_shade import (
 from rt_tpu_torch.scene import SceneData
 from rt_tpu_torch.sky import XYZ_TO_SRGB, frame_scalars
 
-# Launches of the CUDA kernel since the last reset.  Only the wrapper
-# changes it, once per launch; callers read and reset it to show that a run
-# went through the kernel.
+# Launches of K1 (LAUNCHES) and of K5 (LAUNCHES_CLUSTERED) since the last
+# reset.  Only the wrappers change them, once per launch; callers read and
+# reset them to show that a run went through the kernel.
 LAUNCHES = 0
+LAUNCHES_CLUSTERED = 0
 
 # Static switches (csrc/rt_common.cuh FLAG_*).
 FLAG_BACKFACE_CULL = 1
@@ -73,14 +77,22 @@ _PLAIN_CHUNK = 1 << 15
 
 
 def eligible(scene: SceneData, cfg: RenderConfig) -> bool:
-    """True when the flat megakernel can render this scene: brute-force
-    sized and expressible in the packed shade table (the JAX package's
-    `eligible`, minus its TPU memory budget)."""
+    """True when the flat megakernel (K1) can render this scene: no cluster
+    tables, brute-force sized and expressible in the packed shade table
+    (the JAX package's `eligible`, minus its TPU memory budget)."""
     return (
         scene.shade_table is not None
+        and scene.clusters is None
         and scene.num_prims <= 4096
         and scene.num_triangles <= 128
     )
+
+
+def eligible_clustered(scene: SceneData, cfg: RenderConfig) -> bool:
+    """True when the clustered megakernel (K5) can render this scene: it
+    has cluster tables and a shade table (the JAX package's
+    `eligible_clustered`, minus its TPU memory and worklist budgets)."""
+    return scene.clusters is not None and scene.shade_table is not None
 
 
 def _check_range(camera: Camera, spp: int, pixel_base: int, n_pixels: int | None) -> int:
@@ -107,16 +119,19 @@ def render_megakernel(
 ) -> torch.Tensor:
     """Mean radiance f32[n_pixels, 3] of pixels [pixel_base, pixel_base +
     n_pixels) over samples [sample_offset, sample_offset + spp), on the
-    scene's device.  ``seed`` is the hash seed: the JAX package's
-    ``jax.random.key(seed)`` renders the same image."""
-    if not eligible(scene, cfg):
+    scene's device, through K1 or K5 (one launch).  ``seed`` is the hash
+    seed: the JAX package's ``jax.random.key(seed)`` renders the same
+    image."""
+    clustered = eligible_clustered(scene, cfg)
+    if not (clustered or eligible(scene, cfg)):
         raise NotImplementedError(
-            "only flat megakernel scenes are ported so far (packed shade table, "
-            "<= 4096 prims, <= 128 triangles)"
+            "no megakernel for this scene: it needs a packed shade table, and cluster "
+            "tables or at most 4096 primitives and 128 triangles"
         )
     device = scene.device
     if device.type == "cuda":
-        return _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels)
+        launch = _launch_clustered if clustered else _launch
+        return launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels)
     if device.type == "cpu":
         return render_megakernel_plain(
             scene, camera, cfg, spp, sample_offset, seed, pixel_base=pixel_base, n_pixels=n_pixels
@@ -197,6 +212,52 @@ def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) 
     return out
 
 
+def cluster_tables(cl) -> tuple:
+    """K5's search tables: the whole two-level tables of ``ClusterData``."""
+    return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
+            cl.tri_slots)
+
+
+def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels
+                      ) -> torch.Tensor:
+    """Wrapper of K5: checks its inputs, allocates the output and launches
+    on the current stream.  Raises on any failure."""
+    global LAUNCHES_CLUSTERED
+    n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
+    device = scene.device
+    cl = scene.clusters
+    atlas = _build.require(scene.atlas, "atlas", device)
+    tables = cluster_tables(cl)
+    cluster_ops.check_tables("megakernel_clustered", tables)
+    if atlas.dim() != 3 or atlas.shape[2] != 3:
+        raise ValueError("atlas is not in the kernel layout")
+    # The kernel reads one slot's 40 parameters as one row.
+    table = _build.require(cl.shade_table.t().contiguous(), "clusters.shade_table", device)
+    n_slots = cl.n_sph_slots + cl.tri_slots.shape[1]
+    if table.shape[0] < n_slots or table.shape[1] != fast_shade.F_ROWS:
+        raise ValueError(f"clusters.shade_table: need [{fast_shade.F_ROWS}, >= {n_slots}]")
+    if cl.n_sph_slots != cl.sph_slots.shape[1]:
+        raise ValueError("clusters.n_sph_slots differs from the sphere slot count")
+    s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots = (
+        cluster_ops.cluster_args(tables, device, "megakernel_clustered"))
+    pf = kernel_params(scene, camera, cfg, spp)
+    out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.rt_megakernel_clustered(
+            pf.ctypes.data, n_pixels, pixel_base, spp, sample_offset, seed & 0xFFFFFFFF,
+            camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
+            atlas.shape[0], atlas.shape[1], _flags(scene, camera, cfg),
+            s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots,
+            cl.n_sph_slots, table.data_ptr(), atlas.data_ptr(), out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"clustered megakernel launch failed with CUDA error {err}")
+    LAUNCHES_CLUSTERED += 1
+    return out
+
+
 def _mega_tonemap(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(WHITE_SCALE * color.uncharted2_tonemap(1.1 * v), min=0.0)
 
@@ -242,20 +303,21 @@ def _mega_sky_rows(sky_k: dict, dx, dy, dz):
     )
 
 
-def _mega_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: dict) -> dict:
+def _mega_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: dict,
+                 table: torch.Tensor) -> dict:
     """One bounce after intersection, for rays that all sit at ``depth``.
 
-    ``prim`` is the global winner id (-1 on a miss), ``gid`` the u32 work
-    id of each path (int64).  Returns new_rays f32[6,B], att (RR-scaled
-    attenuation rows), sky rows, emit rows, and bool rows hit, emissive,
-    survive.
+    ``prim`` is the winner's id in ``table`` (-1 on a miss), ``gid`` the
+    u32 work id of each path (int64).  Returns new_rays f32[6,B], att
+    (RR-scaled attenuation rows), sky rows, emit rows, and bool rows hit,
+    emissive, survive.
     """
     compat = cfg.compat
     ox, oy, oz = rays[0], rays[1], rays[2]
     dx, dy, dz = rays[3], rays[4], rays[5]
     hit = t < BIG
     prim = torch.where(hit, prim, 0)
-    f = scene.shade_table[:, prim]  # [F, B] direct gather of the winner's column
+    f = table[:, prim]  # [F, B] direct gather of the winner's column
     ts = torch.where(hit, t, 0.0)
     px = ox + ts * dx
     py = oy + ts * dy
@@ -446,9 +508,36 @@ def _mega_bounce(scene, rays, t, prim, seed: int, gid, depth: int, cfg, sky_k: d
     )
 
 
-def trace_paths(scene, cfg, seed: int, sky_k: dict, org, dirn, gwork) -> torch.Tensor:
+def flat_search(scene, cfg, rays):
+    """K1's search in plain PyTorch: brute force over the packed tables
+    (K3b's plain version) -> (t, global primitive id)."""
+    hits = [
+        prim_ops.prim_nearest_packed_plain(
+            rays[:, k : k + _PLAIN_CHUNK], scene.sph_packed[: scene.num_spheres],
+            scene.tri_packed[: scene.num_triangles], scene.num_spheres, cfg.t_min, cfg.t_max,
+            cfg.compat.triangle_backface_cull,
+        )
+        for k in range(0, rays.shape[1], _PLAIN_CHUNK)
+    ]
+    return torch.cat([h[0] for h in hits]), torch.cat([h[1] for h in hits])
+
+
+def cluster_search(scene, cfg, rays):
+    """K5's search in plain PyTorch: the cluster walk (K4's plain version)
+    over the whole cluster tables -> (t, slot id)."""
+    cl = scene.clusters
+    return cluster_ops.cluster_nearest_plain(
+        rays, *cluster_tables(cl), cl.n_sph_slots, cfg.t_min, cfg.t_max,
+        cfg.compat.triangle_backface_cull)
+
+
+def trace_paths(scene, cfg, seed: int, sky_k: dict, org, dirn, gwork, search=flat_search,
+                table: torch.Tensor | None = None) -> torch.Tensor:
     """Radiance f32[N, 3] of N paths from (org, dirn) with work ids gwork:
-    the megakernel's bounce loop, with finished paths compacted away."""
+    the megakernel's bounce loop, with finished paths compacted away.
+    ``search(scene, cfg, rays)`` gives the winners' (t, id in ``table``)
+    (default: K1's search and ``scene.shade_table``)."""
+    table = scene.shade_table if table is None else table
     n = org.shape[0]
     out = torch.zeros((n, 3), dtype=torch.float32, device=org.device)
     live = torch.arange(n, device=org.device)
@@ -457,17 +546,8 @@ def trace_paths(scene, cfg, seed: int, sky_k: dict, org, dirn, gwork) -> torch.T
     gid = gwork
     depth = 0
     while live.numel():
-        hits = [
-            prim_ops.prim_nearest_packed_plain(
-                rays[:, k : k + _PLAIN_CHUNK], scene.sph_packed[: scene.num_spheres],
-                scene.tri_packed[: scene.num_triangles], scene.num_spheres, cfg.t_min, cfg.t_max,
-                cfg.compat.triangle_backface_cull,
-            )
-            for k in range(0, rays.shape[1], _PLAIN_CHUNK)
-        ]
-        t = torch.cat([h[0] for h in hits])
-        prim = torch.cat([h[1] for h in hits])
-        sh = _mega_bounce(scene, rays, t, prim, seed, gid, depth, cfg, sky_k)
+        t, prim = search(scene, cfg, rays)
+        sh = _mega_bounce(scene, rays, t, prim, seed, gid, depth, cfg, sky_k, table)
         miss = ~sh["hit"]
         emis = sh["hit"] & sh["emissive"]
         dep = miss | emis
@@ -496,15 +576,23 @@ def render_megakernel_plain(
     n_pixels: int | None = None,
 ) -> torch.Tensor:
     """The megakernel in plain PyTorch on the scene's device: the same
-    arguments and result as ``render_megakernel``.  Samples are summed per
-    pixel in sample order, as the kernel's threads sum them."""
+    arguments and result as ``render_megakernel``.  K1's search and
+    per-primitive table, or for a clustered scene K5's: the cluster walk
+    and the slot-ordered table.  Samples are summed per pixel in sample
+    order, as the kernel's threads sum them."""
     n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
     device = scene.device
+    if eligible_clustered(scene, cfg):
+        search, table = cluster_search, scene.clusters.shade_table
+    elif eligible(scene, cfg):
+        search, table = flat_search, scene.shade_table
+    else:
+        raise NotImplementedError("no megakernel for this scene (see render_megakernel)")
     sky_k = frame_scalars(scene.sky)
     pix = torch.arange(pixel_base, pixel_base + n_pixels, device=device)
     acc = torch.zeros((n_pixels, 3), dtype=torch.float32, device=device)
     for s in range(spp):
         sample = torch.full_like(pix, sample_offset + s)
         org, dirn, gwork = generate_rays(camera, pix, sample, seed, cfg.compat)
-        acc = acc + trace_paths(scene, cfg, seed, sky_k, org, dirn, gwork)
+        acc = acc + trace_paths(scene, cfg, seed, sky_k, org, dirn, gwork, search, table)
     return acc * float(np.float32(1.0 / spp))

@@ -17,8 +17,9 @@ As in the JAX package:
   through the pass key ``rng.fold_in(rng.key(seed), pass)``.
 
 Engines: "wavefront" (the default) sweeps with ``wavefront.render_wavefront``
-(K3 on the card); "mega" with the flat megakernel (K1), falling back to the
-wavefront where the scene is not eligible.
+(K3, or K4 on a clustered scene, on the card); "mega" with the megakernel
+(K1, or K5 on a clustered scene), falling back to the wavefront where the
+scene is eligible for neither.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ class ProgressiveRenderer:
         self.checkpoint_path = checkpoint_path
         self.reuse_sample_indices = reuse_sample_indices
         self.checkpoint_every = max(int(checkpoint_every), 1)
-        if engine == "mega" and not megakernel.eligible(scene, cfg):
+        if engine == "mega" and not (megakernel.eligible(scene, cfg)
+                                     or megakernel.eligible_clustered(scene, cfg)):
             engine = "wavefront"
         self.engine = engine
         h, w = camera.image_height, camera.image_width

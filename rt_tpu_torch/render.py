@@ -4,19 +4,22 @@ Reference analog: ``Camera::render_image`` (camera.rs:315-341).  The routes
 of the JAX package (rt_tpu/render.py):
 
 - ``wavefront=True`` (the default), by ``cfg.renderer``: "megakernel" is
-  one call of the flat megakernel (K1) over all pixels and samples, the
+  one call of a megakernel over all pixels and samples, the flat one (K1)
+  or, on a scene with cluster tables, the clustered one (K5): the
   hand-written CUDA kernel on a CUDA device and its plain PyTorch version
   on the CPU; "wavefront" is the persistent wavefront
-  (``wavefront.render_wavefront``, with K3), in calls of at most
-  ``(16 << 20) // pixels`` samples per pixel; "auto" takes the megakernel
-  where ``megakernel.eligible`` holds and the wavefront otherwise;
+  (``wavefront.render_wavefront``, with K3, or K4 on a clustered scene),
+  in calls of at most ``(16 << 20) // pixels`` samples per pixel; "auto"
+  takes the megakernel where ``megakernel.eligible`` or
+  ``megakernel.eligible_clustered`` holds and the wavefront otherwise;
 - ``wavefront=False``: the chunked megabatch, ``render_chunk`` over chunks
   of pixels, each traced by ``integrator.trace_radiance`` with K2 as its
   sphere search.  ``render_chunk(differentiable=True)`` is the gradient
   path's renderer (grad.py).
 
-A scene a route cannot take (not ported yet) raises, as does a CUDA device
-on a machine without one.  Nothing falls back.
+Both entry points run on the card unless the caller passes
+``device="cpu"``.  A scene a route cannot take (not ported yet) raises, as
+does a CUDA device on a machine without one.  Nothing falls back.
 
 The Mray/s metric follows the reference definition (window.rs:315-324):
 rays = spp * W * H camera samples (bounces NOT counted), divided by wall
@@ -83,7 +86,7 @@ def render_pixel_colors(
     camera: Camera,
     cfg: RenderConfig,
     *,
-    device,
+    device="cuda",
     spp: int | None = None,
     sample_offset: int = 0,
     key: np.ndarray | None = None,
@@ -107,8 +110,8 @@ def render_pixel_colors(
     if wavefront:
         if cfg.renderer not in ("auto", "megakernel", "wavefront"):
             raise ValueError(f"unknown renderer {cfg.renderer!r}")
-        if cfg.renderer == "megakernel" or (
-                cfg.renderer == "auto" and megakernel.eligible(scene, cfg)):
+        if cfg.renderer == "megakernel" or (cfg.renderer == "auto" and (
+                megakernel.eligible(scene, cfg) or megakernel.eligible_clustered(scene, cfg))):
             flat = megakernel.render_megakernel(scene, camera, cfg, spp, sample_offset,
                                                 rng.key_seed(key))
             return flat.reshape(h, w, 3)
@@ -150,7 +153,7 @@ def render_pixel_colors(
 
 
 def render_image(
-    scene: SceneData, camera: Camera, cfg: RenderConfig, *, device, **kw
+    scene: SceneData, camera: Camera, cfg: RenderConfig, *, device="cuda", **kw
 ) -> tuple[np.ndarray, dict]:
     """Render and fetch to the host; returns (f32[H,W,3] linear image,
     metrics).  Metrics hold the wall seconds, the camera samples, Mray/s

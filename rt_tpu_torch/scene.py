@@ -10,11 +10,15 @@ flat SoA tables:
 - materials and textures as tables of integer type tags plus parameter
   columns, with all image textures shelf-packed into one f32 atlas;
 - the kernel layouts ``sph_packed [S_pad, 4]``, ``tri_packed [T_pad, 12]``
-  and the per-primitive ``shade_table [40, P_pad]`` (fast_shade.py).
+  and the per-primitive ``shade_table [40, P_pad]`` (fast_shade.py);
+- for scenes above 128 triangles or 2048 primitives, the two-level cluster
+  tables (``ClusterData``, cluster.py) that the clustered kernels walk, and
+  above 256 triangles or 4096 primitives a BVH (``BvhArrays``, bvh/).
 
 ``SceneBuilder.build()`` produces exactly the tables ``rt_tpu``'s builder
-produces for the same calls.  Only flat scenes are built: one that would
-need the JAX package's cluster tables or BVH raises ``NotImplementedError``.
+produces for the same calls, cluster tables and BVH included (both come
+from the BVH builder; the native one must run for the JAX package's trees,
+see bvh/native.py).
 """
 
 from __future__ import annotations
@@ -40,10 +44,10 @@ TEX_SOLID = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
 
-# Above these counts the JAX package builds cluster tables (scene.py:532-535)
-# or a BVH (scene.py:548); both belong to a later slice of the port.
-MAX_FLAT_TRIANGLES = 128
-MAX_FLAT_PRIMS = 2048
+# Clusters per page of the clustered wavefront's kernel (K4): larger
+# cluster sets are split into pages, one launch each (rt_tpu/scene.py:55;
+# tests shrink it to exercise the paged merge).
+CLUSTER_PAGE = 512
 
 # Names of the table buffers, in the JAX SceneData's field order.
 TABLES = (
@@ -55,13 +59,82 @@ TABLES = (
 )
 
 
+def _buffers(module: nn.Module, names, values) -> None:
+    for name in names:
+        value = values[name]
+        module.register_buffer(name, None if value is None else torch.as_tensor(value))
+
+
+BVH_TABLES = ("node_min", "node_max", "hit_next", "miss_next", "leaf_start", "leaf_count",
+              "prim_order")
+
+
+class BvhArrays(nn.Module):
+    """Flattened BVH in depth-first order with skip ("escape") indices for
+    stackless traversal (built on the host; see bvh/builder.py): node_min,
+    node_max f32[NN,3]; hit_next, miss_next i32[NN] (the next node on an
+    AABB hit / miss, -1 ends); leaf_start i32[NN] (first index into
+    prim_order, -1 for interior nodes), leaf_count i32[NN]; prim_order
+    i32[NP], a permutation of global prim ids."""
+
+    def __init__(self, *arrays):
+        super().__init__()
+        _buffers(self, BVH_TABLES, dict(zip(BVH_TABLES, arrays, strict=True)))
+
+
+PAGE_TABLES = ("sph_cluster", "sph_slots", "tri_cluster", "tri_slots", "sph_super", "tri_super")
+
+
+class ClusterPage(nn.Module):
+    """One page of clustered primitive tables (rt_tpu/scene.py:76-94): the
+    clustered wavefront launches K4 once per page and merges the pages'
+    winners.  sph_cluster f32[Ms_pad, 8] and tri_cluster f32[Mt_pad, 8] are
+    cluster AABBs (lo xyz, hi xyz, pad), sph_super and tri_super those of
+    each 64-cluster group, sph_slots f32[8, Ms_pad*128] and tri_slots
+    f32[16 or 24, Mt_pad*128] the slot tables (cluster.pack_*_slots).
+    Winner slot ids are globalized by the bases, so every page indexes the
+    one slot-ordered shade table."""
+
+    def __init__(self, *, sph_slot_base: int = 0, tri_slot_base: int = 0, **tables):
+        super().__init__()
+        _buffers(self, PAGE_TABLES, tables)
+        self.sph_slot_base = int(sph_slot_base)
+        self.tri_slot_base = int(tri_slot_base)
+
+
+CLUSTER_TABLES = PAGE_TABLES + ("shade_table", "checker_table")
+
+
+class ClusterData(nn.Module):
+    """Clustered primitive tables (rt_tpu/scene.py:97-125; cluster.py):
+    fixed-stride clusters of 128 primitive slots in 64-cluster supers, the
+    whole tables (which the clustered megakernel K5 walks) and their
+    ``pages`` (which K4 walks), and ``shade_table`` f32[40, slots_pad]
+    ordered by slot, so that the kernels' winner slot ids index it
+    directly.  ``n_sph_slots`` is the first triangle slot id.
+    ``checker_table``, ``inline_ok`` and ``chord_clusters`` are the JAX
+    package's inline-fetch table and routing probe, carried for parity;
+    the port's kernels read the full shade table and do not use them."""
+
+    def __init__(self, *, pages, n_sph_slots: int, inline_ok: bool, chord_clusters: float,
+                 **tables):
+        super().__init__()
+        _buffers(self, CLUSTER_TABLES, tables)
+        self.pages = nn.ModuleList(pages)
+        self.n_sph_slots = int(n_sph_slots)
+        self.inline_ok = bool(inline_ok)
+        self.chord_clusters = float(chord_clusters)
+
+
 class SceneData(nn.Module):
     """Immutable scene (reference analog: World, hittable.rs:24-29).
 
-    Every table in ``TABLES`` is a buffer, so ``scene.to(device)`` moves the
-    whole scene.  ``shade_table`` is None when a texture configuration is
-    not expressible in it (checker with non-solid children); such a scene
-    is not renderable by the megakernel.
+    Every table in ``TABLES`` is a buffer, and ``clusters`` and ``bvh``
+    (None for small scenes) are submodules of buffers, so
+    ``scene.to(device)`` moves the whole scene.  ``shade_table`` is None
+    when a texture configuration is not expressible in it (checker with
+    non-solid children); such a scene is not renderable by the
+    megakernels.
     """
 
     def __init__(
@@ -71,15 +144,17 @@ class SceneData(nn.Module):
         num_spheres: int,
         num_triangles: int,
         has_image_textures: bool,
+        clusters: ClusterData | None = None,
+        bvh: BvhArrays | None = None,
         **tables,
     ):
         super().__init__()
         missing = set(TABLES) - set(tables)
         if missing or len(tables) != len(TABLES):
             raise TypeError(f"SceneData tables mismatch: missing {sorted(missing)}")
-        for name in TABLES:
-            value = tables[name]
-            self.register_buffer(name, None if value is None else torch.as_tensor(value))
+        _buffers(self, TABLES, tables)
+        self.add_module("clusters", clusters)
+        self.add_module("bvh", bvh)
         self.sky = sky
         self.num_spheres = int(num_spheres)
         self.num_triangles = int(num_triangles)
@@ -109,6 +184,60 @@ class _Material:
         self.texture = texture
         self.fuzz = fuzz
         self.ior = ior
+
+
+def _chord_proxy(*sets, n_rays: int = 256, seed: int = 0) -> float:
+    """Mean clusters entered by random SURFACE-ORIGIN chords (origins at
+    random live-cluster centers, isotropic directions) — a host-side
+    proxy for bounce-ray incoherence, prim-weighted over the sets.
+
+    Closed bodies score high (every interior bounce ray crosses the
+    shell: blob 4.2, armor 3.8, car 4.7); open/sparse layouts score low
+    (heightfield 2.5, sphere covers 1.1).  The clustered megakernel's
+    expand_sweep="auto" switches the intersect architecture on it."""
+    rng = np.random.default_rng(seed)
+    tot = w = 0.0
+    for cl, n_prims in sets:
+        if not n_prims:
+            continue
+        cl = np.asarray(cl, np.float32)
+        live = cl[:, 0] <= cl[:, 3]
+        if not live.any():
+            continue
+        clv = cl[live]
+        if len(clv) > 4096:
+            # bound the (n_rays, M, 3) slab transients (~1 GB at 16k
+            # clusters otherwise); a 4k sample keeps the mean stable
+            clv = clv[rng.choice(len(clv), 4096, replace=False)]
+        ctr = (clv[:, 0:3] + clv[:, 3:6]) * 0.5
+        o = ctr[rng.integers(0, len(clv), n_rays)]
+        d = rng.standard_normal((n_rays, 3)).astype(np.float32)
+        d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-9)
+        inv = 1.0 / np.where(np.abs(d) > 1e-20, d, 1e-20)
+        t0 = (clv[None, :, 0:3] - o[:, None, :]) * inv[:, None, :]
+        t1 = (clv[None, :, 3:6] - o[:, None, :]) * inv[:, None, :]
+        tn = np.maximum(np.minimum(t0, t1).max(2), 0.0)
+        tf = np.maximum(t0, t1).min(2)
+        ent = ((tn <= tf) & (tf >= 0)).sum(1)
+        tot += float(ent.mean()) * n_prims
+        w += n_prims
+    return tot / w if w else 0.0
+
+
+def _cluster_capacity_split(ns: int, nt: int) -> tuple[int, int]:
+    """Per-type cluster-count caps for the clustered megakernel's static
+    worklist budget (sphere_cap, triangle_cap), split by prim share.
+
+    Budgeted in SUPERS (64-cluster groups): build_clusters pads each
+    type's cluster count up to a SUPER_SLOTS multiple and an empty type
+    still emits one padded super, so a cluster-granular 256*64 split
+    could overflow to 257 supers and silently drop the clustered path
+    (round-4 advisor finding).  Invariants (tested): both caps are
+    positive multiples of 64 and the worst-case padded super totals sum
+    to exactly _WL_ROWS (256)."""
+    sup_total = 256
+    sup_s = min(max(round(sup_total * ns / max(ns + nt, 1)), 1), sup_total - 1)
+    return sup_s * 64, (sup_total - sup_s) * 64
 
 
 class SceneBuilder:
@@ -230,15 +359,10 @@ class SceneBuilder:
 
     def build(self, sky: SkyParams | None = None, use_bvh: bool | None = None) -> SceneData:
         """Freeze into tables (reference analog: World::build,
-        hittable.rs:33-46).  Raises NotImplementedError for a scene the JAX
-        package would give cluster tables or a BVH."""
+        hittable.rs:33-46), with cluster tables above 128 triangles or 2048
+        primitives and a BVH above 256 triangles or 4096 primitives (or as
+        ``use_bvh`` says), at the JAX package's thresholds."""
         ns, nt = len(self._spheres), len(self._triangles)
-        if use_bvh or nt > MAX_FLAT_TRIANGLES or ns + nt > MAX_FLAT_PRIMS:
-            raise NotImplementedError(
-                f"scene with {ns} spheres and {nt} triangles (use_bvh={use_bvh}) needs "
-                "the clustered or BVH path, which is a later slice of the port "
-                f"(flat scenes: <= {MAX_FLAT_TRIANGLES} triangles, <= {MAX_FLAT_PRIMS} prims)"
-            )
         sky = sky if sky is not None else SkyParams.default()
 
         s = max(ns, 1)
@@ -321,13 +445,125 @@ class SceneBuilder:
             tex_children=tex_children, tex_rect=tex_rect, atlas=atlas,
             shade_table=shade_np, sph_packed=sph_packed, tri_packed=tri_packed,
         )
+        # Cluster tables for mid-sized and large scenes, a BVH for large ones
+        # (rt_tpu/scene.py:528-553).
+        clusters = None
+        if shade_np is not None and (nt > 128 or ns + nt > 2048):
+            clusters = self._build_cluster_data(shade_np, sph_center, sph_radius, tri_a, tri_b,
+                                                tri_c)
+        if use_bvh is None:
+            use_bvh = nt > 256 or ns + nt > 4096
+        bvh = None
+        if use_bvh and ns + nt > 0:
+            from rt_tpu_torch.bvh import build_bvh
+
+            bvh = build_bvh(self._prim_bounds())
         return SceneData(
             sky=sky,
             num_spheres=ns,
             num_triangles=nt,
             has_image_textures=any(tx.kind == TEX_IMAGE for tx in self._textures),
+            clusters=clusters,
+            bvh=bvh,
             **{k: torch.from_numpy(v) if v is not None else None for k, v in tables.items()},
         )
+
+    def _build_cluster_data(self, shade_np, sph_center, sph_radius, tri_a, tri_b, tri_c
+                            ) -> ClusterData:
+        """Two-level cluster tables, their pages and the slot-ordered shade
+        table (rt_tpu/scene.py:555-690)."""
+        from rt_tpu_torch.cluster import (
+            build_clusters, build_essentials, pack_sphere_slots, pack_triangle_slots,
+        )
+        from rt_tpu_torch.fast_shade import F_IS_SPHERE, F_ROWS, F_TEX_KIND, F_UVA
+
+        ns, nt = len(self._spheres), len(self._triangles)
+        s_min = sph_center[:ns] - sph_radius[:ns, None]
+        s_max = sph_center[:ns] + sph_radius[:ns, None]
+        # The JAX package's per-type super budget (its worklist bounds);
+        # it decides how _pack_leaves merges leaves, so the tables need it.
+        cap_s, cap_t = _cluster_capacity_split(ns, nt)
+        _, s_slots, s_cl, s_sup = build_clusters(s_min, s_max, cap_s)
+        t_min_ = np.minimum(np.minimum(tri_a[:nt], tri_b[:nt]), tri_c[:nt])
+        t_max_ = np.maximum(np.maximum(tri_a[:nt], tri_b[:nt]), tri_c[:nt])
+        _, t_slots, t_cl, t_sup = build_clusters(t_min_, t_max_, cap_t)
+
+        ess, chk_table, inline_ok = build_essentials(shade_np)
+        sph_slot_tab = pack_sphere_slots(s_slots, sph_center, sph_radius, ess[:, :ns])
+        has_img_tris = bool(
+            ((shade_np[F_IS_SPHERE, ns:] < 0.5) & (shade_np[F_TEX_KIND, ns:] > 1.5)).any()
+        )
+        tri_slot_tab = pack_triangle_slots(
+            t_slots, tri_a, tri_b, tri_c, ess[:, ns:],
+            uva=shade_np[F_UVA : F_UVA + 6, ns:] if has_img_tris else None,
+        )
+
+        # Slot-ordered shade table: kernel winner ids index it directly.
+        n_sph_slots = s_slots.shape[0]
+        total = n_sph_slots + t_slots.shape[0]
+        total_pad = -(-total // 128) * 128
+        shade_slots = np.zeros((F_ROWS, total_pad), np.float32)
+        live_s = s_slots >= 0
+        shade_slots[:, np.nonzero(live_s)[0]] = shade_np[:, s_slots[live_s]]
+        live_t = t_slots >= 0
+        shade_slots[:, n_sph_slots + np.nonzero(live_t)[0]] = shade_np[:, ns + t_slots[live_t]]
+
+        # Pages of at most CLUSTER_PAGE clusters of one type each; the
+        # other type's tables are an empty dummy.
+        t = torch.from_numpy
+        dummy_cl = np.zeros((64, 8), np.float32)
+        dummy_cl[:, 0:3] = np.inf
+        dummy_cl[:, 3:6] = -np.inf
+        dummy_sph = np.zeros((8, 64 * 128), np.float32)
+        dummy_tri = np.zeros((16, 64 * 128), np.float32)
+        dummy_sup = np.zeros((1, 8), np.float32)
+        dummy_sup[:, 0:3] = np.inf
+        dummy_sup[:, 3:6] = -np.inf
+        ms, mt = s_cl.shape[0], t_cl.shape[0]
+        s_pages = [(p, min(p + CLUSTER_PAGE, ms)) for p in range(0, ms, CLUSTER_PAGE)]
+        t_pages = [(p, min(p + CLUSTER_PAGE, mt)) for p in range(0, mt, CLUSTER_PAGE)]
+        if len(s_pages) <= 1 and len(t_pages) <= 1:
+            pages = [ClusterPage(sph_cluster=t(s_cl), sph_slots=t(sph_slot_tab),
+                                 tri_cluster=t(t_cl), tri_slots=t(tri_slot_tab),
+                                 sph_super=t(s_sup), tri_super=t(t_sup))]
+        else:
+            pages = [
+                ClusterPage(sph_cluster=t(s_cl[lo:hi]),
+                            sph_slots=t(sph_slot_tab[:, lo * 128 : hi * 128]),
+                            tri_cluster=t(dummy_cl), tri_slots=t(dummy_tri),
+                            sph_super=t(s_sup[lo // 64 : -(-hi // 64)]), tri_super=t(dummy_sup),
+                            sph_slot_base=lo * 128)
+                for lo, hi in s_pages
+            ] + [
+                ClusterPage(sph_cluster=t(dummy_cl), sph_slots=t(dummy_sph),
+                            tri_cluster=t(t_cl[lo:hi]),
+                            tri_slots=t(tri_slot_tab[:, lo * 128 : hi * 128]),
+                            sph_super=t(dummy_sup), tri_super=t(t_sup[lo // 64 : -(-hi // 64)]),
+                            tri_slot_base=lo * 128)
+                for lo, hi in t_pages
+            ]
+        return ClusterData(
+            pages=pages,
+            sph_super=t(s_sup), sph_cluster=t(s_cl), sph_slots=t(sph_slot_tab),
+            tri_super=t(t_sup), tri_cluster=t(t_cl), tri_slots=t(tri_slot_tab),
+            shade_table=t(shade_slots), checker_table=t(chk_table),
+            n_sph_slots=n_sph_slots, inline_ok=inline_ok,
+            chord_clusters=_chord_proxy((s_cl, ns), (t_cl, nt)),
+        )
+
+    def _prim_bounds(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-primitive AABBs in global prim-id order (spheres then
+        triangles), matching the reference's Bounded impls
+        (hittable.rs:299-306, 242-248)."""
+        mins, maxs = [], []
+        for c, r, _, _ in self._spheres:
+            c = np.asarray(c, np.float32)
+            mins.append(c - r)
+            maxs.append(c + r)
+        for a, b, c, _, _ in self._triangles:
+            mins.append(np.minimum(np.minimum(a, b), c))
+            maxs.append(np.maximum(np.maximum(a, b), c))
+        return np.asarray(mins, np.float32), np.asarray(maxs, np.float32)
 
 
 def _pack_atlas(images) -> tuple[np.ndarray, dict[int, tuple]]:

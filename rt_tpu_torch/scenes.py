@@ -135,15 +135,10 @@ def cover_scene(
     Big spheres: glass at p1, metal at p3, textured "saul" sphere facing the
     camera at the top-left position.  Small spheres: a grid_i x grid_j
     lattice with random offsets, 5%/15%/80% glass/metal/lambertian mix and
-    collision avoidance around the big-sphere sites.  Only the per-sphere
-    generation loop is ported (grids up to 2500 cells): larger grids are
-    clustered scenes, a later slice of the port.
+    collision avoidance around the big-sphere sites.  Above 2500 grid
+    cells the spheres are drawn in bulk, as the JAX package draws them
+    (another arrangement than the loop's for the same seed).
     """
-    if grid_i * grid_j > 2500:
-        raise NotImplementedError(
-            "cover_scene above 2500 grid cells (cover-large) needs the clustered path, "
-            "a later slice of the port"
-        )
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
 
@@ -171,24 +166,48 @@ def cover_scene(
     b.add_sphere(saul_loc, big_r, saul_mat, front_direction=viewer)
 
     big_sites = [p1, p2, p3, p4, saul_loc, p5]
-    # Sequential generation, as the reference does (scenes.rs:198-236).
-    for i in range(-grid_i, grid_i):
-        for j in range(-grid_j, grid_j):
-            radius = 0.2
-            albedo = rng.uniform(0.0, 1.0, 3)
-            offset = np.array([rng.uniform(0.0, 0.9), rng.uniform(0.0, 0.9), z])
-            center = np.array([float(i), float(j), radius]) + offset
-            collide = radius + big_r + 1.0
-            if any(np.linalg.norm(center - s) < collide for s in big_sites):
-                continue
-            choose = rng.uniform(0.0, 1.0)
-            if choose > 0.95:
+    if grid_i * grid_j <= 2500:
+        # Sequential generation, as the reference does (scenes.rs:198-236).
+        for i in range(-grid_i, grid_i):
+            for j in range(-grid_j, grid_j):
+                radius = 0.2
+                albedo = rng.uniform(0.0, 1.0, 3)
+                offset = np.array([rng.uniform(0.0, 0.9), rng.uniform(0.0, 0.9), z])
+                center = np.array([float(i), float(j), radius]) + offset
+                collide = radius + big_r + 1.0
+                if any(np.linalg.norm(center - s) < collide for s in big_sites):
+                    continue
+                choose = rng.uniform(0.0, 1.0)
+                if choose > 0.95:
+                    mat = b.dielectric(1.5)
+                elif choose > 0.8:
+                    mat = b.metal_solid(albedo, rng.uniform(0.0, 0.5))
+                else:
+                    mat = b.lambertian_rgb(*albedo)
+                b.add_sphere(center, radius, mat)
+    else:
+        # Bulk generation for cover-large (rt_tpu/scenes.py:202-232): the
+        # same distributions in another draw order.
+        ii, jj = np.meshgrid(np.arange(-grid_i, grid_i), np.arange(-grid_j, grid_j), indexing="ij")
+        n = ii.size
+        radius = 0.2
+        albedo = rng.uniform(0.0, 1.0, (n, 3))
+        offsets = np.stack([rng.uniform(0.0, 0.9, n), rng.uniform(0.0, 0.9, n), np.full(n, z)], -1)
+        centers = np.stack([ii.ravel(), jj.ravel(), np.full(n, radius)], -1) + offsets
+        collide = radius + big_r + 1.0
+        keep = np.ones(n, bool)
+        for site in big_sites:
+            keep &= np.linalg.norm(centers - site, axis=-1) >= collide
+        choose = rng.uniform(0.0, 1.0, n)
+        fuzz = rng.uniform(0.0, 0.5, n)
+        for k in np.nonzero(keep)[0]:
+            if choose[k] > 0.95:
                 mat = b.dielectric(1.5)
-            elif choose > 0.8:
-                mat = b.metal_solid(albedo, rng.uniform(0.0, 0.5))
+            elif choose[k] > 0.8:
+                mat = b.metal_solid(albedo[k], fuzz[k])
             else:
-                mat = b.lambertian_rgb(*albedo)
-            b.add_sphere(center, radius, mat)
+                mat = b.lambertian_rgb(*albedo[k])
+            b.add_sphere(centers[k], radius, mat)
 
     return b.build(sky=SkyParams.default())
 
@@ -250,6 +269,153 @@ def textured_spheres_scene(texture_dir: str | None = None) -> SceneData:
     b.add_sphere((1.6, 0.3, 0.4), 0.6, frosted)
     fuzzy_metal = b.metal_solid((0.8, 0.7, 0.5), 0.25)
     b.add_sphere((0.0, 1.8, 0.4), 0.6, fuzzy_metal)
+    return b.build()
+
+
+def scale_rotate_mat(
+    roll_degrees: float,
+    pitch_degrees: float,
+    yaw_degrees: float,
+    scalefactor: float,
+) -> np.ndarray:
+    """The reference's mesh placement matrix (scenes.rs:460-475).
+
+    nalgebra semantics replicated exactly, including the quirk that the
+    "roll" argument also rotates about Z (``from_euler_angles(0, 0, roll)``
+    is a Z rotation): rotation = Ry(pitch) @ Rz(yaw) @ Rz(roll), and the
+    whole homogeneous matrix is scaled by ``scalefactor``.  Consumers apply
+    only the linear 3x3 part (Triangle::transform -> transform_vector,
+    hittable.rs:214-227), so the uniform scale survives and the (zero)
+    translation column is ignored.
+    """
+
+    def rz(deg):
+        r = np.deg2rad(deg)
+        c, s = np.cos(r), np.sin(r)
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float64)
+
+    def ry(deg):
+        r = np.deg2rad(deg)
+        c, s = np.cos(r), np.sin(r)
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
+
+    rotation = ry(pitch_degrees) @ rz(yaw_degrees) @ rz(roll_degrees)
+    m = np.eye(4, dtype=np.float64)
+    m[:3, :3] = rotation
+    return (m * scalefactor).astype(np.float32)
+
+
+# The reference's five mesh slots: (obj filename stem, style, transform)
+# in its exact order (scenes.rs:368-381).
+MESH_SCENE_SLOTS = (
+    ("bimba", "red_metal", (0.0, 90.0, 90.0, 12.0)),
+    ("stanford-bunny", "plaster", (0.0, 90.0, 90.0, 12.0)),
+    ("teapot", "metal", (0.0, -90.0, -90.0, 0.6)),
+    ("Nefertiti", "frosted_glass", (90.0, 0.0, 0.0, 0.02)),
+    ("armadillo", "metal", None),
+)
+
+
+def mesh_scene_reference(obj_dir: str, missing_ok: bool = True) -> SceneData:
+    """Reference-parity ``mesh_scene`` (scenes.rs:344-393): the five classic
+    meshes with their per-mesh materials and ``scale_rotate_mat`` placements
+    (bimba/bunny upright at 12x, teapot at 0.6x, Nefertiti at 0.02x,
+    armadillo untransformed) over the 0.75-scale checker ground.
+
+    ``obj_dir`` holds ``<stem>.obj`` files; with ``missing_ok`` absent
+    meshes are skipped (the reference would panic — TODO.md:69).
+    """
+    from rt_tpu_torch.io.obj_loader import load_obj
+
+    b = SceneBuilder()
+    even = b.solid_color((0.1, 0.1, 0.1))
+    odd = b.solid_color((0.95, 0.95, 0.95))
+    checker_mat = b.lambertian(b.checker(0.75, even, odd))
+    add_ground_plane(b, 10000.0, 10000.0, -0.2, checker_mat, True)
+
+    styles = {
+        "plaster": lambda: b.lambertian_rgb(0.95, 0.70, 0.85),
+        "frosted_glass": lambda: b.dielectric(1.5, 0.05),
+        "metal": lambda: b.metal_solid((0.8, 0.8, 0.8), 0.4),
+        "red_metal": lambda: b.metal_solid((0.0, 0.5, 0.8), 0.3),
+    }
+    for stem, style, srm in MESH_SCENE_SLOTS:
+        path = os.path.join(obj_dir, stem + ".obj")
+        if not os.path.exists(path):
+            if missing_ok:
+                continue
+            raise FileNotFoundError(path)
+        mat = styles[style]()
+        transform = scale_rotate_mat(*srm) if srm is not None else None
+        for model in load_obj(path):
+            b.add_triangles(model["vertices"], model["uvs"], mat, transform=transform)
+    return b.build()
+
+
+def mesh_scene(
+    obj_paths: dict[str, str],
+    seed: int = 0,
+) -> SceneData:
+    """OBJ showcase (reference analog: mesh_scene, scenes.rs:344-393 — five
+    classic meshes with plaster/metal/frosted-glass materials).
+
+    ``obj_paths`` maps a material style ('plaster' | 'glass' |
+    'frosted_glass' | 'metal' | 'mirror' | 'red_metal') to an OBJ path;
+    unknown styles get the dull-gray metal.  A checkered ground plane is
+    included (scenes.rs:353-356).
+    """
+    from rt_tpu_torch.io.obj_loader import load_obj
+
+    b = SceneBuilder()
+    even = b.solid_color((0.1, 0.1, 0.1))
+    odd = b.solid_color((0.95, 0.95, 0.95))
+    checker_mat = b.lambertian(b.checker(0.75, even, odd))
+    add_ground_plane(b, 10000.0, 10000.0, -0.2, checker_mat, True)
+
+    styles = {
+        "plaster": lambda: b.lambertian_rgb(0.95, 0.70, 0.85),
+        "glass": lambda: b.dielectric(1.5),
+        "frosted_glass": lambda: b.dielectric(1.5, 0.05),
+        "metal": lambda: b.metal_solid((0.8, 0.8, 0.8), 0.4),
+        "mirror": lambda: b.metal_solid((0.95, 0.95, 0.95), None),
+        "red_metal": lambda: b.metal_solid((0.0, 0.5, 0.8), 0.3),
+    }
+    for style, path in obj_paths.items():
+        mat = styles.get(style, styles["metal"])()
+        for model in load_obj(path):
+            b.add_triangles(model["vertices"], model["uvs"], mat)
+    return b.build()
+
+
+def mesh_with_area_light(
+    obj_path: str,
+    light_radiance=(6.0, 6.0, 5.5),
+    mesh_style: str = "plaster",
+) -> SceneData:
+    """Mesh lit by an emissive quad panel (BASELINE config 3 shape: "OBJ
+    mesh via BVH traversal with emissive area light").  The emissive
+    material is an rt_tpu extension — the reference's only light is its
+    sky (SURVEY.md §2)."""
+    from rt_tpu_torch.io.obj_loader import load_obj
+
+    b = SceneBuilder()
+    even = b.solid_color((0.1, 0.1, 0.1))
+    odd = b.solid_color((0.95, 0.95, 0.95))
+    checker_mat = b.lambertian(b.checker(0.75, even, odd))
+    add_ground_plane(b, 10000.0, 10000.0, -0.2, checker_mat, True)
+
+    mat = {
+        "plaster": lambda: b.lambertian_rgb(0.95, 0.70, 0.85),
+        "metal": lambda: b.metal_solid((0.8, 0.8, 0.8), 0.2),
+        "glass": lambda: b.dielectric(1.5),
+    }.get(mesh_style, lambda: b.lambertian_rgb(0.9, 0.9, 0.9))()
+    for model in load_obj(obj_path):
+        b.add_triangles(model["vertices"], model["uvs"], mat)
+
+    light = b.emissive(light_radiance)
+    # Overhead panel, normal facing down toward the scene.
+    b.add_triangle((-1.5, -1.5, 4.0), (1.5, -1.5, 4.0), (0.0, 1.5, 4.0), light)
+    b.add_triangle((0.0, 1.5, 4.0), (1.5, -1.5, 4.0), (-1.5, -1.5, 4.0), light)
     return b.build()
 
 

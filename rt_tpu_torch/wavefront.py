@@ -10,12 +10,15 @@ reduction at the end.
 
 Two implementations share that skeleton, as in the JAX package:
 
-- ``_render_fast``: ray state as f32[8, B] rows, intersection and the
-  shade-table fetch in one launch of K3 (``prim_ops.prim_nearest_shaded``,
-  the CUDA kernel on the card, its plain version on the CPU), shading on
-  component rows (``fast_shade.shade_bounce``).  Needs a shade table and at
-  most ``MAX_FAST_TRIANGLES`` triangles, which every scene with a shade
-  table that the port builds has;
+- ``_render_fast``: ray state as f32[8, B] rows, shading on component
+  rows (``fast_shade.shade_bounce``).  On a flat scene the intersection
+  and the shade-table fetch are one launch of K3
+  (``prim_ops.prim_nearest_shaded``, the CUDA kernel on the card, its
+  plain version on the CPU); on a clustered scene the intersection is one
+  launch of K4 (``cluster_ops.cluster_worklist_nearest``) per cluster
+  page, the pages' winners merged with a strict ``<`` (the earlier page
+  wins ties), and the winners' columns are gathered from the slot-ordered
+  shade table by slot id.  Needs a shade table;
 - ``_render_generic``: [B, 3] state, ``geometry.nearest_hit`` with K2 and
   the readable ``materials``/``textures``; the route for scenes without a
   shade table (a checker whose children are not solid) and the port's own
@@ -33,16 +36,18 @@ JAX's ``lax.while_loop`` becomes a Python loop.  The host knows how many
 lanes each iteration claims (the idle count and the queue position), so the
 only device-to-host read per iteration is the count of lanes still active,
 which decides whether to go on.  ``COUNTS`` accumulates the iterations
-(one K3 launch each on the fast path) and the ray segments intersected.
-The JAX fast path's ray sorting (``sort_pool``) runs only on its cluster
-path, which the port does not have yet, and is not ported.
+(one K3 launch each on a flat scene's fast path, one K4 launch per page on
+a clustered scene's) and the ray segments intersected.  The JAX fast
+path's ray sorting on its cluster path (``sort_pool``, ``cfg.sort_rays``)
+orders lanes for its tile-granular kernel; the port's kernel walks each
+ray on its own, so ``sort_rays`` is accepted and does nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rt_tpu_torch import fast_shade, materials, nearest_ops, prim_ops, rng, sky
+from rt_tpu_torch import cluster_ops, fast_shade, materials, nearest_ops, prim_ops, rng, sky
 from rt_tpu_torch.camera import Camera, generate_rays
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.geometry import nearest_hit
@@ -68,16 +73,19 @@ def render_wavefront(
     pool_size: int = 1 << 16,
     *,
     prim_nearest=prim_ops.prim_nearest_shaded,
+    cluster_nearest=cluster_ops.cluster_worklist_nearest,
 ) -> torch.Tensor:
     """Mean radiance f32[P, 3] per pixel of ``pixel_idx`` int[P] (y * W +
     x, on the scene's device) over samples [sample_offset, sample_offset +
     spp).  ``key`` is an rng.key; its last word seeds the hash.
-    ``prim_nearest`` is K3 (the fast path's intersection)."""
-    fast_ok = (scene.shade_table is not None and scene.num_triangles <= MAX_FAST_TRIANGLES
-               and scene.num_prims <= 4096)
+    ``prim_nearest`` is K3 and ``cluster_nearest`` K4 (the fast path's
+    intersection on flat and on clustered scenes)."""
+    fast_ok = scene.shade_table is not None and (
+        scene.clusters is not None
+        or (scene.num_triangles <= MAX_FAST_TRIANGLES and scene.num_prims <= 4096))
     if fast_ok:
         return _render_fast(scene, camera, pixel_idx, cfg, spp, sample_offset, key, pool_size,
-                            prim_nearest=prim_nearest)
+                            prim_nearest=prim_nearest, cluster_nearest=cluster_nearest)
     return _render_generic(scene, camera, pixel_idx, cfg, spp, sample_offset, key, pool_size)
 
 
@@ -134,9 +142,11 @@ def _render_fast(
     pool_size: int = 1 << 16,
     *,
     prim_nearest=prim_ops.prim_nearest_shaded,
+    cluster_nearest=cluster_ops.cluster_worklist_nearest,
 ) -> torch.Tensor:
     """The fast path (wavefront.py:112-467).  The pool is rounded up to
-    K3's tile of 256 lanes; the image does not depend on its size."""
+    the kernels' tile of 256 lanes; the image does not depend on its
+    size."""
     device = pixel_idx.device
     tile = prim_ops.RAY_TILE
     total = pixel_idx.shape[0] * spp
@@ -145,6 +155,27 @@ def _render_fast(
     seed = rng.key_seed(key)
     sph, tri, table = scene.sph_packed, scene.tri_packed, scene.shade_table
     cull = cfg.compat.triangle_backface_cull
+    cl = scene.clusters
+
+    def intersect(rays):
+        """(t, winner id, the winners' shade columns f32[F, B])."""
+        if cl is None:
+            return prim_nearest(rays, sph, tri, table, scene.num_spheres, cfg.t_min, cfg.t_max,
+                                cull)
+        # One K4 launch per page (wavefront.py:252-278); a later page wins
+        # only when strictly nearer.
+        t_best = slot = None
+        for page in cl.pages:
+            t_p, s_p = cluster_nearest(
+                rays, page.sph_super, page.sph_cluster, page.sph_slots, page.tri_super,
+                page.tri_cluster, page.tri_slots, cl.n_sph_slots, cfg.t_min, cfg.t_max, cull,
+                page.sph_slot_base, page.tri_slot_base)
+            if t_best is None:
+                t_best, slot = t_p, s_p
+            else:
+                better = t_p < t_best
+                t_best, slot = torch.where(better, t_p, t_best), torch.where(better, s_p, slot)
+        return t_best, slot, cl.shade_table.index_select(1, torch.clamp(slot, min=0))
 
     acc = torch.zeros((pool.total + 1, 3), device=device)  # the last row is the sentinel
     rays = torch.cat([torch.zeros((3, b), device=device), torch.ones((5, b), device=device)])
@@ -173,8 +204,7 @@ def _render_fast(
         COUNTS["iterations"] += 1
         COUNTS["segments"] += n_active
 
-        t, prim, params = prim_nearest(rays, sph, tri, table, scene.num_spheres, cfg.t_min,
-                                       cfg.t_max, cull)
+        t, prim, params = intersect(rays)
         out = fast_shade.shade_bounce(scene, rays, t, prim, seed, gid, depth, cfg, params=params)
         miss = active & ~out["hit"]
         emis = active & out["hit"] & out["emissive"]

@@ -1,0 +1,114 @@
+"""K4/K4b and K5, the clustered kernels, against their plain versions.
+
+The ``cuda`` tests run only where a card is present: built without fused
+multiply-adds, each kernel must agree with its plain version bit for bit
+(winners and t for K4/K4b, the image for K5).  This file imports nothing of
+the JAX package, so that it also runs on a machine that has PyTorch for
+CUDA but not the JAX package's dependencies; the comparisons with the JAX
+package are in test_torch_cluster.py and test_torch_clustered.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rt_tpu_torch import cluster_ops, megakernel
+from rt_tpu_torch import scene as tscene
+from rt_tpu_torch.camera import make_camera
+from rt_tpu_torch.config import RenderConfig
+import torch_cluster_cases as cases  # tests/torch_cluster_cases.py
+
+torch.set_num_threads(2)
+
+T_MIN, T_MAX = 1e-3, 1e9
+W, H = 32, 24
+
+
+def _tables(cl):
+    return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
+            cl.tri_slots)
+
+
+def _rays(n, seed, device="cpu"):
+    return torch.from_numpy(cases.random_rays(np.random.default_rng(seed), n=n, extent=4.0)).to(device)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+def test_wrappers_check_shapes():
+    cl = cases.tri_cloud(tscene).build().clusters
+    rays, tables = _rays(512, 1), _tables(cl)
+    with pytest.raises(ValueError, match="cluster_worklist_nearest"):
+        cluster_ops.cluster_worklist_nearest(rays[:, :300], *tables, cl.n_sph_slots, T_MIN, T_MAX)
+    with pytest.raises(ValueError, match="cluster_nearest"):
+        cluster_ops.cluster_nearest(rays[:6], *tables, cl.n_sph_slots, T_MIN, T_MAX)
+    bad = list(tables)
+    bad[4] = bad[4][:32]  # clusters not a multiple of 64
+    with pytest.raises(ValueError, match="cluster_nearest"):
+        cluster_ops.cluster_nearest(rays, *bad, cl.n_sph_slots, T_MIN, T_MAX)
+    bad = list(tables)
+    bad[5] = bad[5][:, :-128]  # slots do not match the clusters
+    with pytest.raises(ValueError, match="cluster_nearest"):
+        cluster_ops.cluster_nearest(rays, *bad, cl.n_sph_slots, T_MIN, T_MAX)
+
+
+def test_plain_walk_does_not_depend_on_its_chunks(monkeypatch):
+    """The plain version walks the rays in chunks; each ray's result is
+    its own."""
+    cl = cases.image_tris(tscene).build().clusters
+    rays = _rays(1024, 2)
+    whole = cluster_ops.cluster_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX)
+    monkeypatch.setattr(cluster_ops, "_PLAIN_CHUNK", 100)
+    chunked = cluster_ops.cluster_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX)
+    assert all(torch.equal(a, b) for a, b in zip(whole, chunked))
+    assert (whole[1] >= 0).sum() > 50
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_kernel_matches_plain_version(monkeypatch):
+    """K4 per page and K4b on the whole tables, culling on and off, on a
+    scene paged at 64 clusters: winners and t bit for bit."""
+    _cuda()
+    monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
+    cl = cases.tri_cloud(tscene, n_tris=9000).build().clusters.to("cuda")
+    assert len(cl.pages) > 2
+    rays = _rays(4096, 3, "cuda")
+    for cull in (True, False):
+        before = dict(cluster_ops.LAUNCHES)
+        got = cluster_ops.cluster_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX, cull)
+        ref = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
+                                                cull)
+        assert cluster_ops.LAUNCHES["cluster_nearest"] == before["cluster_nearest"] + 1
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for page in cl.pages:
+            args = (rays, *_tables(page), cl.n_sph_slots, T_MIN, T_MAX, cull, page.sph_slot_base,
+                    page.tri_slot_base)
+            got = cluster_ops.cluster_worklist_nearest(*args)
+            for a, b in zip(got, cluster_ops.cluster_nearest_plain(*args)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert (ref[1] >= 0).sum() > 100
+
+
+@pytest.mark.cuda
+def test_cuda_clustered_megakernel_matches_plain_version():
+    """K5 against its plain version on the card: the image bit for bit on
+    the triangle cloud and the image-textured triangles, a full frame and
+    an offset half frame."""
+    _cuda()
+    cam = make_camera((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=0.0,
+                      image_width=W, image_height=H, vertical_fov=30.0)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=2, max_depth=6)
+    for factory in (cases.tri_cloud, cases.image_tris):
+        scene = factory(tscene).build().to("cuda")
+        for off, base, n in ((0, 0, None), (3, W * H // 2, W * H // 2)):
+            before = megakernel.LAUNCHES_CLUSTERED
+            got = megakernel.render_megakernel(scene, cam, cfg, 2, off, 0, pixel_base=base,
+                                               n_pixels=n)
+            assert megakernel.LAUNCHES_CLUSTERED == before + 1
+            ref = megakernel.render_megakernel_plain(scene, cam, cfg, 2, off, 0, pixel_base=base,
+                                                     n_pixels=n)
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)

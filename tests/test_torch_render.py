@@ -90,7 +90,7 @@ def test_cli_writes_png(tmp_path):
                      "--device", "cpu", "--out", str(out)]) == 0
     assert Image.open(out).size == (32, 18)
     for argv in (["--term-preview"], ["--serve", "8000"], ["--probe", "1,1"],
-                 ["--scene", "cover-large"], ["--scene", "obj:x.obj"]):
+                 ["--scene", "gltf:x.gltf"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "x.png")])
 
@@ -102,6 +102,10 @@ def test_import_loads_no_jax():
         "import rt_tpu_torch.render, rt_tpu_torch.scenes, rt_tpu_torch.io, rt_tpu_torch._build\n"
         "import rt_tpu_torch.wavefront, rt_tpu_torch.progressive, rt_tpu_torch.profiling\n"
         "import rt_tpu_torch.materials, rt_tpu_torch.textures, rt_tpu_torch.prim_ops\n"
+        "import rt_tpu_torch.cluster, rt_tpu_torch.cluster_ops, rt_tpu_torch.io.obj_loader\n"
+        "import rt_tpu_torch.bvh.builder, rt_tpu_torch.bvh.native\n"
+        "from rt_tpu_torch.bvh import native\n"
+        "assert native.available(), 'the port builds its own BVH library'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rt_tpu', 'flax'))\n"
         "assert not bad, bad\n"
     )

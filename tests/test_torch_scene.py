@@ -73,24 +73,27 @@ def test_scene_moves_with_to():
 
 
 def test_scenes_beyond_the_flat_slice_raise():
+    """Scenes beyond the flat slice no longer raise: above 128 triangles or
+    2048 primitives they get cluster tables, above 256 triangles or 4096
+    primitives (or with use_bvh) a BVH, as in the JAX package
+    (tests/test_torch_cluster.py holds the tables against it)."""
     b = SceneBuilder()
     mat = b.lambertian_rgb(0.5, 0.5, 0.5)
     for k in range(200):
         b.add_triangle((k, 0, 0), (k + 1, 0, 0), (k, 1, 0), mat)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        b.build()
+    scene = b.build()
+    assert scene.clusters is not None and scene.bvh is None
     b = SceneBuilder()
     mat = b.lambertian_rgb(0.5, 0.5, 0.5)
     for k in range(2049):
         b.add_sphere((k, 0, 0), 0.1, mat)
-    with pytest.raises(NotImplementedError):
-        b.build()
+    scene = b.build()
+    assert scene.clusters is not None and scene.bvh is None
     b = SceneBuilder()
     b.add_sphere((0, 0, 0), 1.0, b.lambertian_rgb(0.5, 0.5, 0.5))
-    with pytest.raises(NotImplementedError):
-        b.build(use_bvh=True)
-    with pytest.raises(NotImplementedError):
-        scenes.cover_scene(60, 60)
+    scene = b.build(use_bvh=True)
+    assert scene.clusters is None and scene.bvh is not None
+    assert scenes.cover_scene(60, 60).clusters is not None
 
 
 def test_png_and_ppm_round_trip(tmp_path):
