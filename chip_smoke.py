@@ -734,20 +734,34 @@ def mesh_scene(path: str, dev):
     return scene.to(dev)
 
 
-def walk_bound(work: dict, nbytes: float) -> tuple[float, str]:
-    """Least time of a cluster walk that made ``work``'s tests."""
+def walk_tests(work: dict) -> int:
+    """Slab and pair tests in a plain walk's ``work``."""
+    return work.get("slab", 0) + work.get("sphere_pairs", 0) + work.get("triangle_pairs", 0)
+
+
+def walk_counts(work: dict) -> dict:
+    """``work`` for printing: its sets of entered supers and clusters by size."""
+    return {k: len(v) if isinstance(v, set) else v for k, v in work.items()}
+
+
+def walk_bound(work: dict, nbytes: float, scale: float = 1.0) -> tuple[float, str]:
+    """Least time of a cluster walk that made ``work``'s tests ``scale``
+    times over and moved ``nbytes``."""
     flops = (work.get("slab", 0) * FLOPS_SLAB + work.get("sphere_pairs", 0) * FLOPS_SPHERE_PAIR
              + work.get("triangle_pairs", 0) * FLOPS_TRIANGLE_PAIR)
-    return bound(flops, nbytes)
+    return bound(flops * scale, nbytes)
 
 
-def walk_bytes(tables, n_rays: int) -> int:
-    """Bytes a walk must move: the rays' six rows read once, t and slot
-    written once, the AABB tables and the slot rows it reads (4 for
-    spheres, 10 for triangles) read once."""
-    s_sup, s_cl, s_slots, t_sup, t_cl, t_slots = tables
-    return (n_rays * (24 + 8) + 4 * (s_sup.numel() + s_cl.numel() + t_sup.numel() + t_cl.numel())
-            + 4 * (4 * s_slots.shape[1] + 10 * t_slots.shape[1]))
+def walk_bytes(work: dict, n_rays: int, super_rows: int) -> int:
+    """Bytes a walk must move: the rays' six rows read once and t and slot
+    written once (``n_rays``), the ``super_rows`` super AABBs read once,
+    and of the supers and clusters ``work`` says some ray entered, the
+    cluster AABBs (64 a super) and the slot rows (4 for spheres, 10 for
+    triangles; 128 slots a cluster) read once."""
+    entered = lambda key: len(work.get(key, ()))
+    return (n_rays * (24 + 8) + 32 * super_rows
+            + 32 * 64 * (entered("sphere_supers") + entered("triangle_supers"))
+            + 4 * 128 * (4 * entered("sphere_clusters") + 10 * entered("triangle_clusters")))
 
 
 def mesh_rays(scene, camera, cfg, n: int, dev):
@@ -826,9 +840,11 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work_b)
     for tables, s_base, t_base in pages:
         cluster_ops.cluster_nearest_plain(rays, *tables, *args, s_base, t_base, work=work_4)
-    k4_bound = walk_bound(work_4, sum(walk_bytes(t, n) for t, _, _ in pages))
-    k4b_bound = walk_bound(work_b, walk_bytes(whole, n))
-    print(f"[K4] walk work on these rays: whole tables {work_b}, the {len(pages)} pages {work_4}")
+    page_supers = sum(t[0].shape[0] + t[3].shape[0] for t, _, _ in pages)
+    k4_bound = walk_bound(work_4, walk_bytes(work_4, n, page_supers))
+    k4b_bound = walk_bound(work_b, walk_bytes(work_b, n, whole[0].shape[0] + whole[3].shape[0]))
+    print(f"[K4] walk work on these rays (tests; supers and clusters entered): whole tables "
+          f"{walk_counts(work_b)}, the {len(pages)} pages {walk_counts(work_4)}")
     # Coherent against incoherent rays: K4b's time per test of the walk on
     # each half alone (a warp runs the union of its rays' walks).
     for label, part in (("camera rays", rays[:, : n // 2]), ("first bounces", rays[:, n // 2 :])):
@@ -836,12 +852,12 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
         work = {}
         cluster_ops.cluster_nearest_plain(part, *whole, *args, work=work)
         _, ms = timer(lambda: cluster_ops.cluster_nearest(part, *whole, *args), 5)
-        tests = sum(work.values())
-        print(f"[K4] {label} alone ({n // 2}): K4b {ms:.4f} ms, walk work {work}, "
+        tests = walk_tests(work)
+        print(f"[K4] {label} alone ({n // 2}): K4b {ms:.4f} ms, walk work {walk_counts(work)}, "
               f"{ms * 1e6 / max(tests, 1):.3f} ns per test")
     # Occupancy: the same rays four times over fill four times the warps
     # per SM with the same work per ray.
-    tests = sum(work_b.values())
+    tests = walk_tests(work_b)
     four = rays.repeat(1, 4)
     _, ms4 = timer(lambda: cluster_ops.cluster_nearest(four, *whole, *args), 5)
     print(f"[K4] K4b on the rays four times over ({4 * n}): {ms4:.4f} ms, "
@@ -850,11 +866,18 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     return (0.0, k4_ms, k4_plain_ms, *k4_bound), (0.0, k4b_ms, k4b_plain_ms, *k4b_bound)
 
 
-def k5_phase(dev, scene, camera, cfg, timer, spp: int = 2):
-    """K5 against its plain version: a 64x36-pixel range of the config-3
-    blob frame at ``spp``, and the 32x24 triangle-cloud and image-textured
-    triangle scenes of tests/test_megakernel_cluster.py, bit for bit.
-    Returns (max |d|, kernel ms and plain ms on the range, bound)."""
+def k5_phase(dev, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
+             run_len: int = 16):
+    """K5 against its plain version, bit for bit: the 32x24 triangle-cloud
+    and image-textured triangle scenes of tests/test_megakernel_cluster.py,
+    and the config-3 blob frame.  ``frame`` is K5's full-frame launch at
+    ``cfg``'s spp (``frame_ms`` per launch); its pixels are independent, so
+    ``runs`` runs of ``run_len`` pixels spread down the frame's diagonal are
+    held against render_megakernel_plain on the same pixels at the same
+    spp.  The plain walk counts its tests on those pixels, scaled to the
+    frame, and the clusters and shade rows they touch: the frame's least
+    time.  Returns (max |d|, frame ms, plain ms on the runs, bound ms,
+    bound_by)."""
     import torch
 
     from rt_tpu_torch import cluster_ops, megakernel as mk
@@ -877,47 +900,50 @@ def k5_phase(dev, scene, camera, cfg, timer, spp: int = 2):
         print(f"[K5] {name} 32x24 2 spp depth 6: equal to plain {bool(torch.equal(got, ref))}")
         check(bool(torch.equal(got, ref)), f"K5 {name}: kernel and plain version disagree")
 
-    n_pix = 64 * 36
-    base = (camera.image_height // 2) * camera.image_width + camera.image_width // 2 - n_pix // 2
-    rng_args = (scene, camera, cfg, spp, 0, cfg.seed)
-    work = {}
-    search = mk.cluster_search
+    w, h, spp = camera.image_width, camera.image_height, cfg.samples_per_pixel
+    work, winners = {}, set()
 
     def counted(scene_, cfg_, rays):
         c = scene_.clusters
-        return cluster_ops.cluster_nearest_plain(
+        t, slot = cluster_ops.cluster_nearest_plain(
             rays, *mk.cluster_tables(c), c.n_sph_slots, cfg_.t_min, cfg_.t_max,
             cfg_.compat.triangle_backface_cull, work=work)
+        winners.update(slot[slot >= 0].unique().tolist())
+        return t, slot
 
-    mk.cluster_search = counted
-    try:
+    bases = [(h * (2 * k + 1) // (2 * runs)) * w + (w - run_len) * k // (runs - 1)
+             for k in range(runs)]
+    err, same, refs, plain_ms = 0.0, True, [], 0.0
+    for base in bases:
         sync(dev)
         t0 = time.perf_counter()
-        ref = mk.render_megakernel_plain(*rng_args, pixel_base=base, n_pixels=n_pix)
+        ref = mk.render_megakernel_plain(scene, camera, cfg, spp, 0, cfg.seed, pixel_base=base,
+                                         n_pixels=run_len, search=counted)
         sync(dev)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        mk.cluster_search = search
-    got, kernel_ms = timer(lambda: mk.render_megakernel(*rng_args, pixel_base=base,
-                                                        n_pixels=n_pix), 5)
-    err = float((got - ref).abs().max())
-    same = bool(torch.equal(got, ref))
-    print(f"[K5] config-3 blob, pixels [{base}, {base + n_pix}) (64x36), {spp} spp, depth "
-          f"{cfg.max_depth}: equal to plain {same}, max|d| {err:.3e}, image mean "
-          f"{float(ref.mean()):.4f}; walk work {work}")
-    check(same and bool(torch.isfinite(ref).all()) and float(ref.mean()) > 0.01,
-          "K5: kernel and plain version disagree on the blob range")
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        got = frame[base : base + run_len]
+        err = max(err, float((got - ref).abs().max()))
+        same = same and bool(torch.equal(got, ref))
+        refs.append(ref)
+    refs = torch.cat(refs)
+    n_sample = runs * run_len
+    print(f"[K5] config-3 blob {w}x{h} {spp} spp depth {cfg.max_depth}: the full-frame launch "
+          f"against plain on {runs} runs of {run_len} pixels down the diagonal (first pixels "
+          f"{bases}): equal {same}, max|d| {err:.3e}, sample mean {float(refs.mean()):.4f}; "
+          f"walk work {walk_counts(work)}, {len(winners)} distinct winners")
+    check(same and bool(torch.isfinite(refs).all()) and float(refs.mean()) > 0.01,
+          "K5: kernel and plain version disagree on the blob frame")
     cl = scene.clusters
-    nbytes = (4 * (cl.shade_table.numel() + scene.atlas.numel()) + walk_bytes(mk.cluster_tables(cl), 0)
-              + 12 * n_pix)
-    return err, kernel_ms, plain_ms, *walk_bound(work, nbytes)
+    nbytes = (walk_bytes(work, 0, cl.sph_super.shape[0] + cl.tri_super.shape[0])
+              + 4 * cl.shade_table.shape[0] * len(winners) + 12 * w * h)
+    return err, frame_ms, plain_ms, *walk_bound(work, nbytes, w * h / n_sample)
 
 
 def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
     """render_image of BASELINE config 3 and 3b through K5 (800x450, depth
     16, 8 spp): wall s, Mray/s, a repeat bit-identical, and K5's ms per
     launch.  Returns (K5 launches of the render_image calls, {name: K5 ms},
-    {name: image})."""
+    {name: K5's full-frame output})."""
     import numpy as np
 
     from rt_tpu_torch import megakernel as mk
@@ -927,7 +953,7 @@ def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
     camera = mesh_cam(MESH_W, MESH_H)
     cfg = RenderConfig(width=MESH_W, height=MESH_H, samples_per_pixel=MESH_SPP,
                        max_depth=MESH_DEPTH)
-    images, runs = {}, {}
+    frames, runs = {}, {}
     mk.LAUNCHES_CLUSTERED = 0
     for name, scene in scenes_.items():
         img, m = render_image(scene, camera, cfg, device=dev)
@@ -944,15 +970,14 @@ def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
               and 0.01 < float(img.mean()) < 5.0, f"{name}: implausible image")
         check(np.array_equal(img, again), f"{name}: two render_image frames differ")
         scene = scenes_[name]
-        _, kernel_ms[name] = timer(lambda: mk.render_megakernel(scene, camera, cfg, MESH_SPP, 0,
-                                                                cfg.seed), 3)
+        frames[name], kernel_ms[name] = timer(
+            lambda: mk.render_megakernel(scene, camera, cfg, MESH_SPP, 0, cfg.seed), 3)
         rays = MESH_SPP * MESH_W * MESH_H
         print(f"[config3] {name}: K5 {kernel_ms[name]:.3f} ms per launch (CUDA events, mean of 3 "
               f"after a warm-up), {rays / kernel_ms[name] / 1e3:.3f} Mray/s in the kernel")
-        images[name] = img
     print(f"[config3] K5 launches during the render_image frames: {launches}")
     check(launches == 2 * len(scenes_), "the config-3 frames did not go through K5")
-    return launches, kernel_ms, images
+    return launches, kernel_ms, frames
 
 
 def mesh_wavefront_phase(dev, scene, spp: int = 2):
@@ -1208,14 +1233,15 @@ def main() -> int:
     print(f"[time] K4b cluster_nearest, the same rays x the whole tables on {card}: kernel "
           f"{k4b[1]:.4f} ms, plain {k4b[2]:.2f} ms, bound {k4b[3]:.4f} ms")
 
-    # -- 18. K5 kernel vs plain on the card -----------------------------------------------
-    k5 = k5_phase(dev, blob, mesh_camera, mesh_cfg, timed_cuda)
-    print(f"[time] K5 megakernel_clustered, the 64x36 blob range at 2 spp on {card}: kernel "
-          f"{k5[1]:.4f} ms, plain {k5[2]:.1f} ms (one run, wall), bound {k5[3]:.4f} ms")
-
-    # -- 19. the slice at full width: render_image of config 3 and 3b (K5) ---------------
-    k5_launches, k5_frame_ms, _ = mesh_frames_phase(
+    # -- 18. the slice at full width: render_image of config 3 and 3b (K5) ---------------
+    k5_launches, k5_frame_ms, k5_frames = mesh_frames_phase(
         dev, card, {"blob": blob, "heightfield": heightfield}, timed_cuda)
+
+    # -- 19. K5 kernel vs plain on the card -----------------------------------------------
+    k5 = k5_phase(dev, blob, mesh_camera, mesh_cfg, k5_frames["blob"], k5_frame_ms["blob"])
+    print(f"[time] K5 megakernel_clustered, the config-3 blob frame ({MESH_W}x{MESH_H}, "
+          f"{MESH_SPP} spp) on {card}: kernel {k5[1]:.4f} ms per launch, plain {k5[2]:.1f} ms "
+          f"(wall) on 144 of its pixels, bound {k5[3]:.4f} ms for the frame")
 
     # -- 20. the wavefront on K4 -------------------------------------------------------------
     k4_launches, mesh_wf_counts, mesh_wf_s = mesh_wavefront_phase(dev, blob)
@@ -1243,8 +1269,9 @@ def main() -> int:
           f"K2 {k2_bound[0]:.4f} ms, K2b {k2b_bound[0]:.4f} ms, K3 {k3[3]:.4f} ms, "
           f"K3b {k3b[3]:.4f} ms")
     print(f"[kernels] K4 {k4[3]:.4f} ms and K4b {k4b[3]:.4f} ms from the walk's counted slab and "
-          f"pair tests on phase 17's rays, K5 {k5[3]:.4f} ms from those of phase 18's range "
-          f"({FLOPS_SLAB} FLOP a slab test)")
+          f"pair tests on phase 17's rays, K5 {k5[3]:.4f} ms from those on phase 19's 144 "
+          f"pixels scaled to the frame ({FLOPS_SLAB} FLOP a slab test); bytes: the clusters "
+          f"entered and the winners' shade rows, read once")
     print("[kernels] sphere_nearest_packed (K2b), prim_nearest_packed (K3b) and cluster_nearest "
           "(K4b) have no caller on any path, as in rt_tpu; each is held against its plain "
           "version above")

@@ -117,20 +117,25 @@ def _triangle_pairs(r, s, t_min: float, t_max: float, cull: bool):
     return torch.where(ok, t, BIG)
 
 
-def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, pairs, live_row: int,
-              live_min: float, work: dict | None, pair_key: str):
+def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_base: int, pairs,
+              live_row: int, live_min: float, work: dict | None, kind: str):
     """One kind's walk for all rays r, in the kernel's order: supers in
     turn, each entered super's clusters in turn, each entered cluster's
     slots; ``best_t``/``best_i`` [N] are updated in place.  Slots whose
     ``live_row`` is not above ``live_min`` can never be hit; ``work``, when
     given, counts the slab tests and the pair tests the walk makes on live
-    boxes and slots, as the kernel makes them."""
+    boxes and slots, as the kernel makes them, and gathers the supers and
+    clusters some ray entered (by their index in the unpaged tables,
+    ``slot_base`` / CLUSTER_SLOTS + the page's own index)."""
     sup_live = (supers[:, 0] <= supers[:, 3]).tolist()
     cl_live = (clusters[:, 0] <= clusters[:, 3]).tolist()
     n_clusters = clusters.shape[0]
+    first = slot_base // CLUSTER_SLOTS
     if work is not None:
         live_slots = (slots[live_row] > live_min).reshape(-1, CLUSTER_SLOTS).sum(dim=1).tolist()
         work["slab"] = work.get("slab", 0) + r["ox"].shape[0] * sum(sup_live)
+        entered_supers = work.setdefault(f"{kind}_supers", set())
+        entered_clusters = work.setdefault(f"{kind}_clusters", set())
     for si, live in enumerate(sup_live):
         if not live:
             continue
@@ -144,6 +149,7 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, pairs, l
         tn_c, ent_c = _enters(clusters[c_lo:c_hi], sub, bt)
         if work is not None:
             work["slab"] += rays_s.numel() * sum(cl_live[c_lo:c_hi])
+            entered_supers.add((first + c_lo) // SUPER_CLUSTERS)
         for ci in range(c_lo, c_hi):
             if not cl_live[ci]:
                 continue
@@ -152,7 +158,8 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, pairs, l
             if rows.numel() == 0:
                 continue
             if work is not None:
-                work[pair_key] = work.get(pair_key, 0) + rows.numel() * live_slots[ci]
+                work[f"{kind}_pairs"] = work.get(f"{kind}_pairs", 0) + rows.numel() * live_slots[ci]
+                entered_clusters.add(first + ci)
             cand = pairs({key: v[rows] for key, v in sub.items()},
                          slots[:, ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS])
             c_t, c_k = torch.min(cand, dim=1)  # the first minimum: the lowest slot
@@ -174,7 +181,9 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tr
     the same ``tn < best`` rule, in the kernel's order, with pair tests over
     each ray's entered clusters only.  ``work``, when given, accumulates the
     walk's slab tests ("slab") and pair tests ("sphere_pairs",
-    "triangle_pairs"), from which a measurement works out the kernel's
+    "triangle_pairs"), and the sets of supers and clusters some ray entered
+    ("sphere_supers", "sphere_clusters", "triangle_supers",
+    "triangle_clusters"), from which a measurement works out the kernel's
     least time."""
     n = rays.shape[1]
     device = rays.device
@@ -191,10 +200,10 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tr
         for axis, d in (("idx", dx), ("idy", dy), ("idz", dz)):
             r[axis] = div(1.0, torch.where(torch.abs(d) > tiny, d, tiny.to(device)))
         best_t, best_i = t_out[lo : lo + _PLAIN_CHUNK], i_out[lo : lo + _PLAIN_CHUNK]
-        _walk_set(r, best_t, best_i, sph_super, sph_cluster, sph_slots, sph_slot_base, sph_pairs,
-                  3, 0.0, work, "sphere_pairs")
+        _walk_set(r, best_t, best_i, sph_super, sph_cluster, sph_slots, sph_slot_base,
+                  sph_slot_base, sph_pairs, 3, 0.0, work, "sphere")
         _walk_set(r, best_t, best_i, tri_super, tri_cluster, tri_slots,
-                  n_sph_slots + tri_slot_base, tri_pairs, 9, 0.5, work, "triangle_pairs")
+                  n_sph_slots + tri_slot_base, tri_slot_base, tri_pairs, 9, 0.5, work, "triangle")
     return t_out, i_out
 
 

@@ -574,20 +574,23 @@ def render_megakernel_plain(
     *,
     pixel_base: int = 0,
     n_pixels: int | None = None,
+    search=None,
 ) -> torch.Tensor:
     """The megakernel in plain PyTorch on the scene's device: the same
     arguments and result as ``render_megakernel``.  K1's search and
     per-primitive table, or for a clustered scene K5's: the cluster walk
-    and the slot-ordered table.  Samples are summed per pixel in sample
-    order, as the kernel's threads sum them."""
+    and the slot-ordered table.  ``search(scene, cfg, rays)``, when given,
+    replaces the search and must give the same winners.  Samples are summed
+    per pixel in sample order, as the kernel's threads sum them."""
     n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
     device = scene.device
     if eligible_clustered(scene, cfg):
-        search, table = cluster_search, scene.clusters.shade_table
+        default, table = cluster_search, scene.clusters.shade_table
     elif eligible(scene, cfg):
-        search, table = flat_search, scene.shade_table
+        default, table = flat_search, scene.shade_table
     else:
         raise NotImplementedError("no megakernel for this scene (see render_megakernel)")
+    search = default if search is None else search
     sky_k = frame_scalars(scene.sky)
     pix = torch.arange(pixel_base, pixel_base + n_pixels, device=device)
     acc = torch.zeros((n_pixels, 3), dtype=torch.float32, device=device)

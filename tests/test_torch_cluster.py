@@ -250,3 +250,27 @@ def test_paged_merge_equals_single_page(monkeypatch):
         t_best, s_best = torch.where(better, t_p, t_best), torch.where(better, s_p, s_best)
     assert torch.equal(t_best, whole[0]) and torch.equal(s_best, whole[1])
     assert (whole[1] >= 0).sum() > 20 and (whole[1] >= 64 * 128).any()
+
+
+def test_walk_work_names_entered_clusters_globally(monkeypatch):
+    """The plain walk's work counts name the clusters and supers some ray
+    entered by their index in the unpaged tables: every winner's cluster is
+    among them, each is a live cluster, and the pages' walks (each from a
+    fresh best t) enter at least the clusters the whole tables' walk does."""
+    monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
+    cl = cases.spheres_16500(tscene).build().clusters
+    rays = torch.from_numpy(cases.random_rays(np.random.default_rng(1234), extent=8.0))
+    whole = {}
+    _, slot = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
+                                                True, work=whole)
+    paged = {}
+    for page in cl.pages:
+        cluster_ops.cluster_nearest_plain(rays, *_tables(page), cl.n_sph_slots, T_MIN, T_MAX, True,
+                                          page.sph_slot_base, page.tri_slot_base, work=paged)
+    entered = whole["sphere_clusters"]
+    live = (cl.sph_cluster[:, 0] <= cl.sph_cluster[:, 3]).numpy()
+    winners = {s // 128 for s in slot[slot >= 0].tolist()}
+    assert winners and winners <= entered <= paged["sphere_clusters"]
+    assert all(live[c] for c in entered) and max(entered) >= 64
+    assert {c // 64 for c in entered} <= whole["sphere_supers"] <= paged["sphere_supers"]
+    assert whole["sphere_pairs"] <= paged["sphere_pairs"] and not whole["triangle_clusters"]

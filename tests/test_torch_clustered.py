@@ -121,6 +121,28 @@ def test_sample_offset_chunks_match_monolithic():
     assert torch.equal(upper, mono[half:])
 
 
+def test_megakernel_plain_takes_a_search():
+    """A search passed to the plain version replaces the default walk: a
+    counting walk over a short run of pixels gives those pixels of the
+    whole frame bit for bit."""
+    ts = cases.tri_cloud(tscene, n_tris=135, with_materials=False).build()
+    _, cfg = _cfgs()
+    cam = _camera(make_camera)
+    mono = megakernel.render_megakernel_plain(ts, cam, cfg, 2, 0, 0)
+    work = {}
+
+    def counting(scene, cfg_, rays):
+        c = scene.clusters
+        return cluster_ops.cluster_nearest_plain(
+            rays, *megakernel.cluster_tables(c), c.n_sph_slots, cfg_.t_min, cfg_.t_max,
+            cfg_.compat.triangle_backface_cull, work=work)
+
+    run = megakernel.render_megakernel_plain(ts, cam, cfg, 2, 0, 0, pixel_base=300, n_pixels=16,
+                                             search=counting)
+    assert torch.equal(run, mono[300:316])
+    assert work["slab"] > 0 and work["triangle_pairs"] > 0 and work["triangle_clusters"]
+
+
 def test_wavefront_on_k4_matches_render_fast_and_k5():
     js, ts = _pair(cases.tri_cloud)
     jcfg, tcfg = _cfgs()
