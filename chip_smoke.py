@@ -7,8 +7,10 @@ Run from the repository root with no arguments:
 
 It builds the CUDA kernels from csrc/ (K1, the flat megakernel; K2/K2b,
 the nearest-sphere kernel; K3/K3b, the nearest-primitive kernel with the
-shade-table fetch; K4/K4b, the cluster walk; K5, the clustered megakernel)
-and the C++ BVH builder, holds each kernel against its plain PyTorch
+shade-table fetch; K4/K4b, the cluster walk; K5, the clustered megakernel;
+K6, the primitives probe's reduce, gather and scatter; and the BVH walk,
+which is not a TPU kernel) and the C++ BVH builder, holds each kernel
+against its plain PyTorch
 version on the card, and drives each path at the bench configuration, with
 the launch counts set to 0 just before and read just after:
 
@@ -27,7 +29,14 @@ the launch counts set to 0 just before and read just after:
   triangle closed mesh, and 3b, a 100,356-triangle height field, at
   800x450 and max depth 16, with 8 samples per pixel in place of the
   config's 64): ``render_image`` through K5, the wavefront through K4, one
-  progressive pass with the "mega" engine, and the CLI's ``obj:`` scene.
+  progressive pass with the "mega" engine, and the CLI's ``obj:`` scene;
+- the primitives probe (``python -m rt_tpu_torch.micro_probe all``), K6:
+  ns per unit of each body and each gather mode;
+- the blob's BVH through the walk kernel: ``grad.pixel_grad`` at 800x450,
+  1 spp, diff_max_depth 6 (bit-identical repeats, a pixel block equal to
+  the same step on the plain walk) and the chunked 2-spp frame
+  (``render_pixel_colors(wavefront=False)``); and a defocused chunked
+  frame of the cover scene.
 
 It prints the card, the timings, the kernel table and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -1052,6 +1061,300 @@ def mesh_progressive_cli_phase(dev, scene, obj_path: str):
         check(f.read(8) == b"\x89PNG\r\n\x1a\n", "the obj: CLI wrote no PNG")
 
 
+# K6's plain-version check at reps 1-3: reduce and gather bit for bit (the
+# same integer and float arithmetic), scatter within 1e-5 relative to
+# sum|vals| (f32 sums in another order than the plain version's matrix
+# product), times the reps for the accumulated plane.
+MICRO_SCATTER_RTOL = 1e-5
+
+
+def micro_parity_phase(dev) -> float:
+    """K6's kernels against their plain versions at reps 1-3 and small n,
+    from the default and from random initial states.  Returns the largest
+    |d| of scatter (reduce and gather must be exact)."""
+    import numpy as np
+    import torch
+
+    from rt_tpu_torch import micro_probe as mp
+
+    data = mp.inputs("all", dev)
+    rs = np.random.default_rng(1)
+    ints = lambda lo, hi, shape: torch.from_numpy(rs.integers(lo, hi, shape).astype(np.int32)).to(dev)
+    worst = 0.0
+    for reps in (1, 2, 3):
+        r, g, s = data["reduce"], data["gather"], data["scatter"]
+        init = dict(best=ints(0, 1 << 29, (8, 128)), bi=ints(-3, 3, (8, 128)))
+        for n, kw in ((1024, {}), (mp.NI, init)):
+            same = all(bool(torch.equal(a, b)) for a, b in zip(
+                mp.reduce(r["rid"], r["key"], reps, n, **kw),
+                mp.reduce_plain(r["rid"], r["key"], reps, n, **kw)))
+            check(same, f"K6 reduce reps {reps} n {n}: kernel and plain version differ")
+        res0 = ints(-9, 9, (mp.NI,))
+        for mode in mp.MODES:
+            args = (g["rays_t"], g["slots"], g["item"], g["vcl"], reps, 256)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(
+                mp.gather(*args, mode=mode, res=res0), mp.gather_plain(*args, mode=mode, res=res0)))
+            check(same, f"K6 gather[{mode}] reps {reps}: kernel and plain version differ")
+        tol = MICRO_SCATTER_RTOL * float(s["vals"].abs().sum())
+        scr0 = torch.from_numpy(rs.standard_normal((8, mp.NI)).astype(np.float32)).to(dev)
+        for n_chunks, kw in ((6, {}), (18, dict(scr=scr0))):  # 18: past the last column block
+            (out, scr), (p_out, p_scr) = (mp.scatter(s["vals"], s["dst"], reps, n_chunks, **kw),
+                                          mp.scatter_plain(s["vals"], s["dst"], reps, n_chunks, **kw))
+            d_scr, d_out = float((scr - p_scr).abs().max()), float((out - p_out).abs().max())
+            check(d_scr <= tol and d_out <= tol * reps,
+                  f"K6 scatter reps {reps} chunks {n_chunks}: |d| {d_scr}, {d_out} over {tol}")
+            worst = max(worst, d_scr)
+    print(f"[K6] reduce (n 1024 and 8192, default and random initial planes) and gather (5 modes, "
+          f"random initial rows) equal to plain at reps 1-3; scatter max|d| {worst:.3e} within "
+          f"{MICRO_SCATTER_RTOL} x sum|vals|")
+    return worst
+
+
+def micro_probe_phase(dev):
+    """The probe at its defaults through its command line
+    (``python -m rt_tpu_torch.micro_probe all --mode sweep``, then the
+    unaligned gather), with the launch counts set to 0 just before; then
+    each body at half its n, and its plain version's time at 1 rep.
+    Returns (results by name, launches, plain ms by body)."""
+    import torch
+
+    from rt_tpu_torch import micro_probe as mp
+
+    for name in mp.LAUNCHES:
+        mp.LAUNCHES[name] = 0
+    results = mp.main(["all", "--mode", "sweep", "--device", str(dev)])
+    results.update(mp.main(["gather", "--mode", "unaligned", "--device", str(dev)]))
+    launches = dict(mp.LAUNCHES)
+    print(f"[K6] probe launches: {launches}")
+    check(all(v > 0 for v in launches.values()), "the probe did not launch every K6 kernel")
+    data = mp.inputs("all", dev)
+    r, g, s = data["reduce"], data["gather"], data["scatter"]
+    sc = mp.SCATTER_SHAPE
+    # The reps loop must do its work every rep.  nomath's rep is a fraction
+    # of a microsecond, within the timer's noise between 8 and 32 reps, so
+    # every body is also timed at 8 and 1,024 reps: t(1024) must exceed t(8).
+    bodies = {"reduce": lambda reps: mp.reduce(r["rid"], r["key"], reps, mp.NI),
+              "scatter": lambda reps: mp.scatter(s["vals"], s["dst"], reps, mp.NI // sc["ch"], **sc)}
+    for mode in mp.MODES:
+        bodies[f"gather[{mode}]"] = (lambda reps, mode=mode: mp.gather(
+            g["rays_t"], g["slots"], g["item"], g["vcl"], reps, mp.NV, mode=mode))
+    for name, fn in bodies.items():
+        long = mp.run(f"{name} at 8 and 1024 reps", fn, 8, 1024, results[name]["n"], dev)
+        check(long["t_r2_ms"] > long["t_r1_ms"],
+              f"K6 {name}: t(1024 reps) is not above t(8 reps): the reps loop did no work")
+    halves = {
+        "reduce": (lambda reps: mp.reduce(r["rid"], r["key"], reps, mp.NI // 2), mp.NI // 2),
+        "gather[full]": (lambda reps: mp.gather(g["rays_t"], g["slots"], g["item"], g["vcl"],
+                                                reps, mp.NV // 2), mp.NV // 2),
+        "scatter": (lambda reps: mp.scatter(s["vals"], s["dst"], reps, mp.NI // sc["ch"] // 2, **sc),
+                    mp.NI // sc["ch"] // 2),
+    }
+    ratios = {}
+    for name, (fn, n) in halves.items():
+        full = results[next(k for k in results if k == name or k.startswith(name + "["))]
+        half = mp.run(f"{name} at n/2", fn, full["r1"], full["r2"], n, dev)
+        slope = lambda x: (x["t_r2_ms"] - x["t_r1_ms"]) / (x["r2"] - x["r1"])
+        ratios[name] = slope(full) / max(slope(half), 1e-12)
+        print(f"[K6] {name}: ms per rep at n {full['n']} / at n {n}: {ratios[name]:.3f}")
+    # Scatter's chunks run side by side on the card (one block row each),
+    # so its time per rep does not follow n up to the 16 chunks.
+    check(ratios["reduce"] > 1.3 and ratios["gather[full]"] > 1.3,
+          "K6 reduce or gather: the time per rep does not grow with n")
+    plain = {
+        "reduce": lambda: mp.reduce_plain(r["rid"], r["key"], 1, mp.NI),
+        "gather": lambda: mp.gather_plain(g["rays_t"], g["slots"], g["item"], g["vcl"], 1, mp.NV),
+        "scatter": lambda: mp.scatter_plain(s["vals"], s["dst"], 1, mp.NI // sc["ch"], **sc),
+    }
+    plain_ms = {name: timed_cuda(fn, 5)[1] for name, fn in plain.items()}
+    torch.cuda.synchronize()
+    return results, launches, plain_ms
+
+
+def micro_bounds(dev) -> dict:
+    """Least time of one rep of each K6 body at the probe's inputs: each
+    input read once and each output written once, and the operations that
+    these inputs need (gather: the sphere pair test of every (item, lane),
+    FLOPS_SPHERE_PAIR; reduce: a compare per item; scatter: an add per
+    (destination, value row) that lands in a written column block)."""
+    from rt_tpu_torch import micro_probe as mp
+
+    data = mp.inputs("all", dev)
+    g, s = data["gather"], data["scatter"]
+    sc = mp.SCATTER_SHAPE
+    reduce_b = bound(mp.NI, 8 * mp.NI + 3 * 4 * 1024 + 2 * 4 * 1024)
+    clusters = int(g["vcl"].reshape(-1)[: mp.NV].unique().numel())
+    rays = int(g["item"].reshape(-1)[: mp.NI].unique().numel())
+    gather_b = bound(mp.NV * 8 * 128 * FLOPS_SPHERE_PAIR,
+                     rays * 32 + clusters * 4 * 128 * 4 + 4 * (mp.NI + mp.NV) + 4 * mp.NI)
+    in_range = int((s["dst"] < mp.NI).sum())  # 16 chunks of 512 cover [0, 8192)
+    scatter_b = bound(in_range * sc["nvrows"],
+                      4 * s["vals"].numel() + 4 * s["dst"].numel() + 4 * sc["nvrows"] * mp.NI)
+    return {"reduce": reduce_b, "gather": gather_b, "scatter": scatter_b}
+
+
+def bvh_walk_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
+    """The BVH walk kernel against the plain walk on ``n`` rays of the
+    config-3 blob frame (camera rays and first bounces), bit for bit, with
+    culling on and off.  Returns (kernel ms, plain ms, hits)."""
+    import torch
+
+    from rt_tpu_torch.bvh import traverse
+    from rt_tpu_torch.config import CompatConfig
+
+    rays = mesh_rays(scene, camera, cfg, n, dev)
+    org, dirn = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
+    for cull in (True, False):
+        compat = CompatConfig(triangle_backface_cull=cull)
+        got = traverse.bvh_walk(scene, org, dirn, cfg.t_min, cfg.t_max, compat)
+        sync(dev)
+        t0 = time.perf_counter()
+        ref = traverse.bvh_walk_plain(scene, org, dirn, cfg.t_min, cfg.t_max, compat)
+        sync(dev)
+        plain_s = time.perf_counter() - t0
+        same = bool(torch.equal(got[0], ref[0])) and bool(torch.equal(got[1], ref[1]))
+        hits = int((ref[1] >= 0).sum())
+        print(f"[bvh] walk kernel, {n} rays (camera + first bounce) x {scene.num_triangles} "
+              f"triangles, cull {cull}: t and prim equal to the plain walk {same}, hits {hits}, "
+              f"plain walk {plain_s:.2f} s")
+        check(same and hits > n // 4, "the BVH walk kernel and the plain walk disagree")
+    compat = cfg.compat
+    _, walk_ms = timer(lambda: traverse.bvh_walk(scene, org, dirn, cfg.t_min, cfg.t_max, compat), 5)
+    _, plain_ms = timer(
+        lambda: traverse.bvh_walk_plain(scene, org, dirn, cfg.t_min, cfg.t_max, compat), 1)
+    return walk_ms, plain_ms, hits
+
+
+def mesh_grad_phase(dev, scene, card: str, depth: int = 6, reps: int = 2):
+    """grad.pixel_grad on the config-3 blob at bench_grad.py's shape: 800x450,
+    every pixel at 1 spp, diff_max_depth 6, key 0, zero target, all seven
+    SceneParams leaves.  Finite and nonzero; a second call bit-identical;
+    a 16x9 pixel block equal, bit for bit, to the same step with the plain
+    walk.  Returns the warm wall s per step."""
+    import torch
+
+    from rt_tpu_torch import grad, rng
+    from rt_tpu_torch.bvh import traverse
+    from rt_tpu_torch.config import RenderConfig
+
+    camera = mesh_cam(MESH_W, MESH_H)
+    cfg = RenderConfig(width=MESH_W, height=MESH_H, diff_max_depth=depth)
+    n = MESH_W * MESH_H
+    args = (scene, camera, cfg, torch.arange(n, device=dev), torch.zeros((n, 3), device=dev),
+            rng.key(0))
+    traverse.LAUNCHES["bvh_walk"] = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    loss, g = grad.pixel_grad(*args)
+    sync(dev)
+    cold_s = time.perf_counter() - t0
+    launches = traverse.LAUNCHES["bvh_walk"]
+    print(f"[grad-mesh] pixel_grad config-3 blob {MESH_W}x{MESH_H} 1 spp, diff_max_depth {depth}: "
+          f"loss {loss.item():.9g}, first call {cold_s:.3f} s, walk kernel launches {launches} "
+          f"(forward + checkpointed recompute)")
+    check(launches == 2 * (depth + 1), "the mesh gradient path did not go through the walk kernel")
+    check(bool(torch.isfinite(loss)) and loss.item() > 0, "non-finite or zero loss on the blob")
+    for leaf in grad.SceneParams._fields:
+        v = getattr(g, leaf)
+        check(bool(torch.isfinite(v).all()), f"non-finite gradient in {leaf}")
+        print(f"[grad-mesh]   {leaf:18s} shape {tuple(v.shape)}, max|g| {float(v.abs().max()):.6g}")
+    check(float(g.tex_color.abs().max()) > 0 and float(g.sky_exposure.abs()) > 0,
+          "zero tex_color or exposure gradient on the blob")
+    loss2, g2 = grad.pixel_grad(*args)
+    same = bool(torch.equal(loss, loss2)) and all(bool(torch.equal(a, b)) for a, b in zip(g, g2))
+    print(f"[grad-mesh] a second call is bit-identical in loss and every leaf: {same}")
+    check(same, "two pixel_grad calls on the blob differ")
+    # The first 16x9 block down the frame's middle column whose paths carry
+    # light at 1 spp (inside the blob's silhouette every path of a block
+    # can end dark within diff_max_depth bounces, a zero loss).
+    for y0 in (MESH_H // 2 - 5, MESH_H * 3 // 4, MESH_H // 4, MESH_H - 12):
+        x0 = MESH_W // 2 - 8
+        ys, xs = torch.meshgrid(torch.arange(y0, y0 + 9), torch.arange(x0, x0 + 16), indexing="ij")
+        block = (ys * MESH_W + xs).reshape(-1).to(dev)
+        b_args = (scene, camera, cfg, block, torch.zeros((block.numel(), 3), device=dev),
+                  rng.key(0))
+        lk, gk = grad.pixel_grad(*b_args)
+        if lk.item() > 0:
+            break
+        print(f"[grad-mesh] 16x9 block at rows {y0}-{y0 + 8}: loss 0, trying the next")
+    sync(dev)
+    t0 = time.perf_counter()
+    lp, gp = grad.pixel_grad(*b_args, bvh_walk=traverse.bvh_walk_plain)
+    sync(dev)
+    plain_s = time.perf_counter() - t0
+    same = bool(torch.equal(lk, lp)) and all(bool(torch.equal(a, b)) for a, b in zip(gk, gp))
+    print(f"[grad-mesh] 16x9 block (rows {y0}-{y0 + 8}, columns {x0}-{x0 + 15}): kernel walk "
+          f"equal to the plain "
+          f"walk in loss and every leaf {same} (loss {lk.item():.6g}; plain walk step {plain_s:.1f} s)")
+    check(same and lk.item() > 0, "the blob gradient differs between the walk kernel and the plain walk")
+    step_s = wall(lambda: grad.pixel_grad(*args), reps, dev)
+    print(f"[grad-mesh] warm wall per pixel_grad step on {card}: {step_s:.4f} s (mean of {reps})")
+    return step_s
+
+
+def mesh_chunked_phase(dev, scene, card: str, k5_mean: float, spp: int = 2):
+    """render_pixel_colors(wavefront=False) of the config-3 blob at ``spp``
+    and max depth 16: finite, a repeat bit-identical, Mray/s, and its mean
+    against K5's 8-spp frame mean within 10% (the streams differ: jax.random
+    here, the counter hash in K5).  Returns the wall s."""
+    import numpy as np
+    import torch
+
+    from rt_tpu_torch.bvh import traverse
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.render import render_pixel_colors
+
+    camera = mesh_cam(MESH_W, MESH_H)
+    cfg = RenderConfig(width=MESH_W, height=MESH_H, samples_per_pixel=spp, max_depth=MESH_DEPTH)
+    traverse.LAUNCHES["bvh_walk"] = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    img = render_pixel_colors(scene, camera, cfg, device=dev, wavefront=False)
+    host = img.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    launches = traverse.LAUNCHES["bvh_walk"]
+    mean = float(host.mean())
+    rays = spp * MESH_W * MESH_H
+    print(f"[chunked-mesh] render_pixel_colors(wavefront=False) blob {MESH_W}x{MESH_H} {spp} spp "
+          f"depth {MESH_DEPTH} on {card}: {seconds:.4f} s, {rays / seconds / 1e6:.4f} Mray/s, walk "
+          f"kernel launches {launches}; image mean {mean:.5f}, K5's 8-spp frame mean {k5_mean:.5f}")
+    check(launches >= 1, "the chunked mesh frame did not go through the walk kernel")
+    check(host.shape == (MESH_H, MESH_W, 3) and bool(np.isfinite(host).all()),
+          "the chunked mesh frame is not finite")
+    again = render_pixel_colors(scene, camera, cfg, device=dev, wavefront=False)
+    check(bool(torch.equal(img, again)), "two chunked mesh frames differ")
+    check(abs(mean - k5_mean) <= 0.1 * k5_mean, "the chunked mesh frame's mean is off K5's by > 10%")
+    print("[chunked-mesh] a repeat is bit-identical; the mean is within 10% of K5's")
+    return seconds
+
+
+def defocus_phase(dev, card: str, spp: int = 2):
+    """The cover scene through cam2 (thin lens, 0.7 degrees) on the chunked
+    path, whose disc comes from jax.random's stream, against K1's frame of
+    the same camera (the counter hash's disc): finite, and the means within
+    10%.  Returns the wall s."""
+    import numpy as np
+
+    from rt_tpu_torch import megakernel as mk, scenes
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.render import render_pixel_colors
+
+    camera = scenes.cam2(400, 225)
+    check(camera.defocus_on, "cam2 does not defocus")
+    scene = scenes.cover_scene(11, 11, camera, z=-0.2, seed=0).to(dev)
+    cfg = RenderConfig(width=400, height=225, samples_per_pixel=spp, max_depth=16)
+    sync(dev)
+    t0 = time.perf_counter()
+    img = render_pixel_colors(scene, camera, cfg, device=dev, wavefront=False).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    k1 = mk.render_megakernel(scene, camera, cfg, spp, 0, cfg.seed).cpu().numpy()
+    print(f"[defocus] chunked cover frame through cam2 (defocus 0.7 deg) 400x225 {spp} spp on "
+          f"{card}: {seconds:.4f} s, mean {float(img.mean()):.5f}; K1's frame mean "
+          f"{float(k1.mean()):.5f}")
+    check(bool(np.isfinite(img).all()) and abs(float(img.mean()) - float(k1.mean()))
+          <= 0.1 * float(k1.mean()), "the defocused chunked frame is off")
+    return seconds
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1249,11 +1552,41 @@ def main() -> int:
     # -- 21. progressive ("mega" engine) and the CLI on the mesh ----------------------------
     mesh_progressive_cli_phase(dev, blob, fixtures["skull_class"])
 
-    # -- 22. result -------------------------------------------------------------------
+    # -- 22. K6 kernels vs plain, then the probe at its defaults ---------------------------
+    k6_scatter_err = micro_parity_phase(dev)
+    k6, k6_launches, k6_plain_ms = micro_probe_phase(dev)
+    k6_bound = micro_bounds(dev)
+    per_rep = lambda r: (r["t_r2_ms"] - r["t_r1_ms"]) / (r["r2"] - r["r1"])
+    k6_ms = {"reduce": per_rep(k6["reduce"]), "gather": per_rep(k6["gather[full]"]),
+             "scatter": per_rep(k6["scatter"])}
+    for name, r in k6.items():
+        print(f"[time] K6 {name} on {card}: {r['ns_per_unit']:.4f} ns/unit over n={r['n']} "
+              f"(r{r['r1']} {r['t_r1_ms']:.4f} ms, r{r['r2']} {r['t_r2_ms']:.4f} ms; CUDA events, "
+              f"best of 3)")
+    for name in ("reduce", "gather", "scatter"):
+        print(f"[time] K6 {name}: {k6_ms[name]:.5f} ms per rep, plain {k6_plain_ms[name]:.4f} ms "
+              f"(1 rep), bound {k6_bound[name][0]:.5f} ms by {k6_bound[name][1]}")
+
+    # -- 23. the BVH walk kernel vs the plain walk on the blob's rays ----------------------
+    walk_ms, walk_plain_ms, walk_hits = bvh_walk_phase(dev, blob, mesh_camera, mesh_cfg, timed_cuda)
+    print(f"[time] BVH walk (not a TPU kernel), 65536 rays of the blob frame on {card}: kernel "
+          f"{walk_ms:.4f} ms (CUDA events, mean of 5 after a warm-up), plain walk "
+          f"{walk_plain_ms:.1f} ms")
+
+    # -- 24. pixel_grad on the config-3 blob (the walk kernel) -----------------------------
+    mesh_step_s = mesh_grad_phase(dev, blob, card)
+
+    # -- 25. the chunked config-3 blob frame, and a defocused chunked frame ----------------
+    mesh_chunk_s = mesh_chunked_phase(dev, blob, card, float(k5_frames["blob"].mean()))
+    defocus_phase(dev, card)
+
+    # -- 26. result -------------------------------------------------------------------
     check(all(math.isfinite(v) for v in (bench_err, kernel_ms, plain_ms, k2_ms, k2_plain_ms,
                                           k2b_ms, k2b_plain_ms, *k3[:4], *k3b[:4], wf_s,
                                           *k4[:4], *k4b[:4], *k5[:4], mesh_wf_s,
-                                          *k5_frame_ms.values())),
+                                          *k5_frame_ms.values(), *k6_ms.values(),
+                                          *k6_plain_ms.values(), k6_scatter_err, walk_ms,
+                                          walk_plain_ms, mesh_step_s, mesh_chunk_s)),
           "non-finite measurement")
     # Least times: K1 does at least the pair tests of the ray segments the
     # wavefront counted for the same frame (the same paths); K2/K2b the pair
@@ -1303,6 +1636,15 @@ def main() -> int:
               k4b[3:5]),
         entry("megakernel_clustered", "rt_tpu_torch/csrc/megakernel.cu",
               "rt_tpu/megakernel.py:3768", k5_launches, k5[0], k5[1], k5[2], k5[3:5]),
+        entry("micro_reduce", "rt_tpu_torch/csrc/micro_probe.cu", "tools/micro_probe.py:41",
+              k6_launches["micro_reduce"], 0.0, k6_ms["reduce"], k6_plain_ms["reduce"],
+              k6_bound["reduce"]),
+        entry("micro_gather", "rt_tpu_torch/csrc/micro_probe.cu", "tools/micro_probe.py:66",
+              k6_launches["micro_gather"], 0.0, k6_ms["gather"], k6_plain_ms["gather"],
+              k6_bound["gather"]),
+        entry("micro_scatter", "rt_tpu_torch/csrc/micro_probe.cu", "tools/micro_probe.py:131",
+              k6_launches["micro_scatter"], k6_scatter_err, k6_ms["scatter"],
+              k6_plain_ms["scatter"], k6_bound["scatter"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

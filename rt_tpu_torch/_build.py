@@ -113,6 +113,19 @@ def library() -> ctypes.CDLL:
         fn.argtypes = ([ptr] + [i32] * 4 + [ctypes.c_uint] + [i32] * 6
                        + [ptr, i32, ptr, i32, ptr] * 2 + [i32, ptr, ptr, ptr, ptr])
         fn.restype = i32
+        fn = lib.rt_micro_reduce
+        fn.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 6
+        fn.restype = i32
+        fn = lib.rt_micro_gather
+        fn.argtypes = [ptr, ptr, i32, ptr, ptr] + [i32] * 3 + [ptr] * 3
+        fn.restype = i32
+        fn = lib.rt_micro_scatter
+        fn.argtypes = [ptr, ptr] + [i32] * 5 + [ptr] * 3
+        fn.restype = i32
+        fn = lib.rt_bvh_walk
+        fn.argtypes = ([ptr, ptr, i32] + [ptr] * 7 + [i32, i32, ptr, ptr, i32] + [ptr] * 3
+                       + [i32, f32, f32, f32, i32, ptr, ptr, ptr])
+        fn.restype = i32
         _lib = lib
     return _lib
 

@@ -10,7 +10,8 @@ drawn from the counter hash keyed on the global work id
 ``sample * W * H + pixel`` (purposes 21/22), as the JAX megakernel and
 wavefront draw it.  ``generate_rays_keyed`` is the JAX ``Camera.generate_rays``
 of the chunked and gradient paths: the same jitter, keyed on a
-``jax.random``-style key.  Directions are deliberately NOT normalized,
+``jax.random``-style key, and the defocus disk drawn from ``jax.random``'s
+stream.  Directions are deliberately NOT normalized,
 matching the reference (camera.rs:253).
 """
 
@@ -168,18 +169,20 @@ def generate_rays_keyed(
     """The JAX package's ``Camera.generate_rays`` (rt_tpu/camera.py:50-106),
     the camera of ``render.render_chunk``: rays for pixel coordinates and
     sample indices under a key (rng.key).  The per-pixel jitter rotation,
-    when on, is keyed on the key's hash seed and the flat pixel id.
-    Returns (origins f32[N,3], directions f32[N,3]).
-
-    JAX draws the thin-lens disc with ``jax.random.uniform``, threefry bits
-    the port does not generate yet, so a defocused camera raises.
+    when on, is keyed on the key's hash seed and the flat pixel id; the
+    thin-lens disc, when the camera defocuses, is ``jax.random``'s draw
+    under fold_in(key, 0xD15C) (sampling.random_in_unit_disc), as
+    rt_tpu/camera.py:97-104 draws it.  Returns (origins f32[N,3],
+    directions f32[N,3]).
     """
-    if camera.defocus_on:
-        raise NotImplementedError(
-            "defocus on the render_chunk path needs jax.random.uniform's threefry bits, "
-            "which are not ported yet (the megakernel path renders defocus)"
-        )
     pix = pixel_y.to(torch.int64) * camera.image_width + pixel_x.to(torch.int64)
+    device = pix.device
     pixel_sample = _pixel_sample(camera, pix, sample_index.to(torch.int64), rng.key_seed(key), compat)
-    origin = camera.center.to(pix.device)[None, :].expand(pixel_sample.shape)
+    center = camera.center.to(device)[None, :]
+    if camera.defocus_on:
+        disk = sampling.random_in_unit_disc(rng.fold_in(key, 0xD15C), pix.shape[0], device)
+        origin = (center + disk[:, 0:1] * camera.defocus_disk_u.to(device)[None, :]
+                  + disk[:, 1:2] * camera.defocus_disk_v.to(device)[None, :])
+    else:
+        origin = center.expand(pixel_sample.shape)
     return origin, pixel_sample - origin

@@ -7,8 +7,11 @@ Counterparts of the JAX package's rt_tpu/geometry.py:
 - ``sphere_candidate_t`` (:59), the matrix-product form of the sphere
   test, and ``nearest_hit_bruteforce`` (:207) over it;
 - ``unit_sphere_uv``, ``sphere_uv_facing``, ``triangle_uv`` (:89-199);
-- ``nearest_hit`` (:294): "pallas" is ``_nearest_kernel``, "auto" the
-  brute force;
+- ``nearest_hit`` (:294): on a scene with a BVH, whatever the ``impl``,
+  the BVH walk with the winner's t recomputed differentiably
+  (bvh/traverse.py ``nearest_hit_bvh_diff``); otherwise "pallas" is
+  ``_nearest_kernel``, "detached" ``nearest_search_detached`` and "auto"
+  the brute force;
 - ``triangle_candidate`` (geometry.py:149): Möller–Trumbore per (ray,
   triangle) pair over [N, T] broadcasts (t only: no caller reads the
   barycentrics);
@@ -20,14 +23,11 @@ Counterparts of the JAX package's rt_tpu/geometry.py:
   (bvh/traverse.py ``_prim_t``), so the backward pass never holds the
   [N, P] candidate tensors.
 
-``sphere_nearest`` is K2 (nearest_ops.sphere_nearest): the CUDA kernel on
-the card, its plain version on the CPU.  Passing
-``nearest_ops.sphere_nearest_plain`` runs the plain version on the card,
-to hold the kernel against it.
-
-The port builds flat scenes only; a scene that would need a BVH raises in
-``SceneBuilder.build`` (ROADMAP queue 1 item 4), so no query here walks
-one.
+``sphere_nearest`` is K2 (nearest_ops.sphere_nearest) and ``bvh_walk`` the
+BVH walk (bvh/traverse.bvh_walk): each the CUDA kernel on the card, its
+plain version on the CPU.  Passing ``nearest_ops.sphere_nearest_plain`` or
+``traverse.bvh_walk_plain`` runs the plain version on the card, to hold
+the kernel against it.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ import math
 import torch
 
 from rt_tpu_torch import nearest_ops
+from rt_tpu_torch.bvh import traverse
 from rt_tpu_torch.bvh.traverse import TRI_EPS, _prim_t
 from rt_tpu_torch.config import CompatConfig
 from rt_tpu_torch.elementwise import cross3, div, dot3
@@ -212,21 +213,26 @@ def hit_attributes(scene, org, dirn, t, prim, compat: CompatConfig) -> HitRecord
 
 
 def nearest_hit(scene, org, dirn, t_min, t_max, compat: CompatConfig = CompatConfig(),
-                impl: str = "auto", *, sphere_nearest=nearest_ops.sphere_nearest) -> HitRecord:
+                impl: str = "auto", *, sphere_nearest=nearest_ops.sphere_nearest,
+                bvh_walk=traverse.bvh_walk) -> HitRecord:
     """The nearest hit of each ray, with its attributes (World::hit,
-    hittable.rs:135-149).  ``impl``: "pallas" searches with K2 for the
-    spheres (``_nearest_kernel``), "auto" by brute force; both give the
-    same winners up to rounding.  (The gradient path calls
-    ``nearest_search_detached`` directly.)  A scene with a BVH, which the
-    JAX package walks here, raises: the traversal is not ported yet."""
-    if scene.bvh is not None:
-        raise NotImplementedError("BVH traversal (bvh/traverse.nearest_hit_bvh) is not ported yet")
-    if impl == "pallas":
-        t, prim = _nearest_kernel(scene, org, dirn, t_min, t_max, compat, sphere_nearest)
-    elif impl == "auto":
-        t, prim = nearest_hit_bruteforce(scene, org, dirn, t_min, t_max, compat)
-    else:
+    hittable.rs:135-149).  A scene with a BVH walks it for every ``impl``
+    (``nearest_hit_bvh_diff``: differentiable in t), as the JAX package
+    does.  Otherwise ``impl``: "pallas" searches with K2 for the spheres
+    (``_nearest_kernel``), "detached" too but differentiable in t
+    (``nearest_search_detached``), "auto" by brute force; all give the same
+    winners up to rounding."""
+    if impl not in ("pallas", "detached", "auto"):
         raise ValueError(f"unknown nearest_hit impl {impl!r}")
+    if scene.bvh is not None:
+        t, prim = traverse.nearest_hit_bvh_diff(scene, org, dirn, t_min, t_max, compat,
+                                                walk=bvh_walk)
+    elif impl == "pallas":
+        t, prim = _nearest_kernel(scene, org, dirn, t_min, t_max, compat, sphere_nearest)
+    elif impl == "detached":
+        t, prim = nearest_search_detached(scene, org, dirn, t_min, t_max, compat, sphere_nearest)
+    else:
+        t, prim = nearest_hit_bruteforce(scene, org, dirn, t_min, t_max, compat)
     return hit_attributes(scene, org, dirn, t, prim, compat)
 
 

@@ -8,9 +8,10 @@ step may touch; geometry is excluded, as in the JAX package (visibility
 discontinuities bias bare AD gradients with respect to it).
 
 ``pixel_grad`` is torch autograd over ``render_chunk(differentiable=True)``:
-each bounce's sphere search runs K2 on detached rays (on the card, the
-CUDA kernel), and every backward step is deterministic, so two calls give
-bit-identical gradients.
+each bounce's winner search runs on detached rays (on the card, K2 on a
+scene with a shade table and no BVH, the BVH walk kernel on a mesh), and
+every backward step is deterministic, so two calls give bit-identical
+gradients.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from rt_tpu_torch import nearest_ops
+from rt_tpu_torch.bvh import traverse
 from rt_tpu_torch.camera import Camera
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.render import render_chunk
@@ -53,8 +55,9 @@ def get_params(scene: SceneData) -> SceneParams:
 
 def set_params(scene: SceneData, p: SceneParams) -> SceneData:
     """A new SceneData holding ``p``'s tensors and sharing every other
-    table with ``scene``, which is left as it was.  The sky keeps its
-    static fields (``hw_params``, ``cos_gamma_as_angle``)."""
+    table with ``scene`` (the cluster tables and the BVH too), which is
+    left as it was.  The sky keeps its static fields (``hw_params``,
+    ``cos_gamma_as_angle``)."""
     tables = {name: getattr(scene, name) for name in TABLES}
     tables.update(tex_color=p.tex_color, atlas=p.atlas, mat_fuzz=p.mat_fuzz, mat_ior=p.mat_ior)
     sky = scene.sky.replace(
@@ -67,6 +70,8 @@ def set_params(scene: SceneData, p: SceneParams) -> SceneData:
         num_spheres=scene.num_spheres,
         num_triangles=scene.num_triangles,
         has_image_textures=scene.has_image_textures,
+        clusters=scene.clusters,
+        bvh=scene.bvh,
         **tables,
     )
 
@@ -82,13 +87,15 @@ def pixel_loss(
     spp: int = 1,
     *,
     sphere_nearest=nearest_ops.sphere_nearest,
+    bvh_walk=traverse.bvh_walk,
 ) -> torch.Tensor:
     """MSE between rendered pixels and ``target`` f32[P,3], differentiable
     with respect to ``params`` through the bounces.  ``key`` is an rng.key;
-    ``sphere_nearest`` is K2 (see geometry)."""
+    ``sphere_nearest`` is K2 and ``bvh_walk`` the BVH walk (see
+    geometry)."""
     s = set_params(scene, params)
     colors = render_chunk(s, camera, pixel_idx, cfg, spp, 0, key, differentiable=True,
-                          sphere_nearest=sphere_nearest)
+                          sphere_nearest=sphere_nearest, bvh_walk=bvh_walk)
     return torch.mean((colors - target) ** 2)
 
 
@@ -102,6 +109,7 @@ def pixel_grad(
     spp: int = 1,
     *,
     sphere_nearest=nearest_ops.sphere_nearest,
+    bvh_walk=traverse.bvh_walk,
 ) -> tuple[torch.Tensor, SceneParams]:
     """(loss, dloss/dparams) at the scene's parameters, as
     ``jax.value_and_grad`` of ``pixel_loss`` gives them.  A leaf the loss
@@ -109,7 +117,7 @@ def pixel_grad(
     under a Hosek sky) gets zeros."""
     params = SceneParams(*(leaf.detach().requires_grad_() for leaf in get_params(scene)))
     loss = pixel_loss(params, scene, camera, cfg, pixel_idx, target, key, spp,
-                      sphere_nearest=sphere_nearest)
+                      sphere_nearest=sphere_nearest, bvh_walk=bvh_walk)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     return loss.detach(), SceneParams(*grads)

@@ -11,18 +11,22 @@ Reference behavior (material.rs), math as the JAX package computes it:
   direction, attenuation (1, 1, 1), the direction normalized.
 
 All three are evaluated for every lane and a select on the material tag
-picks the result.  The draws come from the counter hash keyed on (seed,
-work id, depth) (``scatter_hashed``), the streams ``fast_shade`` draws, so
-the wavefront's two paths agree per sample.  ``scatter``, which draws from
-``jax.random`` keys in the JAX package, is not ported yet.
+picks the result.  ``scatter_hashed`` draws from the counter hash keyed on
+(seed, work id, depth), the streams ``fast_shade`` draws, so the
+wavefront's two paths agree per sample; ``scatter``, the bounce of the
+chunked and gradient paths on generic scenes, draws from ``jax.random``'s
+stream under a per-bounce key (rng.random_uniform), as the JAX package
+does.  The math is differentiable with respect to the scene's parameter
+tables, with JAX's derivative rules at ties (``elementwise``) and
+deterministic backward gathers (``take_rows``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from rt_tpu_torch import rng
-from rt_tpu_torch.elementwise import div
+from rt_tpu_torch import rng, sampling
+from rt_tpu_torch.elementwise import div, maximum, minimum, take_rows
 from rt_tpu_torch.scene import MAT_LAMBERTIAN, MAT_METAL
 from rt_tpu_torch.textures import texture_value
 
@@ -49,10 +53,10 @@ def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 def refract(unit_d: torch.Tensor, n: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
     """Snell refraction (material.rs:53-60) of unit ``unit_d``; ``ratio``
     f32[..., 1]."""
-    cos_theta = torch.clamp(-_dot(unit_d, n), max=1.0)
+    cos_theta = minimum(-_dot(unit_d, n), 1.0)
     r_out_perp = (unit_d + n * cos_theta) * ratio
     perp_sq = _dot(r_out_perp, r_out_perp)
-    r_out_parallel = n * -torch.sqrt(torch.clamp(torch.abs(1.0 - perp_sq), min=1.0e-12))
+    r_out_parallel = n * -torch.sqrt(maximum(torch.abs(1.0 - perp_sq), 1.0e-12))
     return r_out_parallel + r_out_perp
 
 
@@ -76,13 +80,26 @@ def scatter_hashed(scene, rec, dir_in: torch.Tensor, seed: int, work, depth):
     return scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise)
 
 
+def scatter(scene, rec, dir_in: torch.Tensor, key):
+    """Scatter with ``jax.random`` draws under the per-bounce key ``key``
+    (rng.key data), as rt_tpu/materials.py:65-89 draws them: unit vectors
+    under fold_in(key, 1) and fold_in(key, 2), the Fresnel noise under
+    fold_in(key, 3).  Returns (attenuation f32[N, 3], scattered direction
+    f32[N, 3])."""
+    n, device = dir_in.shape[0], dir_in.device
+    u_lam = sampling.random_unit(rng.fold_in(key, 1), n, device)
+    u_fuzz = sampling.random_unit(rng.fold_in(key, 2), n, device)
+    noise = rng.random_uniform(rng.fold_in(key, 3), (n,), device=device)
+    return scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise)
+
+
 def scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise):
     """The BSDFs given drawn randoms: unit u_lam, u_fuzz f32[N, 3] and
     uniform noise f32[N].  ``rec`` is a geometry.HitRecord."""
     mat_id = torch.clamp(rec.material.to(torch.int64), 0, scene.mat_kind.shape[0] - 1)
     kind = scene.mat_kind[mat_id]
-    fuzz = scene.mat_fuzz[mat_id]
-    ior = scene.mat_ior[mat_id]
+    fuzz = take_rows(scene.mat_fuzz, mat_id)
+    ior = take_rows(scene.mat_ior, mat_id)
     tex_rgb = texture_value(scene, scene.mat_texture[mat_id], rec.uv, rec.point)
     normal = rec.normal
 
@@ -93,14 +110,14 @@ def scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise):
     metal_dir = reflect(dir_in, normal) + fuzz[:, None] * u_fuzz
 
     ri = torch.where(rec.front, div(1.0, ior), ior)[:, None]
-    unit_d = dir_in / torch.clamp(norm3(dir_in), min=1.0e-20)
-    cos_theta = torch.clamp(-_dot(unit_d, normal)[:, 0], max=1.0)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    unit_d = dir_in / maximum(norm3(dir_in), 1.0e-20)
+    cos_theta = minimum(-_dot(unit_d, normal)[:, 0], 1.0)
+    sin_theta = torch.sqrt(maximum(1.0 - cos_theta * cos_theta, 0.0))
     cannot_refract = ri[:, 0] * sin_theta > 1.0
     choose_reflect = cannot_refract | (schlick_reflectance(cos_theta, ri[:, 0]) > noise)
     refracted = refract(unit_d, normal, ri) + fuzz[:, None] * u_fuzz
     diel_dir = torch.where(choose_reflect[:, None], reflect(unit_d, normal), refracted)
-    diel_dir = diel_dir / torch.clamp(norm3(diel_dir), min=1.0e-20)
+    diel_dir = diel_dir / maximum(norm3(diel_dir), 1.0e-20)
 
     is_lam = (kind == MAT_LAMBERTIAN)[:, None]
     is_metal = (kind == MAT_METAL)[:, None]

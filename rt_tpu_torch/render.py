@@ -13,13 +13,15 @@ of the JAX package (rt_tpu/render.py):
   takes the megakernel where ``megakernel.eligible`` or
   ``megakernel.eligible_clustered`` holds and the wavefront otherwise;
 - ``wavefront=False``: the chunked megabatch, ``render_chunk`` over chunks
-  of pixels, each traced by ``integrator.trace_radiance`` with K2 as its
-  sphere search.  ``render_chunk(differentiable=True)`` is the gradient
-  path's renderer (grad.py).
+  of pixels, each traced by ``integrator.trace_radiance``: with K2 as its
+  sphere search on a scene with a shade table and no BVH, and with the
+  generic bounce (the BVH walk of csrc/bvh_walk.cu on a mesh) otherwise.
+  ``render_chunk(differentiable=True)`` is the gradient path's renderer
+  (grad.py).
 
 Both entry points run on the card unless the caller passes
-``device="cpu"``.  A scene a route cannot take (not ported yet) raises, as
-does a CUDA device on a machine without one.  Nothing falls back.
+``device="cpu"``.  A scene a route cannot take raises, as does a CUDA
+device on a machine without one.  Nothing falls back.
 
 The Mray/s metric follows the reference definition (window.rs:315-324):
 rays = spp * W * H camera samples (bounces NOT counted), divided by wall
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from rt_tpu_torch import megakernel, nearest_ops, rng
 from rt_tpu_torch import wavefront as wavefront_mod
+from rt_tpu_torch.bvh import traverse
 from rt_tpu_torch.camera import Camera, generate_rays_keyed
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.integrator import trace_radiance, trace_radiance_diff
@@ -63,12 +66,14 @@ def render_chunk(
     differentiable: bool = False,
     *,
     sphere_nearest=nearest_ops.sphere_nearest,
+    bvh_walk=traverse.bvh_walk,
 ) -> torch.Tensor:
     """Mean radiance f32[P,3] of ``spp`` samples for flat pixel ids
     ``pixel_idx`` int[P] (y * W + x) on the scene's device, samples
     [sample_offset, sample_offset + spp) (rt_tpu/render.py:29-63).  ``key``
     is an rng.key: the camera folds in 0xCA0 and the paths 0x7ACE, as in
-    JAX.  ``sphere_nearest`` is K2 (see geometry)."""
+    JAX.  ``sphere_nearest`` is K2 and ``bvh_walk`` the BVH walk (see
+    geometry)."""
     p = pixel_idx.shape[0]
     device = pixel_idx.device
     pix = pixel_idx.to(torch.int64).repeat_interleave(spp)
@@ -77,7 +82,8 @@ def render_chunk(
     org, dirn = generate_rays_keyed(camera, pix % width, pix // width, sample,
                                     rng.fold_in(key, 0xCA0), cfg.compat)
     trace = trace_radiance_diff if differentiable else trace_radiance
-    radiance = trace(scene, org, dirn, rng.fold_in(key, 0x7ACE), cfg, sphere_nearest)
+    radiance = trace(scene, org, dirn, rng.fold_in(key, 0x7ACE), cfg, sphere_nearest,
+                     bvh_walk=bvh_walk)
     return radiance.reshape(p, spp, 3).mean(dim=1)
 
 

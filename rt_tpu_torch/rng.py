@@ -18,6 +18,15 @@ The host-side keys of the JAX package's public API (``jax.random.key``,
 is the numpy ``uint32[2]`` that ``jax.random.key_data`` returns, and
 ``fold_in`` is threefry-2x32, so the hash seeds derived from a key are the
 JAX package's bit for bit.
+
+So is ``jax.random``'s own stream, which the chunked and gradient paths
+draw on generic scenes (materials.scatter, the Russian roulette of
+integrator._bounce_step, the defocus disc of camera.generate_rays_keyed):
+``random_bits``, ``random_uniform`` and ``split`` give ``jax.random.bits``,
+``jax.random.uniform`` and ``jax.random.split`` bit for bit, with JAX's
+default partitionable threefry: draw ``i`` of a shape is threefry-2x32 of
+the counter pair (0, i) under the key, vectorized over a tensor of
+counters on the caller's device.
 """
 
 from __future__ import annotations
@@ -37,9 +46,10 @@ _INV_24 = 5.9604645e-8  # 2^-24 as the f32 the JAX package multiplies by
 _THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
-    """Threefry-2x32 with 20 rounds on one counter pair (Salmon et al.
-    2011), as ``jax.random``'s default implementation computes it."""
+def _threefry2x32(k0: int, k1: int, x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), as
+    ``jax.random``'s default implementation computes it, on one counter
+    pair of python ints or elementwise on int64 tensors of u32 patterns."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0, x1 = (x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK
     for i in range(5):
@@ -67,6 +77,32 @@ def key_seed(k: np.ndarray) -> int:
     """The 32-bit hash seed the JAX package derives from a key: the last
     word of its data (wavefront._seed_from_key)."""
     return int(k[-1])
+
+
+def split(k: np.ndarray, n: int = 2) -> list[np.ndarray]:
+    """``jax.random.split(k, n)``: key j is threefry of the counter (0, j)."""
+    return [np.array(_threefry2x32(int(k[0]), int(k[1]), 0, j), np.uint32) for j in range(n)]
+
+
+def random_bits(k: np.ndarray, n: int, device=None) -> torch.Tensor:
+    """``jax.random.bits(k, (n,), uint32)`` as int64 u32 patterns: x0 ^ x1
+    of threefry of the counters (0, i), i < n."""
+    x1 = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = _threefry2x32(int(k[0]), int(k[1]), torch.zeros_like(x1), x1)
+    return x0 ^ x1
+
+
+def random_uniform(k: np.ndarray, shape, lo: float = 0.0, hi: float = 1.0,
+                   device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, lo, hi)``: the top 23 bits as
+    a mantissa in [1, 2), minus 1, scaled by f32(hi) - f32(lo), shifted by
+    lo, and floored at lo (row-major draws)."""
+    shape = tuple(shape)
+    bits = random_bits(k, math.prod(shape), device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo32, span = np.float32(lo), np.float32(hi) - np.float32(lo)
+    out = torch.clamp(f * float(span) + float(lo32), min=float(lo32))
+    return out.reshape(shape)
 
 
 def as_u32(x, device=None) -> torch.Tensor:

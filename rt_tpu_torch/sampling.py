@@ -4,11 +4,20 @@ The reference precomputes a Halton(2,3) table of 2^20 pairs indexed by
 *sample index only* (camera.rs:140-165, 208-210, 239); ``halton_pair(i)``
 equals its ``rng_map[i]`` and is computed in closed form instead.
 Integers travel as int64 holding u32 patterns (see rng.py).
+
+``random_unit`` and ``random_in_unit_disc`` are the geometric draws of the
+chunked and gradient paths (rt_tpu/sampling.py:101-119), on
+``jax.random``'s stream (rng.random_uniform) under a host key.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+from rt_tpu_torch import rng
 
 _MASK = 0xFFFFFFFF
 
@@ -52,3 +61,23 @@ def halton_pair(sample_index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     radical-inverse position."""
     pos = (sample_index.to(torch.int64) + 1) & _MASK
     return radical_inverse_base2(pos), radical_inverse(3, pos)
+
+
+def random_unit(key: np.ndarray, n: int, device=None) -> torch.Tensor:
+    """normalize(uniform([-1, 1]^3)) f32[n, 3]: the reference's slightly
+    non-uniform sphere distribution (vec3.rs:118-120), the norm floored at
+    1e-12."""
+    v = rng.random_uniform(key, (n, 3), -1.0, 1.0, device)
+    p = v * v
+    norm = torch.sqrt(p[:, 0:1] + p[:, 1:2] + p[:, 2:3])
+    return v / torch.clamp(norm, min=1.0e-12)
+
+
+def random_in_unit_disc(key: np.ndarray, n: int, device=None) -> torch.Tensor:
+    """Uniform points f32[n, 3] in the unit x-y disc, z = 0, by the polar
+    transform r = sqrt(u) (vec3.rs:124-135's distribution), with r and the
+    angle drawn under the two halves of ``rng.split(key)``."""
+    ku, kt = rng.split(key)
+    r = torch.sqrt(rng.random_uniform(ku, (n,), device=device))
+    theta = rng.random_uniform(kt, (n,), 0.0, 2.0 * math.pi, device)
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta), torch.zeros_like(r)], dim=-1)

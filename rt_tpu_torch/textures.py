@@ -10,14 +10,17 @@ Reference behavior (texture.rs):
   truncation (x = trunc(u * (w - 1))), no filtering, no wrap, no v-flip.
 
 Every lane evaluates the cheap paths and a select on the type tag picks the
-result.  The persistent wavefront's generic path uses it; scenes with a
-shade table shade through ``fast_shade`` instead.
+result.  The persistent wavefront's generic path and the chunked and
+gradient paths' generic bounce use it; scenes with a shade table shade
+through ``fast_shade`` there instead.  The colors and the atlas are read
+with ``take_rows``, so their gradients are deterministic.
 """
 
 from __future__ import annotations
 
 import torch
 
+from rt_tpu_torch.elementwise import take_rows
 from rt_tpu_torch.scene import TEX_CHECKER, TEX_IMAGE
 
 
@@ -36,7 +39,7 @@ def texture_value(scene, tex_id: torch.Tensor, uv: torch.Tensor, point: torch.Te
     child = torch.where(is_even, children[:, 0], children[:, 1])
     leaf_id = torch.clamp(torch.where(kind == TEX_CHECKER, child, tex_id), 0, n_tex - 1)
     leaf_kind = scene.tex_kind[leaf_id]
-    solid = scene.tex_color[leaf_id]
+    solid = take_rows(scene.tex_color, leaf_id)
 
     # Image fetch (texture.rs:107-118): clamp the UV, truncate to a texel.
     rect = scene.tex_rect[leaf_id].to(torch.int64)  # (x0, y0, w, h)
@@ -49,5 +52,5 @@ def texture_value(scene, tex_id: torch.Tensor, uv: torch.Tensor, point: torch.Te
     atlas = scene.atlas
     ax = torch.clamp(rect[:, 0] + x, 0, atlas.shape[1] - 1)
     ay = torch.clamp(rect[:, 1] + y, 0, atlas.shape[0] - 1)
-    image = atlas[ay, ax]
+    image = take_rows(atlas.reshape(-1, 3), ay * atlas.shape[1] + ax)
     return torch.where((leaf_kind == TEX_IMAGE)[:, None], image, solid)

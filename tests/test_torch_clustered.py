@@ -33,6 +33,7 @@ from rt_tpu import scene as jscene
 from rt_tpu.camera import make_camera as j_make_camera
 from rt_tpu.config import RenderConfig as JConfig
 from rt_tpu.megakernel import render_megakernel as j_render_megakernel
+from rt_tpu.render import render_pixel_colors as j_render_pixel_colors
 from rt_tpu.wavefront import _render_fast as j_render_fast
 from rt_tpu_torch import cluster_ops, megakernel, rng, wavefront
 from rt_tpu_torch import scene as tscene
@@ -203,13 +204,16 @@ def test_routing(monkeypatch):
 
 
 def test_bvh_scenes_refuse_the_unported_traversal():
-    """A scene with a BVH renders through K5 and K4, which need no BVH; the
-    routes on which the JAX package walks the BVH raise."""
+    """A scene with a BVH renders through K5 and K4, which need no BVH, and
+    the routes on which the JAX package walks the BVH (they raised while
+    the walk was not ported) walk it too: the chunked path matches JAX."""
+    js = cases.tri_cloud(jscene, n_tris=300, with_materials=False).build()
     ts = cases.tri_cloud(tscene, n_tris=300, with_materials=False).build()
     assert ts.bvh is not None
-    _, cfg = _cfgs(spp=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="BVH"):
-        render_pixel_colors(ts, _camera(make_camera), cfg, device="cpu", wavefront=False)
+    jcfg, cfg = _cfgs(spp=1, max_depth=2)
+    ref = np.asarray(j_render_pixel_colors(js, _camera(j_make_camera), jcfg, wavefront=False))
+    got = render_pixel_colors(ts, _camera(make_camera), cfg, device="cpu", wavefront=False)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-3, rtol=1e-3)
     names = {name for name, _ in ts.named_buffers()}
     assert {"clusters.shade_table", "clusters.pages.0.tri_slots", "bvh.prim_order"} <= names
 

@@ -104,11 +104,18 @@ def test_render_pixel_colors_chunked_matches_jax(cover):
 
 
 def test_defocus_camera_raises_on_the_chunked_path():
-    scene = scenes.gen_checkered()
-    cam = scenes.cam2(8, 6)
-    assert cam.defocus_on
-    with pytest.raises(NotImplementedError, match="defocus"):
-        render_chunk(scene, cam, torch.arange(4), RenderConfig(width=8, height=6), 1, 0, rng.key(0))
+    """A defocused camera on the chunked path.  It raised while the port
+    could not draw jax.random's thin-lens disc; it now draws it
+    (sampling.random_in_unit_disc) and matches the JAX package's
+    render_chunk."""
+    jcam, tcam = jscenes.cam2(8, 6), scenes.cam2(8, 6)
+    assert tcam.defocus_on
+    pix = np.arange(0, 48, 2, dtype=np.int32)
+    jcfg, tcfg = JConfig(width=8, height=6, max_depth=6), RenderConfig(width=8, height=6, max_depth=6)
+    ref = np.asarray(j_render_chunk(jscenes.gen_checkered(), jcam, jnp.asarray(pix), jcfg, 2,
+                                    jnp.int32(0), jax.random.key(0)))
+    got = render_chunk(scenes.gen_checkered(), tcam, torch.from_numpy(pix), tcfg, 2, 0, rng.key(0))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
 # -- gradients --------------------------------------------------------------------

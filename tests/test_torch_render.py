@@ -103,10 +103,12 @@ def test_import_loads_no_jax():
         "import rt_tpu_torch.wavefront, rt_tpu_torch.progressive, rt_tpu_torch.profiling\n"
         "import rt_tpu_torch.materials, rt_tpu_torch.textures, rt_tpu_torch.prim_ops\n"
         "import rt_tpu_torch.cluster, rt_tpu_torch.cluster_ops, rt_tpu_torch.io.obj_loader\n"
-        "import rt_tpu_torch.bvh.builder, rt_tpu_torch.bvh.native\n"
+        "import rt_tpu_torch.bvh.builder, rt_tpu_torch.bvh.native, rt_tpu_torch.bvh.traverse\n"
+        "import rt_tpu_torch.micro_probe, rt_tpu_torch.grad, rt_tpu_torch.sampling\n"
         "from rt_tpu_torch.bvh import native\n"
         "assert native.available(), 'the port builds its own BVH library'\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rt_tpu', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rt_tpu', 'flax', 'tools'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
