@@ -94,16 +94,27 @@ def _bounce_step(scene, cfg, state, bounce_key, depth: int, impl: str = "auto", 
     return org, dirn, throughput, radiance, cont
 
 
-def _generic_init(origins, directions):
+def _generic_trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest, bvh_walk):
+    """(step, initial state, radiance of a state) of the generic branch:
+    the state is (origins f32[N,3], directions f32[N,3], throughput
+    f32[N,3], radiance f32[N,3], alive bool[N]); bounce ``depth`` draws
+    under fold_in(key, depth)."""
     n, device = origins.shape[0], origins.device
-    return (origins, directions, torch.ones((n, 3), device=device),
+    init = (origins, directions, torch.ones((n, 3), device=device),
             torch.zeros((n, 3), device=device), torch.ones((n,), dtype=torch.bool, device=device))
+
+    def step(state, depth: int, max_depth: int):
+        step_cfg = cfg if max_depth == cfg.max_depth else cfg.replace(max_depth=max_depth)
+        return _bounce_step(scene, step_cfg, state, rng.fold_in(key, depth), depth, impl,
+                            sphere_nearest=sphere_nearest, bvh_walk=bvh_walk)
+
+    return step, init, lambda state: state[3]
 
 
 def _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest):
-    """(step, initial state) shared by both integrators: the state is
-    (rays f32[8,N], throughput rows f32[3,N], radiance rows f32[3,N],
-    alive bool[N])."""
+    """(step, initial state, radiance of a state) of the fast-shade branch:
+    the state is (rays f32[8,N], throughput rows f32[3,N], radiance rows
+    f32[3,N], alive bool[N])."""
     n = origins.shape[0]
     device = origins.device
     table = fast_shade.build_shade_table_diff(scene)
@@ -135,7 +146,18 @@ def _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest):
         rays = torch.where(cont[None, :], out["new_rays"], rays)
         return rays, tp, rad, cont
 
-    return step, init
+    return step, init, lambda state: state[2].T
+
+
+def _trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest, bvh_walk):
+    """(step, initial state, radiance of a state) of the branch the JAX
+    package takes for ``scene`` (rt_tpu/integrator.py:105, :160), shared by
+    both integrators: ``step(state, depth, max_depth)`` runs bounce
+    ``depth``, and the state's last entry is the alive mask."""
+    if _generic(scene):
+        return _generic_trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest,
+                                    bvh_walk)
+    return _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest)
 
 
 def trace_radiance(scene, origins, directions, key, cfg,
@@ -146,20 +168,13 @@ def trace_radiance(scene, origins, directions, key, cfg,
     not: it runs without gradients.  ``sphere_nearest`` (K2) and
     ``bvh_walk`` choose the kernels or their plain versions (geometry)."""
     with torch.no_grad():
-        if _generic(scene):
-            state = _generic_init(origins, directions)
-            depth = 0
-            while depth <= cfg.max_depth and bool(state[4].any()):
-                state = _bounce_step(scene, cfg, state, rng.fold_in(key, depth), depth,
-                                     sphere_nearest=sphere_nearest, bvh_walk=bvh_walk)
-                depth += 1
-            return state[3]
-        step, state = _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest)
+        step, state, radiance = _trace_setup(scene, origins, directions, key, cfg, "auto",
+                                             sphere_nearest, bvh_walk)
         depth = 0
-        while depth <= cfg.max_depth and bool(state[3].any()):
+        while depth <= cfg.max_depth and bool(state[-1].any()):
             state = step(state, depth, cfg.max_depth)
             depth += 1
-    return state[2].T
+    return radiance(state)
 
 
 def trace_radiance_diff(scene, origins, directions, key, cfg,
@@ -167,20 +182,11 @@ def trace_radiance_diff(scene, origins, directions, key, cfg,
                         bvh_walk=traverse.bvh_walk) -> torch.Tensor:
     """Differentiable radiance f32[N,3]: ``cfg.diff_max_depth + 1``
     checkpointed bounces."""
-    if _generic(scene):
-        diff_cfg = cfg.replace(max_depth=cfg.diff_max_depth)
-
-        def generic_step(state, depth):
-            return _bounce_step(scene, diff_cfg, state, rng.fold_in(key, depth), depth, "detached",
-                                sphere_nearest=sphere_nearest, bvh_walk=bvh_walk)
-
-        state = _generic_init(origins, directions)
-        for depth in range(cfg.diff_max_depth + 1):
-            state = checkpoint(generic_step, state, depth, use_reentrant=False,
-                               preserve_rng_state=False)
-        return state[3]
-    step, state = _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest)
+    # "detached": the winner search under no_grad on the generic branch,
+    # as rt_tpu/integrator.py:180 asks for it.
+    step, state, radiance = _trace_setup(scene, origins, directions, key, cfg, "detached",
+                                         sphere_nearest, bvh_walk)
     for depth in range(cfg.diff_max_depth + 1):
         state = checkpoint(step, state, depth, cfg.diff_max_depth,
                            use_reentrant=False, preserve_rng_state=False)
-    return state[2].T
+    return radiance(state)
