@@ -179,24 +179,33 @@ def _angles(params: SkyParams, direction: torch.Tensor):
 
 def sky_radiance_rgb(params: SkyParams, direction: torch.Tensor) -> torch.Tensor:
     """Linear-sRGB HDR sky radiance (pre-tonemap), exposure-scaled, for
-    unit ``direction`` f32[..., 3]."""
+    unit ``direction`` f32[..., 3].
+
+    The sky's differentiable tensors are moved to the direction's device and
+    every step runs there.  Autograd runs a graph's CPU nodes and its CUDA
+    nodes on two threads, and adds the contributions to a shared input in
+    the order they arrive; a sky graph with nodes on both devices therefore
+    gave two backward passes gradients that differed in the last bits."""
+    dev = direction.device
     sun, cos_theta, gamma, cos_gamma = _angles(params, direction)
+    exposure = params.exposure.to(dev)
     if params.hw_params is not None:
         r, g, b = hosek_radiance_rgb(params.hw_params, cos_theta, gamma, cos_gamma)
-        rgb = torch.stack([r, g, b], dim=-1) * params.exposure
+        rgb = torch.stack([r, g, b], dim=-1) * exposure
         return torch.clamp(rgb, min=0.0)
-    sun = sun.cpu()
+    turbidity = params.turbidity.to(dev)
     theta_s = _safe_arccos(torch.clamp(sun[2], 0.0, 1.0))
     cos_theta_s = torch.cos(theta_s)
-    coef_y, coef_x, coef_yc = perez_coefficients(params.turbidity)
-    yz, xz, yz_c = zenith_values(params.turbidity, theta_s)
+    coef_y, coef_x, coef_yc = perez_coefficients(turbidity)
+    yz, xz, yz_c = zenith_values(turbidity, theta_s)
+    one = torch.tensor(1.0, device=dev)
 
     def channel(coef, zenith):
         num = _perez(coef, cos_theta, gamma, cos_gamma)
-        den = _perez(coef, torch.tensor(1.0), theta_s, cos_theta_s)
+        den = _perez(coef, one, theta_s, cos_theta_s)
         return zenith * num / den
 
-    y_lum = torch.clamp(channel(coef_y, yz), min=0.0) * params.exposure
+    y_lum = torch.clamp(channel(coef_y, yz), min=0.0) * exposure
     x_c = channel(coef_x, xz)
     y_c = torch.clamp(channel(coef_yc, yz_c), min=1.0e-6)
     big_x = x_c / y_c * y_lum

@@ -34,6 +34,7 @@ from rt_tpu_torch.bvh import traverse
 from rt_tpu_torch.config import CompatConfig, RenderConfig
 from rt_tpu_torch.render import render_pixel_colors
 from rt_tpu_torch.scene import SceneBuilder
+from rt_tpu_torch.sky import SkyParams
 
 torch.set_num_threads(2)
 W, H = 16, 12
@@ -120,6 +121,47 @@ def test_pixel_grad_matches_jax(jax_grads, name):
     assert float(g.tex_color.abs().max()) > 0 and float(g.sky_exposure.abs()) > 0
     # Forward and the checkpointed recompute walk each bounce once.
     assert len(walks) == (2 * (depth + 1) if name == "mesh" else 0)
+
+
+@pytest.mark.parametrize("sky", ["perez", "hosek"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_gradient_graph_stays_on_the_rays_device(name, sky):
+    """Every node of pixel_loss's autograd graph runs on the scene's device
+    (here ``meta``, standing in for a card, with stand-ins for the walk and
+    K2); only the gradient accumulators of the sky's CPU leaves are on the
+    CPU.  Autograd runs CPU and CUDA nodes on two threads: a mixed graph
+    adds a shared input's contributions in arrival order and may recompute
+    a checkpointed bounce on either thread, so two backward passes could
+    differ."""
+    factory, depth, spp = CASES[name]
+    _, tcfg = _cfgs(depth)
+    scene = factory(SceneBuilder)
+    if sky == "hosek":
+        scene.sky = SkyParams.hosek_reference()
+    scene.to("meta")
+
+    def walk(scene, org, dirn, *_):
+        n = org.shape[0]
+        return torch.zeros(n, device=org.device), torch.zeros(n, dtype=torch.int32,
+                                                              device=org.device)
+
+    params = grad.SceneParams(*(leaf.detach().requires_grad_() for leaf in grad.get_params(scene)))
+    loss = grad.pixel_loss(params, scene, scenes.cam1(W, H), tcfg,
+                           torch.arange(W * H, device="meta"), torch.zeros((W * H, 3), device="meta"),
+                           rng.key(0), spp, sphere_nearest=walk, bvh_walk=walk)
+    seen, stack, cpu_leaves = set(), [loss.grad_fn], 0
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "AccumulateGrad":
+            cpu_leaves += node.variable.device.type == "cpu"
+            continue
+        devices = {m.device.type for m in node._input_metadata}
+        assert devices == {"meta"}, (node.name(), devices)
+        stack.extend(fn for fn, _ in node.next_functions)
+    assert cpu_leaves == (3 if sky == "perez" else 2)  # a Hosek sky reads no turbidity
 
 
 def test_mesh_autograd_matches_finite_differences():

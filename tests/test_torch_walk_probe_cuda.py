@@ -1,5 +1,7 @@
 """The BVH walk kernel (csrc/bvh_walk.cu) and K6's kernels
-(csrc/micro_probe.cu) against their plain PyTorch versions on the card.
+(csrc/micro_probe.cu) against their plain PyTorch versions on the card,
+and repeats of pixel_grad on the config-3 blob (through the walk kernel)
+bit-identical to a first call.
 
 This file imports nothing of JAX, so it also runs where the JAX package
 does not import.  Every test is ``cuda``-marked and skips without a card.
@@ -76,6 +78,41 @@ def test_cuda_walk_kernel_matches_plain_walk(name, tmp_path):
         assert traverse.LAUNCHES["bvh_walk"] == before + 1
         assert int((want[1] >= 0).sum()) > (100 if t_max > 1e30 else 0)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_cuda_mesh_pixel_grad_repeats_bit_identical(tmp_path, repeats=10):
+    """pixel_grad on the config-3 blob (tools/gen_fixtures' default mesh and
+    the area light, 99,908 triangles) at 800x450, every pixel at 1 spp,
+    diff_max_depth 6: every repeat equal to the first, bit for bit, in the
+    loss and every leaf.  Prints the leaves of each repeat that differ."""
+    from tools.gen_fixtures import make_obj_mesh
+
+    from rt_tpu_torch import grad, rng
+    from rt_tpu_torch.camera import make_camera
+    from rt_tpu_torch.config import RenderConfig
+
+    path = str(tmp_path / "blob.obj")
+    make_obj_mesh(path)
+    scene = tscenes.mesh_with_area_light(path).to("cuda")
+    w, h = 800, 450
+    camera = make_camera((5.5, -5.5, 2.2), (0.0, 0.0, 1.0), (0.0, 0.0, 1.0),
+                         focus_distance=float((2 * 5.5 * 5.5 + 1.2 ** 2) ** 0.5),
+                         defocus_angle=0.0, image_width=w, image_height=h, vertical_fov=32.0)
+    cfg = RenderConfig(width=w, height=h, diff_max_depth=6)
+    args = (scene, camera, cfg, torch.arange(w * h, device="cuda"),
+            torch.zeros((w * h, 3), device="cuda"), rng.key(0))
+    loss, g = grad.pixel_grad(*args)
+    assert bool(torch.isfinite(loss)) and loss.item() > 0
+    differ = {}
+    for rep in range(1, repeats + 1):
+        loss_r, g_r = grad.pixel_grad(*args)
+        leaves = [k for k, a, b in zip(g._fields, g, g_r) if not torch.equal(a, b)]
+        leaves += [] if torch.equal(loss, loss_r) else ["loss"]
+        if leaves:
+            differ[rep] = leaves
+    print(f"pixel_grad on the blob: {len(differ)} of {repeats} repeats differ from the first "
+          f"{differ}")
+    assert not differ
 
 
 @pytest.mark.parametrize("mode", mp.MODES)
