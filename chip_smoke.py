@@ -28,8 +28,11 @@ the launch counts set to 0 just before and read just after:
 - mesh scenes (BASELINE config 3: ``mesh_with_area_light`` of a 99,908-
   triangle closed mesh, and 3b, a 100,356-triangle height field, at
   800x450 and max depth 16, with 8 samples per pixel in place of the
-  config's 64): ``render_image`` through K5, the wavefront through K4, one
-  progressive pass with the "mega" engine, and the CLI's ``obj:`` scene;
+  config's 64): ``render_image`` through K5, the wavefront through K4 (one
+  launch per iteration), one progressive pass with the "mega" engine, and
+  the CLI's ``obj:`` scene; K4/K4b and K5 are held against their plain
+  versions in both variants of their walk (boxes in shared and in global
+  memory) and on the tie scene of tests/test_torch_walk_order.py;
 - the primitives probe (``python -m rt_tpu_torch.micro_probe all``), K6:
   ns per unit of each body and each gather mode;
 - the blob's BVH through the walk kernel: ``grad.pixel_grad`` at 800x450,
@@ -799,12 +802,33 @@ def mesh_rays(scene, camera, cfg, n: int, dev):
     return rays
 
 
+def tie_cases():
+    """The tie scene and its rays of tests/test_torch_walk_order.py (port
+    only, no JAX): equal t within a cluster and across clusters and supers.
+    By path, since another installed package may be named "tests"."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_walk_order as walk_order
+
+    return walk_order.tie_scene, walk_order.tie_rays
+
+
+def equal(got, ref) -> bool:
+    """Two tuples of tensors equal bit for bit."""
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
+
+
 def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
-    """K4 (per page, as the wavefront launches it) and K4b (the whole
-    tables) against their plain versions on ``n`` rays of the config-3 blob
-    frame: t and slot ids bit for bit on every ray, culling on and off.
-    Returns, for K4 (one intersect: every page) and K4b, (max |d t|, kernel
-    ms, plain ms, bound ms, bound_by)."""
+    """K4 and K4b against their plain versions, bit for bit (t and slot ids
+    on every ray), culling on and off, in both variants (boxes staged in
+    shared memory, and from global memory with the box budget forced to 0):
+    on ``n`` rays of the config-3 blob frame, over the whole tables (K4 as
+    the wavefront launches it, and K4b) and per cluster page (K4 with the
+    page's slot bases; the pages merged equal the whole tables); and on the
+    tie scene's rays.  Returns, for K4 (one wavefront intersect: one launch
+    over the whole tables) and K4b, (max |d t|, kernel ms, plain ms, bound
+    ms, bound_by)."""
     import torch
 
     from rt_tpu_torch import cluster_ops, megakernel as mk
@@ -814,79 +838,85 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     whole = mk.cluster_tables(cl)
     pages = [(mk.cluster_tables(p), p.sph_slot_base, p.tri_slot_base) for p in cl.pages]
     ns = cl.n_sph_slots
-    for cull in (True, False):
+    budgets = {"shared": cluster_ops.BOX_BUDGET, "global": 0}
+    check(cluster_ops.staged(whole, cluster_ops.BOX_BUDGET) == "shared",
+          "the blob's boxes do not fit the default box budget")
+    tie_scene, tie_rays = tie_cases()
+    tie = tie_scene().clusters.to(dev)
+    t_rays = tie_rays().to(dev)
+    t_whole = mk.cluster_tables(tie)
+    # The plain walk at the frame's culling counts its work and is timed.
+    work, k4_plain_ms = {}, 0.0
+    for cull in (cfg.compat.triangle_backface_cull, not cfg.compat.triangle_backface_cull):
         args = (ns, cfg.t_min, cfg.t_max, cull)
-        got = cluster_ops.cluster_nearest(rays, *whole, *args)
-        ref = cluster_ops.cluster_nearest_plain(rays, *whole, *args)
-        same = all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
-        merged_k = merged_p = None
+        counting = cull == cfg.compat.triangle_backface_cull
+        sync(dev)
+        t0 = time.perf_counter()
+        ref = cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work if counting else None)
+        sync(dev)
+        k4_plain_ms = (time.perf_counter() - t0) * 1e3 if counting else k4_plain_ms
+        t_ref = cluster_ops.cluster_nearest_plain(t_rays, *t_whole, tie.n_sph_slots, cfg.t_min,
+                                                  cfg.t_max, cull)
+        same = {}
+        for variant, budget in budgets.items():
+            same[variant] = all(
+                equal(fn(rays, *whole, *args, box_budget=budget), ref)
+                and equal(fn(t_rays, *t_whole, tie.n_sph_slots, cfg.t_min, cfg.t_max, cull,
+                             box_budget=budget), t_ref)
+                for fn in (cluster_ops.cluster_worklist_nearest, cluster_ops.cluster_nearest))
+        pages_same, merged_k, merged_p = True, None, None
         for tables, s_base, t_base in pages:
             k = cluster_ops.cluster_worklist_nearest(rays, *tables, *args, s_base, t_base)
             p = cluster_ops.cluster_nearest_plain(rays, *tables, *args, s_base, t_base)
-            same = same and all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+            pages_same = pages_same and equal(k, p)
             if merged_k is None:
                 merged_k, merged_p = k, p
             else:
                 merged_k = [torch.where(k[0] < merged_k[0], a, b) for a, b in zip(k, merged_k)]
                 merged_p = [torch.where(p[0] < merged_p[0], a, b) for a, b in zip(p, merged_p)]
-        paged_same = all(bool(torch.equal(a, b)) for a, b in zip(merged_k, ref))
+        paged_same = equal(merged_k, ref) and equal(merged_p, ref)
         hit = ref[1] >= 0
         print(f"[K4] {n} rays (camera + first bounce) x {scene.num_triangles} triangles, cull "
-              f"{cull}: K4b and every K4 page equal to plain {same}; the {len(pages)} pages merged "
-              f"equal to the whole tables {paged_same}; hits {int(hit.sum())}")
-        check(same and paged_same and int(hit.sum()) > n // 4,
+              f"{cull}: K4 and K4b over the whole tables equal to plain, boxes in shared memory "
+              f"{same['shared']}, in global memory {same['global']}; every K4 page equal to "
+              f"plain {pages_same}; the {len(pages)} pages merged equal to the whole tables "
+              f"{paged_same}; hits {int(hit.sum())}; the tie scene's {t_rays.shape[1]} rays "
+              f"(hits {int((t_ref[1] >= 0).sum())}) in both")
+        check(all(same.values()) and pages_same and paged_same and int(hit.sum()) > n // 4,
               "K4/K4b: kernel and plain version disagree")
     args = (ns, cfg.t_min, cfg.t_max, cfg.compat.triangle_backface_cull)
-
-    def intersect(fn):
-        return [fn(rays, *tables, *args, s_base, t_base) for tables, s_base, t_base in pages]
-
-    _, k4_ms = timer(lambda: intersect(cluster_ops.cluster_worklist_nearest), 5)
-    _, k4_plain_ms = timer(lambda: intersect(cluster_ops.cluster_nearest_plain), 1)
+    _, k4_ms = timer(lambda: cluster_ops.cluster_worklist_nearest(rays, *whole, *args), 5)
     _, k4b_ms = timer(lambda: cluster_ops.cluster_nearest(rays, *whole, *args), 5)
-    _, k4b_plain_ms = timer(lambda: cluster_ops.cluster_nearest_plain(rays, *whole, *args), 1)
-    work_b, work_4 = {}, {}
-    cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work_b)
-    for tables, s_base, t_base in pages:
-        cluster_ops.cluster_nearest_plain(rays, *tables, *args, s_base, t_base, work=work_4)
-    page_supers = sum(t[0].shape[0] + t[3].shape[0] for t, _, _ in pages)
-    k4_bound = walk_bound(work_4, walk_bytes(work_4, n, page_supers))
-    k4b_bound = walk_bound(work_b, walk_bytes(work_b, n, whole[0].shape[0] + whole[3].shape[0]))
-    print(f"[K4] walk work on these rays (tests; supers and clusters entered): whole tables "
-          f"{walk_counts(work_b)}, the {len(pages)} pages {walk_counts(work_4)}")
-    # Coherent against incoherent rays: K4b's time per test of the walk on
-    # each half alone (a warp runs the union of its rays' walks).
+    _, k4_global_ms = timer(
+        lambda: cluster_ops.cluster_worklist_nearest(rays, *whole, *args, box_budget=0), 5)
+    _, pages_ms = timer(lambda: [cluster_ops.cluster_worklist_nearest(rays, *t, *args, sb, tb)
+                                 for t, sb, tb in pages], 5)
+    k4_bound = walk_bound(work, walk_bytes(work, n, whole[0].shape[0] + whole[3].shape[0]))
+    print(f"[K4] walk work on these rays (tests; supers and clusters entered): "
+          f"{walk_counts(work)}; boxes {cluster_ops.box_bytes(whole)} B")
+    print(f"[K4] one launch over the whole tables: {k4_ms:.4f} ms with the boxes in shared "
+          f"memory, {k4_global_ms:.4f} ms in global memory; the {len(pages)} page launches "
+          f"together {pages_ms:.4f} ms")
+    # Coherent against incoherent rays, and four times the rays.
+    tests = walk_tests(work)
     for label, part in (("camera rays", rays[:, : n // 2]), ("first bounces", rays[:, n // 2 :])):
         part = part.contiguous()
-        work = {}
-        cluster_ops.cluster_nearest_plain(part, *whole, *args, work=work)
+        w = {}
+        cluster_ops.cluster_nearest_plain(part, *whole, *args, work=w)
         _, ms = timer(lambda: cluster_ops.cluster_nearest(part, *whole, *args), 5)
-        tests = walk_tests(work)
-        print(f"[K4] {label} alone ({n // 2}): K4b {ms:.4f} ms, walk work {walk_counts(work)}, "
-              f"{ms * 1e6 / max(tests, 1):.3f} ns per test")
-    # Occupancy: the same rays four times over fill four times the warps
-    # per SM with the same work per ray.
-    tests = walk_tests(work_b)
+        print(f"[K4] {label} alone ({n // 2}): K4b {ms:.4f} ms, walk work {walk_counts(w)}, "
+              f"{ms * 1e6 / max(walk_tests(w), 1):.4f} ns per test")
     four = rays.repeat(1, 4)
     _, ms4 = timer(lambda: cluster_ops.cluster_nearest(four, *whole, *args), 5)
     print(f"[K4] K4b on the rays four times over ({4 * n}): {ms4:.4f} ms, "
-          f"{ms4 * 1e6 / (4 * tests):.3f} ns per test (at {n}: "
-          f"{k4b_ms * 1e6 / tests:.3f})")
-    return (0.0, k4_ms, k4_plain_ms, *k4_bound), (0.0, k4b_ms, k4b_plain_ms, *k4b_bound)
+          f"{ms4 * 1e6 / (4 * tests):.4f} ns per test (at {n}: {k4b_ms * 1e6 / tests:.4f})")
+    return (0.0, k4_ms, k4_plain_ms, *k4_bound), (0.0, k4b_ms, k4_plain_ms, *k4_bound)
 
 
-def k5_phase(dev, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
-             run_len: int = 16):
-    """K5 against its plain version, bit for bit: the 32x24 triangle-cloud
-    and image-textured triangle scenes of tests/test_megakernel_cluster.py,
-    and the config-3 blob frame.  ``frame`` is K5's full-frame launch at
-    ``cfg``'s spp (``frame_ms`` per launch); its pixels are independent, so
-    ``runs`` runs of ``run_len`` pixels spread down the frame's diagonal are
-    held against render_megakernel_plain on the same pixels at the same
-    spp.  The plain walk counts its tests on those pixels, scaled to the
-    frame, and the clusters and shade rows they touch: the frame's least
-    time.  Returns (max |d|, frame ms, plain ms on the runs, bound ms,
-    bound_by)."""
+def k5_small_phase(dev):
+    """K5 against its plain version, bit for bit, in both variants: the
+    32x24 triangle-cloud and image-textured triangle scenes of
+    tests/test_megakernel_cluster.py, and the tie scene seen from above."""
     import torch
 
     from rt_tpu_torch import cluster_ops, megakernel as mk
@@ -899,15 +929,39 @@ def k5_phase(dev, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import torch_cluster_cases as cases
 
-    small_cam = make_camera((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=0.0,
-                            image_width=32, image_height=24, vertical_fov=30.0)
+    tie_scene, _ = tie_cases()
+    side = make_camera((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=0.0,
+                       image_width=32, image_height=24, vertical_fov=30.0)
+    down = make_camera((0.5, -3.5, 5.0), (0.0, 0.0, 0.5), (0, 0, 1), focus_distance=6.0,
+                       defocus_angle=0.0, image_width=32, image_height=24, vertical_fov=60.0)
     small_cfg = RenderConfig(width=32, height=24, samples_per_pixel=2, max_depth=6)
-    for name, factory in (("triangle cloud", cases.tri_cloud), ("image triangles", cases.image_tris)):
-        small = factory(tscene).build().to(dev)
-        got = mk.render_megakernel(small, small_cam, small_cfg, 2, 0, 0)
-        ref = mk.render_megakernel_plain(small, small_cam, small_cfg, 2, 0, 0)
-        print(f"[K5] {name} 32x24 2 spp depth 6: equal to plain {bool(torch.equal(got, ref))}")
-        check(bool(torch.equal(got, ref)), f"K5 {name}: kernel and plain version disagree")
+    for name, build, cam in (("triangle cloud", lambda: cases.tri_cloud(tscene).build(), side),
+                             ("image triangles", lambda: cases.image_tris(tscene).build(), side),
+                             ("tie scene", tie_scene, down)):
+        small = build().to(dev)
+        ref = mk.render_megakernel_plain(small, cam, small_cfg, 2, 0, 0)
+        same = {v: bool(torch.equal(mk.render_megakernel(small, cam, small_cfg, 2, 0, 0,
+                                                         box_budget=b), ref))
+                for v, b in (("shared", cluster_ops.BOX_BUDGET), ("global", 0))}
+        print(f"[K5] {name} 32x24 2 spp depth 6: equal to plain, boxes in shared memory "
+              f"{same['shared']}, in global memory {same['global']}; mean {float(ref.mean()):.4f}")
+        check(all(same.values()), f"K5 {name}: kernel and plain version disagree")
+
+
+def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
+             run_len: int = 16):
+    """K5 against its plain version, bit for bit, on a config-3 frame.
+    ``frame`` is K5's full-frame launch at ``cfg``'s spp (``frame_ms`` per
+    launch); its pixels are independent, so ``runs`` runs of ``run_len``
+    pixels spread down the frame's diagonal are held against
+    render_megakernel_plain on the same pixels at the same spp, and so is a
+    full-frame launch of the global-memory variant.  The plain walk counts
+    its tests on those pixels, scaled to the frame, and the clusters and
+    shade rows they touch: the frame's least time.  Returns (max |d|, frame
+    ms, plain ms on the runs, bound ms, bound_by)."""
+    import torch
+
+    from rt_tpu_torch import cluster_ops, megakernel as mk
 
     w, h, spp = camera.image_width, camera.image_height, cfg.samples_per_pixel
     work, winners = {}, set()
@@ -920,9 +974,11 @@ def k5_phase(dev, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
         winners.update(slot[slot >= 0].unique().tolist())
         return t, slot
 
+    global_frame, global_ms = timed_cuda(
+        lambda: mk.render_megakernel(scene, camera, cfg, spp, 0, cfg.seed, box_budget=0), 3)
     bases = [(h * (2 * k + 1) // (2 * runs)) * w + (w - run_len) * k // (runs - 1)
              for k in range(runs)]
-    err, same, refs, plain_ms = 0.0, True, [], 0.0
+    err, same, same_global, refs, plain_ms = 0.0, True, True, [], 0.0
     for base in bases:
         sync(dev)
         t0 = time.perf_counter()
@@ -933,15 +989,18 @@ def k5_phase(dev, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
         got = frame[base : base + run_len]
         err = max(err, float((got - ref).abs().max()))
         same = same and bool(torch.equal(got, ref))
+        same_global = same_global and bool(torch.equal(global_frame[base : base + run_len], ref))
         refs.append(ref)
     refs = torch.cat(refs)
     n_sample = runs * run_len
-    print(f"[K5] config-3 blob {w}x{h} {spp} spp depth {cfg.max_depth}: the full-frame launch "
+    print(f"[K5] config-3 {name} {w}x{h} {spp} spp depth {cfg.max_depth}: the full-frame launch "
           f"against plain on {runs} runs of {run_len} pixels down the diagonal (first pixels "
-          f"{bases}): equal {same}, max|d| {err:.3e}, sample mean {float(refs.mean()):.4f}; "
-          f"walk work {walk_counts(work)}, {len(winners)} distinct winners")
-    check(same and bool(torch.isfinite(refs).all()) and float(refs.mean()) > 0.01,
-          "K5: kernel and plain version disagree on the blob frame")
+          f"{bases}): equal {same}, the global-memory variant's frame ({global_ms:.4f} ms a "
+          f"launch, mean of 3) equal {same_global}, max|d| {err:.3e}, sample mean "
+          f"{float(refs.mean()):.4f}; walk work "
+          f"{walk_counts(work)}, {len(winners)} distinct winners")
+    check(same and same_global and bool(torch.isfinite(refs).all()) and float(refs.mean()) > 0.01,
+          f"K5: kernel and plain version disagree on the {name} frame")
     cl = scene.clusters
     nbytes = (walk_bytes(work, 0, cl.sph_super.shape[0] + cl.tri_super.shape[0])
               + 4 * cl.shade_table.shape[0] * len(winners) + 12 * w * h)
@@ -964,11 +1023,12 @@ def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
                        max_depth=MESH_DEPTH)
     frames, runs = {}, {}
     mk.LAUNCHES_CLUSTERED = 0
+    mk.CLUSTERED_VARIANT_LAUNCHES.update({"shared": 0, "global": 0})
     for name, scene in scenes_.items():
         img, m = render_image(scene, camera, cfg, device=dev)
         again, m2 = render_image(scene, camera, cfg, device=dev)
         runs[name] = (img, m, again, m2)
-    launches = mk.LAUNCHES_CLUSTERED
+    launches, variants = mk.LAUNCHES_CLUSTERED, dict(mk.CLUSTERED_VARIANT_LAUNCHES)
     kernel_ms = {}
     for name, (img, m, again, m2) in runs.items():
         print(f"[config3] {name} {MESH_W}x{MESH_H} {MESH_SPP} spp (the config's 64 cut to "
@@ -980,18 +1040,19 @@ def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
         check(np.array_equal(img, again), f"{name}: two render_image frames differ")
         scene = scenes_[name]
         frames[name], kernel_ms[name] = timer(
-            lambda: mk.render_megakernel(scene, camera, cfg, MESH_SPP, 0, cfg.seed), 3)
+            lambda: mk.render_megakernel(scene, camera, cfg, MESH_SPP, 0, cfg.seed), 5)
         rays = MESH_SPP * MESH_W * MESH_H
-        print(f"[config3] {name}: K5 {kernel_ms[name]:.3f} ms per launch (CUDA events, mean of 3 "
+        print(f"[config3] {name}: K5 {kernel_ms[name]:.3f} ms per launch (CUDA events, mean of 5 "
               f"after a warm-up), {rays / kernel_ms[name] / 1e3:.3f} Mray/s in the kernel")
-    print(f"[config3] K5 launches during the render_image frames: {launches}")
-    check(launches == 2 * len(scenes_), "the config-3 frames did not go through K5")
+    print(f"[config3] K5 launches during the render_image frames: {launches} {variants}")
+    check(launches == variants["shared"] == 2 * len(scenes_),
+          "the config-3 frames did not go through K5 with its boxes in shared memory")
     return launches, kernel_ms, frames
 
 
 def mesh_wavefront_phase(dev, scene, spp: int = 2):
     """The blob frame at ``spp`` through render_pixel_colors with renderer
-    "wavefront": K4 launches equal to pages x iterations, and the image
+    "wavefront": one K4 launch per iteration, and the image
     against K5's image of the same frame (the same hash streams).  Returns
     (K4 launches by name, wavefront counts, wall s)."""
     import numpy as np
@@ -1011,12 +1072,11 @@ def mesh_wavefront_phase(dev, scene, spp: int = 2):
     img = render_pixel_colors(scene, camera, cfg, device=dev).cpu().numpy()
     seconds = time.perf_counter() - t0
     launches, counts = dict(cluster_ops.LAUNCHES), dict(wavefront.COUNTS)
-    pages = len(scene.clusters.pages)
     print(f"[wavefront-mesh] blob {MESH_W}x{MESH_H} {spp} spp depth {MESH_DEPTH}: {seconds:.4f} s, "
           f"{spp * MESH_W * MESH_H / seconds / 1e6:.3f} Mray/s; iterations {counts['iterations']}, "
-          f"ray segments {counts['segments']}, K4 launches {launches} ({pages} pages)")
-    check(launches["cluster_worklist_nearest"] == pages * counts["iterations"] > 0,
-          "the clustered wavefront did not go through K4 once per page per iteration")
+          f"ray segments {counts['segments']}, K4 launches {launches}")
+    check(launches["cluster_worklist_nearest"] == counts["iterations"] > 0,
+          "the clustered wavefront did not go through K4 once per iteration")
     k5 = mk.render_megakernel(scene, camera, cfg, spp, 0, rng.key_seed(rng.key(cfg.seed)))
     k5 = k5.reshape(MESH_H, MESH_W, 3).cpu().numpy()
     d = np.abs(img - k5)
@@ -1594,9 +1654,9 @@ def main() -> int:
 
     # -- 17. K4/K4b kernel vs plain on the card ------------------------------------------
     k4, k4b = cluster_phase(dev, blob, mesh_camera, mesh_cfg, timed_cuda)
-    print(f"[time] K4 cluster_worklist_nearest, 65536 rays x the blob's {len(blob.clusters.pages)} "
-          f"pages (one wavefront intersect) on {card}: kernel {k4[1]:.4f} ms, plain {k4[2]:.2f} ms, "
-          f"bound {k4[3]:.4f} ms (CUDA events, mean of 5 after a warm-up; plain: one run after one)")
+    print(f"[time] K4 cluster_worklist_nearest, 65536 rays x the blob's whole tables (one "
+          f"wavefront intersect) on {card}: kernel {k4[1]:.4f} ms, plain {k4[2]:.2f} ms, "
+          f"bound {k4[3]:.4f} ms (CUDA events, mean of 5 after a warm-up; plain: its first run, wall)")
     print(f"[time] K4b cluster_nearest, the same rays x the whole tables on {card}: kernel "
           f"{k4b[1]:.4f} ms, plain {k4b[2]:.2f} ms, bound {k4b[3]:.4f} ms")
 
@@ -1605,10 +1665,14 @@ def main() -> int:
         dev, card, {"blob": blob, "heightfield": heightfield}, timed_cuda)
 
     # -- 19. K5 kernel vs plain on the card -----------------------------------------------
-    k5 = k5_phase(dev, blob, mesh_camera, mesh_cfg, k5_frames["blob"], k5_frame_ms["blob"])
-    print(f"[time] K5 megakernel_clustered, the config-3 blob frame ({MESH_W}x{MESH_H}, "
-          f"{MESH_SPP} spp) on {card}: kernel {k5[1]:.4f} ms per launch, plain {k5[2]:.1f} ms "
-          f"(wall) on 144 of its pixels, bound {k5[3]:.4f} ms for the frame")
+    k5_small_phase(dev)
+    k5 = k5_phase(dev, "blob", blob, mesh_camera, mesh_cfg, k5_frames["blob"], k5_frame_ms["blob"])
+    k5_hf = k5_phase(dev, "heightfield", heightfield, mesh_camera, mesh_cfg,
+                     k5_frames["heightfield"], k5_frame_ms["heightfield"])
+    for name, r in (("blob", k5), ("heightfield", k5_hf)):
+        print(f"[time] K5 megakernel_clustered, the config-3 {name} frame ({MESH_W}x{MESH_H}, "
+              f"{MESH_SPP} spp) on {card}: kernel {r[1]:.4f} ms per launch, plain {r[2]:.1f} ms "
+              f"(wall) on 144 of its pixels, bound {r[3]:.4f} ms for the frame by {r[4]}")
 
     # -- 20. the wavefront on K4 -------------------------------------------------------------
     k4_launches, mesh_wf_counts, mesh_wf_s = mesh_wavefront_phase(dev, blob)
@@ -1648,7 +1712,7 @@ def main() -> int:
     # -- 26. result -------------------------------------------------------------------
     check(all(math.isfinite(v) for v in (bench_err, kernel_ms, plain_ms, k2_ms, k2_plain_ms,
                                           k2b_ms, k2b_plain_ms, *k3[:4], *k3b[:4], wf_s,
-                                          *k4[:4], *k4b[:4], *k5[:4], mesh_wf_s,
+                                          *k4[:4], *k4b[:4], *k5[:4], *k5_hf[:4], mesh_wf_s,
                                           *k5_frame_ms.values(), *k6_ms.values(),
                                           *k6_plain_ms.values(), k6_scatter_err,
                                           k6_reduce_library_ms, walk_ms,
@@ -1668,9 +1732,10 @@ def main() -> int:
           f"K2 {k2_bound[0]:.4f} ms, K2b {k2b_bound[0]:.4f} ms, K3 {k3[3]:.4f} ms, "
           f"K3b {k3b[3]:.4f} ms")
     print(f"[kernels] K4 {k4[3]:.4f} ms and K4b {k4b[3]:.4f} ms from the walk's counted slab and "
-          f"pair tests on phase 17's rays, K5 {k5[3]:.4f} ms from those on phase 19's 144 "
-          f"pixels scaled to the frame ({FLOPS_SLAB} FLOP a slab test); bytes: the clusters "
-          f"entered and the winners' shade rows, read once")
+          f"pair tests on phase 17's rays, K5 {k5[3]:.4f} ms (blob) and {k5_hf[3]:.4f} ms "
+          f"(height field) from those on phase 19's 144 pixels of each frame scaled to the "
+          f"frame ({FLOPS_SLAB} FLOP a slab test); bytes: the clusters entered and the "
+          f"winners' shade rows, read once")
     print("[kernels] sphere_nearest_packed (K2b), prim_nearest_packed (K3b) and cluster_nearest "
           "(K4b) have no caller on any path, as in rt_tpu; each is held against its plain "
           "version above")

@@ -3,50 +3,68 @@
 //
 // Replaces the TPU kernels launched by rt_tpu/pallas_ops.py's
 // `cluster_worklist_nearest` (K4, pallas_call at :1015, body
-// `_worklist_kernel` :562), the clustered wavefront's intersect, launched
-// once per cluster page per loop iteration, and `cluster_nearest` (K4b,
-// :533, body `_cluster_kernel` :333), the same function with `pl.when`
-// predication.  Both return, for every ray of the kernel layout f32[8, N],
-// t (3e38 on a miss) and the global slot id of the winner (spheres from
-// sph_base, triangles from tri_base; -1 on a miss), which indexes the
-// scene's slot-ordered shade table.  One kernel serves both; the plain
-// PyTorch version is `cluster_ops.cluster_nearest_plain`.
+// `_worklist_kernel` :562), the clustered wavefront's intersect, and
+// `cluster_nearest` (K4b, :533, body `_cluster_kernel` :333), the same
+// function with `pl.when` predication.  Both return, for every ray of the
+// kernel layout f32[8, N], t (3e38 on a miss) and the global slot id of the
+// winner (spheres from sph_base, triangles from tri_base; -1 on a miss),
+// which indexes the scene's slot-ordered shade table.  One kernel serves
+// both; the plain PyTorch version is `cluster_ops.cluster_nearest_plain`.
+// The wavefront launches it once per intersect over the whole tables
+// (bases 0); a call on one cluster page (its slot bases) stays possible.
 //
-// Design.  One thread owns one ray and walks its own way through the
-// two-level tables (cluster_walk.cuh), keeping (best_t, best_i) in
-// registers; the ray's components come from the [8, N] rows, so
-// neighbouring threads read neighbouring addresses.
+// Design.  A persistent grid: each block stages the box tables in shared
+// memory once (cluster_walk.cuh), then each warp takes `per_warp`
+// consecutive rays at a time, lane l < per_warp loading one ray from the
+// [8, N] rows (neighbouring lanes, neighbouring addresses), and walks them
+// one after another with all 32 lanes (cluster_walk.cuh warp_walk_rays).
+// The lane of each ray writes its (t, id).
 //
-// What bounds it on this card: the pair tests of the entered clusters (24
-// FLOP a sphere pair, 46 a triangle pair) and the slab tests (~20 FLOP a
-// box), and the divergence of a warp whose rays enter different clusters:
-// a warp runs until its longest walk ends.  The tables come through L1/L2
-// (a mesh of 100k triangles holds ~10 MB of slots).  Left for later:
-// staging a coherent warp's shared clusters in shared memory, and sorting
-// or binning the rays so that a warp's rays enter the same clusters.
+// What bounds it on this card: the walk's chain of dependent steps for each
+// ray (slab tests from shared memory, ballots, shuffles, the slot rows from
+// L2, the warp minimum); the operations (20 FLOP a slab test, 24 a sphere
+// pair, 46 a triangle pair) and the bytes are far below the card's rates
+// (PERF.md).  A warp's rays run one after another, so the launch's time is
+// that of its longest chain of rays unless enough warps are resident to
+// overlap them: the launch gives each warp 32 rays only when there are
+// enough rays to fill every resident warp that way, and fewer (down to
+// one) otherwise, so that a wavefront of 65,536 rays still fills the card.
+#include <algorithm>
+
 #include <cuda_runtime.h>
 
 #include "cluster_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
-cluster_nearest_kernel(const float* __restrict__ rays, int n, rt::ClusterSet sph,
+cluster_nearest_kernel(const float* __restrict__ rays, int n, int per_warp, rt::ClusterSet sph,
                        rt::ClusterSet tri, float t_min, float t_max, int backface_cull,
                        float* __restrict__ t_out, int* __restrict__ idx_out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float dx = rays[3 * n + i], dy = rays[4 * n + i], dz = rays[5 * n + i];
-  const float a = dx * dx + dy * dy + dz * dz;
-  const rt::WalkRay r = rt::walk_ray(rays[i], rays[n + i], rays[2 * n + i], dx, dy, dz, a,
-                                     1.0f / a);
-  float best_t = 3.0e38f;
-  int best_i = -1;
-  rt::cluster_walk(sph, tri, r, t_min, t_max, backface_cull != 0, best_t, best_i);
-  t_out[i] = best_t;
-  idx_out[i] = best_i;
+  extern __shared__ __align__(16) float boxes[];
+  __shared__ __align__(8) uint64_t bar;
+  rt::stage_boxes<kShared>(sph, tri, boxes, &bar);
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kThreads / 32);
+  const bool cull = backface_cull != 0;
+  for (int w = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5); w * per_warp < n; w += warps) {
+    const int i = w * per_warp + lane;
+    const bool mine = lane < per_warp && i < n;
+    const int k = mine ? i : n - 1;
+    const float ox = rays[k], oy = rays[n + k], oz = rays[2 * n + k];
+    const float dx = rays[3 * n + k], dy = rays[4 * n + k], dz = rays[5 * n + k];
+    float t = rt::BIG;
+    int idx = -1;
+    rt::warp_walk_rays<kShared>(sph, tri, __ballot_sync(rt::kFullMask, mine), ox, oy, oz, dx, dy,
+                                dz, t_min, t_max, cull, lane, t, idx);
+    if (mine) {
+      t_out[i] = t;
+      idx_out[i] = idx;
+    }
+  }
 }
 
 rt::ClusterSet make_set(const float* supers, int n_supers, const float* clusters,
@@ -55,26 +73,49 @@ rt::ClusterSet make_set(const float* supers, int n_supers, const float* clusters
                         (long long)n_clusters * rt::kClusterSlots, id_base};
 }
 
+template <bool kShared>
+cudaError_t launch(const float* rays, int n, const rt::ClusterSet& sph, const rt::ClusterSet& tri,
+                   float t_min, float t_max, int backface_cull, float* t_out, int* idx_out,
+                   cudaStream_t stream) {
+  const size_t smem = kShared ? rt::box_bytes(sph, tri) : 0;
+  int fit = 0;
+  const cudaError_t e = rt::resident_blocks(cluster_nearest_kernel<kShared>, kThreads, smem, fit);
+  if (e != cudaSuccess) return e;
+  // Rays a warp: as many as it takes for the resident warps to hold them
+  // all, at most 32; then only as many blocks as those rays need.
+  const long long warps = (long long)fit * (kThreads / 32);
+  const int per_warp = (int)std::min<long long>(32, std::max<long long>(1, (n + warps - 1) / warps));
+  const long long want = ((long long)n + per_warp * kThreads / 32 - 1) / (per_warp * kThreads / 32);
+  cluster_nearest_kernel<kShared><<<(int)std::min<long long>(want, fit), kThreads, smem, stream>>>(
+      rays, n, per_warp, sph, tri, t_min, t_max, backface_cull, t_out, idx_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point (ctypes).  Every pointer is device memory: rays f32[8, n];
-// per kind the super and cluster AABBs f32[., 8] and the slot table
-// f32[rows, n_clusters * 128].  Launches on `stream` and returns the CUDA
-// error of the launch (0 on success); it neither allocates nor
+// per kind the super and cluster AABBs f32[., 8] (16-byte aligned) and the
+// slot table f32[rows, n_clusters * 128].  `stage_boxes` nonzero stages the
+// boxes in shared memory (the caller checks that they fit its budget);
+// zero reads them from global memory.  Launches on `stream` and returns the
+// CUDA error of the launch (0 on success); it neither allocates nor
 // synchronizes.
 extern "C" int rt_cluster_nearest(const float* rays, int n, const float* sph_super,
                                   int n_sph_super, const float* sph_cluster, int n_sph_cluster,
                                   const float* sph_slots, int sph_base, const float* tri_super,
                                   int n_tri_super, const float* tri_cluster, int n_tri_cluster,
                                   const float* tri_slots, int tri_base, float t_min, float t_max,
-                                  int backface_cull, float* t_out, int* idx_out,
+                                  int backface_cull, int stage_boxes, float* t_out, int* idx_out,
                                   cudaStream_t stream) {
   if (n <= 0) return 0;
   const rt::ClusterSet sph =
       make_set(sph_super, n_sph_super, sph_cluster, n_sph_cluster, sph_slots, sph_base);
   const rt::ClusterSet tri =
       make_set(tri_super, n_tri_super, tri_cluster, n_tri_cluster, tri_slots, tri_base);
-  cluster_nearest_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      stage_boxes ? launch<true>(rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out,
+                                 stream)
+                  : launch<false>(rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out,
+                                  stream);
+  return static_cast<int>(e);
 }

@@ -1,5 +1,6 @@
-// The per-ray two-level cluster walk: the nearest hit of one ray over a
-// clustered scene's tables (cluster.py, scene.ClusterData / ClusterPage).
+// The warp-cooperative two-level cluster walk: the nearest hit of a ray over
+// a clustered scene's tables (cluster.py, scene.ClusterData / ClusterPage),
+// walked by a whole warp, 32 lanes wide, one ray at a time.
 //
 // Shared by K4/K4b (cluster_nearest.cu) and K5 (megakernel.cu).  It
 // computes what rt_tpu/pallas_ops.py's `_worklist_kernel` (K4) and
@@ -12,41 +13,74 @@
 // current best t; pair tests run on the entered clusters' slots only.
 // What the TPU kernels add to share work across a tile (worklist
 // compaction by prefix-sum matmuls, SMEM worklists, row sweeps, DMA rings,
-// lane binning) is not carried over: a thread walks its own ray.
+// lane binning) is not carried over.
 //
-// Exactness: slots are scanned in ascending order with a strict `<`,
-// spheres first, so the lowest slot wins within a cluster and an earlier
-// cluster (or page, in the caller's merge) on equal t, as in the Pallas
-// kernels.  The slab test pads its exit distance outward
-// (rt_tpu/megakernel.py:918-922), so rounding never culls a true hit on a
-// flat box.  Inverted (dummy) boxes and dead slots (radius 0, live flag 0)
-// are skipped: they can never hold a hit, so skipping them changes no
-// result.  The plain PyTorch version is cluster_ops.cluster_nearest_plain,
-// which repeats this walk operation for operation; with -fmad=false and
-// IEEE division and sqrt the two agree bit for bit.
+// What bounds it on this card.  The first port walked one ray a thread:
+// every lane of a warp stepped through the same super, cluster and slot
+// indices, one dependent slot at a time with most lanes masked, and every
+// box and slot read was a scattered load.  It ran at 0.1-0.3% of its
+// operation bound, limited by load latency at ~16 warps an SM (PERF.md).
+// This walk gives each step 32 independent pieces of work instead:
+//   - supers: lane l slab-tests supers l, l + 32, ...; a ballot gives the
+//     admitted set, visited in ascending order;
+//   - clusters: the 64 clusters of an entered super, two a lane, likewise;
+//   - slots: lane l tests slots 4l..4l+3 of an entered cluster, so a field
+//     row of the cluster (128 consecutive floats, 512 B) is one coalesced
+//     16-byte load a lane and a cluster's 4 or 10 rows are in flight at
+//     once; a warp minimum picks the winner.
+// The super and cluster boxes of both kinds are staged once per block in
+// shared memory (one bulk asynchronous copy each, completed on an
+// mbarrier), so the slab tests read shared memory; scenes whose boxes
+// exceed the caller's byte budget read them from global memory instead (the
+// kShared = false variant of the same code).  What remains is the latency
+// of the slot rows (L2) and the walk's chain of ballots and shuffles: the
+// callers keep enough warps resident to hide them.
+//
+// Exactness: the walk visits the same boxes and slots as a sequential scan
+// and returns the same t and id, bit for bit:
+//   - a box is admitted ignoring the best t, then entered only if its entry
+//     distance tn < best_t when it is reached: that is the padded slab test
+//     with the current best, since nothing else in it depends on best;
+//   - boxes are reached in ascending order, spheres first;
+//   - a cluster's winner is the smallest key (order(t), slot) over its
+//     valid slots, taken over a lane's 4 slots then 32 lanes, and replaces the
+//     best only when t < best_t.  A sequential strict-`<` scan in ascending
+//     slot order returns exactly the first slot of least t below the
+//     entry best, which is that key's minimum.  order() maps a float's bits
+//     to an unsigned that orders like the float (the usual flip for signed
+//     values), with -0 taken as +0 so that the two tie as they do under `<`;
+//     the winning t itself comes from the lane that tested it.
+// The slab test pads its exit distance outward (rt_tpu/megakernel.py:918-922),
+// so rounding never culls a true hit on a flat box.  Inverted (dummy) boxes
+// and dead slots (radius 0, live flag 0) are never admitted or valid.  The
+// plain PyTorch version is cluster_ops.cluster_nearest_plain, which walks
+// in the sequential order; with -fmad=false and IEEE division and sqrt the
+// two agree bit for bit.
 //
 // Layout: the slot tables stay field-row-major as the scene holds them
-// ([rows, n_slots], a field's values for consecutive slots adjacent), and
-// the walk reads them through the row stride.  No slot-major copy is made:
-// the tables the kernel reads are the very tensors the plain version and
-// the JAX package read, and no second copy of a mesh scene's tables has to
-// be built, moved or kept in step.  Threads that walk the same cluster
-// (coherent camera rays) read the same address, a broadcast; a slot's
-// fields come from 4 (sphere) or 10 (triangle) rows that stay in L1/L2.
+// ([rows, n_slots], a field's values for consecutive slots adjacent): the
+// tables the kernels read are the very tensors the plain version and the
+// JAX package read.
 #pragma once
 
 #include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "rt_common.cuh"
 
 namespace rt {
 
 constexpr int kSuperClusters = 64;   // clusters per super (cluster.SUPER_SLOTS)
 constexpr int kClusterSlots = 128;   // slots per cluster (cluster.CLUSTER_SLOTS)
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr unsigned kNoKey = 0xffffffffu;  // no valid slot (the key of no float but a NaN)
 
 // One primitive kind's two-level tables.  Winner ids are id_base + slot.
 struct ClusterSet {
-  const float* supers;    // [n_supers, 8]: lo xyz, hi xyz, pad
+  const float* supers;    // [n_supers, 8]: lo xyz, hi xyz, pad (global or shared memory)
   const float* clusters;  // [n_clusters, 8]
-  const float* slots;     // [rows, stride] field-row-major
+  const float* slots;     // [rows, stride] field-row-major, global memory
   int n_supers, n_clusters;
   long long stride;       // n_clusters * 128
   int id_base;
@@ -58,100 +92,272 @@ struct WalkRay {
 };
 
 __device__ __forceinline__ WalkRay walk_ray(float ox, float oy, float oz, float dx, float dy,
-                                            float dz, float a, float inv_a) {
+                                            float dz) {
   const float tiny = (float)1e-20;
-  return WalkRay{ox, oy, oz, dx, dy, dz, a, inv_a,
+  const float a = dx * dx + dy * dy + dz * dz;
+  return WalkRay{ox, oy, oz, dx, dy, dz, a, 1.0f / a,
                  1.0f / (fabsf(dx) > tiny ? dx : tiny),
                  1.0f / (fabsf(dy) > tiny ? dy : tiny),
                  1.0f / (fabsf(dz) > tiny ? dz : tiny)};
 }
 
-// The padded slab test of rt_tpu/megakernel.py:903-923: does the ray enter
-// box b with an entry distance below best?
-__device__ __forceinline__ bool enters(const float* __restrict__ b, const WalkRay& r,
-                                       float best) {
-  const float lx = __ldg(b + 0), ly = __ldg(b + 1), lz = __ldg(b + 2);
-  const float hx = __ldg(b + 3), hy = __ldg(b + 4), hz = __ldg(b + 5);
-  if (!(lx <= hx)) return false;  // inverted dummy box: holds no primitive
-  const float t0x = (lx - r.ox) * r.idx, t1x = (hx - r.ox) * r.idx;
-  const float t0y = (ly - r.oy) * r.idy, t1y = (hy - r.oy) * r.idy;
-  const float t0z = (lz - r.oz) * r.idz, t1z = (hz - r.oz) * r.idz;
-  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), 0.0f));
+// The padded slab test of rt_tpu/megakernel.py:903-923 without its best-t
+// condition: is box b live and does the ray's line meet it ahead of the
+// origin?  Sets tn, the entry distance; the ray enters b when also tn <
+// its best t.
+template <bool kShared>
+__device__ __forceinline__ bool admits(const float* __restrict__ b, const WalkRay& r, float& tn) {
+  float4 lo;  // lx ly lz hx
+  float2 hi;  // hy hz
+  if (kShared) {
+    lo = *reinterpret_cast<const float4*>(b);
+    hi = *reinterpret_cast<const float2*>(b + 4);
+  } else {
+    lo = __ldg(reinterpret_cast<const float4*>(b));
+    hi = __ldg(reinterpret_cast<const float2*>(b + 4));
+  }
+  const float t0x = (lo.x - r.ox) * r.idx, t1x = (lo.w - r.ox) * r.idx;
+  const float t0y = (lo.y - r.oy) * r.idy, t1y = (hi.x - r.oy) * r.idy;
+  const float t0z = (lo.z - r.oz) * r.idz, t1z = (hi.y - r.oz) * r.idz;
+  tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), 0.0f));
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   tf = tf * (float)(1.0 + 6e-7) + (float)1e-6;
-  return tn <= tf && tf >= 0.0f && tn < best;
+  return lo.x <= lo.w && tn <= tf && tf >= 0.0f;  // lx > hx: an inverted dummy box
 }
 
-// One kind's walk: supers, entered clusters, their slots (pallas_ops.py
-// sphere pair test :412-430, triangle pair test :442-480).
+// An unsigned that orders like t (-0 taken as +0).
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned b = t == 0.0f ? 0u : __float_as_uint(t);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Component q (0..3, known when compiled) of v.
+__device__ __forceinline__ float component(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+// The pair tests of entered cluster ci (pallas_ops.py sphere pair test
+// :412-430, triangle pair test :442-480), lane l taking slots 4l..4l+3 (one
+// 16-byte load a field row: all of a cluster's rows are in flight at once),
+// and the warp's winner; best_t/best_i (the same in every lane) are updated.
 template <bool kSpheres>
+__device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, const WalkRay& r,
+                                             float t_min, float t_max, bool cull, int lane,
+                                             float& best_t, int& best_i) {
+  constexpr int kRows = kSpheres ? 4 : 10;
+  const float4* __restrict__ f =
+      reinterpret_cast<const float4*>(s.slots + (long long)ci * kClusterSlots) + lane;
+  const long long st = s.stride / 4;  // a field row, in float4
+  float4 row[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) row[k] = __ldg(f + k * st);
+  unsigned lane_key = kNoKey;
+  int lane_slot = 0;
+  float lane_t = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float t;
+    bool ok;
+    if (kSpheres) {
+      const float rad = component(row[3], q);
+      const float ocx = component(row[0], q) - r.ox;
+      const float ocy = component(row[1], q) - r.oy;
+      const float ocz = component(row[2], q) - r.oz;
+      const float h = r.dx * ocx + r.dy * ocy + r.dz * ocz;
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+      const float disc = h * h - r.a * c;
+      const float sd = sqrtf(fmaxf(disc, 0.0f));
+      const float t0 = (h - sd) * r.inv_a;
+      const float t1 = (h + sd) * r.inv_a;
+      t = t0 >= t_min ? t0 : t1;
+      ok = rad > 0.0f && disc >= 0.0f && t >= t_min && t < t_max;
+    } else {
+      const float ax = component(row[0], q), ay = component(row[1], q);
+      const float az = component(row[2], q);
+      const float e1x = component(row[3], q), e1y = component(row[4], q);
+      const float e1z = component(row[5], q);
+      const float e2x = component(row[6], q), e2y = component(row[7], q);
+      const float e2z = component(row[8], q);
+      const float live = component(row[kRows - 1], q);
+      const float uvx = r.dy * e2z - r.dz * e2y;
+      const float uvy = r.dz * e2x - r.dx * e2z;
+      const float uvz = r.dx * e2y - r.dy * e2x;
+      const float det = e1x * uvx + e1y * uvy + e1z * uvz;
+      const bool det_ok = cull ? det > (float)1e-7 : fabsf(det) > (float)1e-7;
+      const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+      const float aox = r.ox - ax, aoy = r.oy - ay, aoz = r.oz - az;
+      const float u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det;
+      const float vvx = aoy * e1z - aoz * e1y;
+      const float vvy = aoz * e1x - aox * e1z;
+      const float vvz = aox * e1y - aoy * e1x;
+      const float v = (r.dx * vvx + r.dy * vvy + r.dz * vvz) * inv_det;
+      t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det;
+      ok = live > 0.5f && det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
+           t >= t_min && t < t_max && t > (float)1e-7;
+    }
+    const unsigned key = ok ? order_key(t) : kNoKey;
+    if (key < lane_key) {  // ascending slots, strict: the lane's lowest slot wins its ties
+      lane_key = key;
+      lane_slot = 4 * lane + q;
+      lane_t = t;
+    }
+  }
+  const unsigned least = __reduce_min_sync(kFullMask, lane_key);
+  if (least == kNoKey) return;
+  const unsigned slot = __reduce_min_sync(kFullMask, lane_key == least ? (unsigned)lane_slot : kNoKey);
+  const float t = __shfl_sync(kFullMask, lane_t, (int)(slot >> 2));
+  if (t < best_t) {
+    best_t = t;
+    best_i = s.id_base + ci * kClusterSlots + (int)slot;
+  }
+}
+
+// Visits the admitted boxes of one ballot in ascending order, entering each
+// whose entry distance (held by the lane of its bit) is below the best t.
+template <bool kSpheres>
+__device__ __forceinline__ void visit_clusters(const ClusterSet& s, unsigned admitted, float tn_lane,
+                                               int first, const WalkRay& r, float t_min,
+                                               float t_max, bool cull, int lane, float& best_t,
+                                               int& best_i) {
+  for (unsigned m = admitted; m; m &= m - 1) {
+    const int b = __ffs(m) - 1;
+    if (!(__shfl_sync(kFullMask, tn_lane, b) < best_t)) continue;
+    walk_cluster<kSpheres>(s, first + b, r, t_min, t_max, cull, lane, best_t, best_i);
+  }
+}
+
+// One kind's walk of one ray by the whole warp (every lane passes the same
+// ray and best; all 32 lanes must take part).
+template <bool kShared, bool kSpheres>
 __device__ __forceinline__ void walk_set(const ClusterSet& s, const WalkRay& r, float t_min,
-                                         float t_max, bool cull, float& best_t, int& best_i) {
-  const float* __restrict__ f = s.slots;
-  const long long st = s.stride;
-  for (int si = 0; si < s.n_supers; ++si) {
-    if (!enters(s.supers + 8 * si, r, best_t)) continue;
-    const int c_end = min(s.n_clusters, (si + 1) * kSuperClusters);
-    for (int ci = si * kSuperClusters; ci < c_end; ++ci) {
-      if (!enters(s.clusters + 8 * ci, r, best_t)) continue;
-      const int base = ci * kClusterSlots;
-      for (int k = 0; k < kClusterSlots; ++k) {
-        const int j = base + k;
-        if (kSpheres) {
-          const float rad = __ldg(f + 3 * st + j);
-          if (!(rad > 0.0f)) continue;  // dead slot: never a hit
-          const float ocx = __ldg(f + j) - r.ox;
-          const float ocy = __ldg(f + st + j) - r.oy;
-          const float ocz = __ldg(f + 2 * st + j) - r.oz;
-          const float h = r.dx * ocx + r.dy * ocy + r.dz * ocz;
-          const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-          const float disc = h * h - r.a * c;
-          const float sd = sqrtf(fmaxf(disc, 0.0f));
-          const float t0 = (h - sd) * r.inv_a;
-          const float t1 = (h + sd) * r.inv_a;
-          const float t = t0 >= t_min ? t0 : t1;
-          if (disc >= 0.0f && t >= t_min && t < t_max && t < best_t) {
-            best_t = t;
-            best_i = s.id_base + j;
-          }
-        } else {
-          if (!(__ldg(f + 9 * st + j) > 0.5f)) continue;  // dead slot: never a hit
-          const float ax = __ldg(f + j), ay = __ldg(f + st + j), az = __ldg(f + 2 * st + j);
-          const float e1x = __ldg(f + 3 * st + j), e1y = __ldg(f + 4 * st + j);
-          const float e1z = __ldg(f + 5 * st + j);
-          const float e2x = __ldg(f + 6 * st + j), e2y = __ldg(f + 7 * st + j);
-          const float e2z = __ldg(f + 8 * st + j);
-          const float uvx = r.dy * e2z - r.dz * e2y;
-          const float uvy = r.dz * e2x - r.dx * e2z;
-          const float uvz = r.dx * e2y - r.dy * e2x;
-          const float det = e1x * uvx + e1y * uvy + e1z * uvz;
-          const bool det_ok = cull ? det > (float)1e-7 : fabsf(det) > (float)1e-7;
-          const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-          const float aox = r.ox - ax, aoy = r.oy - ay, aoz = r.oz - az;
-          const float u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det;
-          const float vvx = aoy * e1z - aoz * e1y;
-          const float vvy = aoz * e1x - aox * e1z;
-          const float vvz = aox * e1y - aoy * e1x;
-          const float v = (r.dx * vvx + r.dy * vvy + r.dz * vvz) * inv_det;
-          const float t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det;
-          if (det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t >= t_min &&
-              t < t_max && t > (float)1e-7 && t < best_t) {
-            best_t = t;
-            best_i = s.id_base + j;
-          }
-        }
-      }
+                                         float t_max, bool cull, int lane, float& best_t,
+                                         int& best_i) {
+  for (int s0 = 0; s0 < s.n_supers; s0 += 32) {
+    float tn_s = 0.0f;
+    const int sl = s0 + lane;
+    const bool adm_s = sl < s.n_supers && admits<kShared>(s.supers + 8 * sl, r, tn_s);
+    for (unsigned m = __ballot_sync(kFullMask, adm_s); m; m &= m - 1) {
+      const int b = __ffs(m) - 1;
+      if (!(__shfl_sync(kFullMask, tn_s, b) < best_t)) continue;
+      const int c0 = (s0 + b) * kSuperClusters;
+      float tn_lo = 0.0f, tn_hi = 0.0f;
+      const int cl = c0 + lane, ch = c0 + 32 + lane;
+      const bool adm_lo = cl < s.n_clusters && admits<kShared>(s.clusters + 8 * cl, r, tn_lo);
+      const bool adm_hi = ch < s.n_clusters && admits<kShared>(s.clusters + 8 * ch, r, tn_hi);
+      const unsigned m_lo = __ballot_sync(kFullMask, adm_lo);
+      const unsigned m_hi = __ballot_sync(kFullMask, adm_hi);
+      visit_clusters<kSpheres>(s, m_lo, tn_lo, c0, r, t_min, t_max, cull, lane, best_t, best_i);
+      visit_clusters<kSpheres>(s, m_hi, tn_hi, c0 + 32, r, t_min, t_max, cull, lane, best_t,
+                               best_i);
     }
   }
 }
 
-// Nearest hit of one ray: spheres, then triangles.  best_t starts at the
-// miss value 3e38 and best_i at -1; both are updated in place.
-__device__ __forceinline__ void cluster_walk(const ClusterSet& sph, const ClusterSet& tri,
-                                             const WalkRay& r, float t_min, float t_max,
-                                             bool cull, float& best_t, int& best_i) {
-  walk_set<true>(sph, r, t_min, t_max, cull, best_t, best_i);
-  walk_set<false>(tri, r, t_min, t_max, cull, best_t, best_i);
+// The rays of the lanes in `active`, walked one after another by the whole
+// warp: spheres, then triangles.  Lane l's ray is (ox..dz) as lane l
+// passes it; lane l's (t_out, i_out) are set to its ray's nearest hit
+// (BIG and -1 on a miss) and left alone when l is not in `active`.
+// Every lane of the warp must call it, with the same `active`.
+template <bool kShared>
+__device__ __forceinline__ void warp_walk_rays(const ClusterSet& sph, const ClusterSet& tri,
+                                               unsigned active, float ox, float oy, float oz,
+                                               float dx, float dy, float dz, float t_min,
+                                               float t_max, bool cull, int lane, float& t_out,
+                                               int& i_out) {
+  for (unsigned m = active; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    const WalkRay r = walk_ray(__shfl_sync(kFullMask, ox, src), __shfl_sync(kFullMask, oy, src),
+                               __shfl_sync(kFullMask, oz, src), __shfl_sync(kFullMask, dx, src),
+                               __shfl_sync(kFullMask, dy, src), __shfl_sync(kFullMask, dz, src));
+    float best_t = BIG;
+    int best_i = -1;
+    walk_set<kShared, true>(sph, r, t_min, t_max, cull, lane, best_t, best_i);
+    walk_set<kShared, false>(tri, r, t_min, t_max, cull, lane, best_t, best_i);
+    if (lane == src) {
+      t_out = best_t;
+      i_out = best_i;
+    }
+  }
+}
+
+// -- staging the boxes in shared memory ------------------------------------------
+
+// Bytes of the super and cluster boxes of both kinds (32 B a box).
+inline size_t box_bytes(const ClusterSet& sph, const ClusterSet& tri) {
+  return 32u * (size_t)(sph.n_supers + sph.n_clusters + tri.n_supers + tri.n_clusters);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// With kShared, copies the four box tables into `boxes` (dynamic shared
+// memory of box_bytes(sph, tri) bytes, 16-byte aligned) with one bulk
+// asynchronous copy each, completed on the mbarrier `bar`, and points the
+// sets' boxes there.  Every thread of the block must call it; it returns
+// when the copies have landed.  Without kShared it does nothing.
+template <bool kShared>
+__device__ __forceinline__ void stage_boxes(ClusterSet& sph, ClusterSet& tri, float* boxes,
+                                            uint64_t* bar) {
+  if (!kShared) return;
+  const float* src[4] = {sph.supers, sph.clusters, tri.supers, tri.clusters};
+  const int rows[4] = {sph.n_supers, sph.n_clusters, tri.n_supers, tri.n_clusters};
+  float* dst[4];
+  unsigned total = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    dst[k] = boxes + total / 4;
+    total += 32u * (unsigned)rows[k];
+  }
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(total)
+                 : "memory");
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (rows[k] > 0) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];" ::"r"(smem_addr(dst[k])),
+            "l"(src[k]), "r"(32u * (unsigned)rows[k]), "r"(b)
+            : "memory");
+      }
+    }
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(b), "r"(0)
+        : "memory");
+  }
+  sph.supers = dst[0];
+  sph.clusters = dst[1];
+  tri.supers = dst[2];
+  tri.clusters = dst[3];
+}
+
+// Blocks of `kernel` (`threads` a block, `smem` bytes of dynamic shared
+// memory) that fit on the card at once: the grid of a persistent launch.
+template <class Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int& blocks) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  blocks = per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace rt

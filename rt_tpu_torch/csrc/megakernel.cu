@@ -17,28 +17,39 @@
 // plain PyTorch version of both is `render_megakernel_plain` in
 // rt_tpu_torch/megakernel.py.
 //
-// Design.  One thread owns one pixel, loops over its samples in order and
-// over each path's bounces, and writes the pixel once: no float atomics, so
-// two launches give bit-identical images.  The TPU mechanisms go: no
-// persistent pool or work claims (the RNG keys on the global work id
-// gwork = sample * W * H + pixel, so scheduling cannot change the image),
-// no one-hot matmul fetch, bf16 hi/lo split, rank-1 deposit matmul or
-// packed-mantissa argmin.  The winner's shade row and the texel are direct
-// loads, the argmin is exact with the lowest id winning ties (spheres
-// first), and sqrt/sin/cos/acos/atan2/exp are the native functions.
+// Common to both.  A pixel's samples are traced by one thread, in order,
+// and summed there; the thread writes the pixel once: no float atomics, so
+// two launches give bit-identical images.  The RNG keys on the global work
+// id gwork = sample * W * H + pixel, so which thread renders which pixel
+// cannot change the image.  The TPU mechanisms go: no one-hot matmul fetch,
+// bf16 hi/lo split, rank-1 deposit matmul or packed-mantissa argmin.  The
+// winner's shade row and the texel are direct loads, the argmin is exact
+// with the lowest id winning ties (spheres first), and
+// sqrt/sin/cos/acos/atan2/exp are the native functions.  One bounce after
+// the search (`bounce`: shading, scatter, Russian roulette, the next
+// segment) is one device function that both kernels call.
 //
-// K5 keeps this design and drops the TPU's clustered machinery (row sweep,
-// streamed DMA ring, expansion sweep, lane binning, winner fetch): each
-// thread walks its own ray through the clusters.
+// K1: one thread owns one pixel and loops over its samples and each path's
+// bounces (`trace`), brute-forcing every primitive of the scene at each
+// segment.  What bounds it on this card: ~25 FLOPs per (ray segment,
+// primitive), then occupancy at the bench size (a thread a pixel fills the
+// card only from ~1600x900) and warp divergence on path length.
 //
-// What bounds it on this card: the intersection.  For K1, ~25 FLOPs per
-// (ray segment, primitive) over every primitive of the scene; for K5 the
-// slab tests of the supers and clusters a ray enters and the pair tests of
-// the entered clusters' slots.  Then warp divergence on path length (a warp
-// runs until its longest path ends, dielectric chains run to max_depth)
-// and, for K5, on walk length.  Left for later: regenerating a persistent
-// pool so finished lanes pick up new paths, staging the primitive tables in
-// shared memory, and sorting or binning rays.
+// K5 drops the TPU's clustered machinery (row sweep, streamed DMA ring,
+// expansion sweep, lane binning, winner fetch) and keeps its persistent
+// pool.  A persistent grid of warps runs a converged step loop: at each
+// step every lane with work starts its pixel's next sample or continues its
+// path; the warp then walks its lanes' rays one after another, all 32 lanes
+// on each (cluster_walk.cuh, over box tables staged in shared memory once a
+// block); then each lane shades its own hit.  A lane that has summed its
+// pixel's `spp` samples writes the pixel and claims the next from a global
+// counter (one atomicAdd a warp).  What bounded the first port (one thread
+// a pixel, walking alone: 0.27% of its operation bound) was the walk's load
+// latency and a warp waiting for its longest path; here the walk's cost
+// follows the number of live paths, not the longest one, each of its steps
+// has 32 pieces of work, and the slab tests read shared memory.  What is
+// left is the walk's chain of dependent steps per ray and the divergent
+// shading, which the resident warps overlap.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -48,7 +59,8 @@
 namespace rt {
 namespace {
 
-constexpr int kBlock = 128;
+constexpr int kBlock = 128;           // K1: a thread a pixel
+constexpr int kClusteredBlock = 256;  // K5: eight warps a block
 
 struct Hit {
   float t;
@@ -103,28 +115,6 @@ __device__ Hit nearest(const Params& p, const Ints& q, const float4* __restrict_
   }
   return best;
 }
-
-// K1's search: brute force over the packed tables.
-struct FlatSearch {
-  const float4* sph;
-  const float* tri;
-  __device__ Hit operator()(const Params& p, const Ints& q, float ox, float oy, float oz,
-                            float dx, float dy, float dz, float a, float inv_a) const {
-    return nearest(p, q, sph, tri, ox, oy, oz, dx, dy, dz, a, inv_a);
-  }
-};
-
-// K5's search: the cluster walk; the winner is a slot id.
-struct ClusterSearch {
-  ClusterSet sph, tri;
-  __device__ Hit operator()(const Params& p, const Ints& q, float ox, float oy, float oz,
-                            float dx, float dy, float dz, float a, float inv_a) const {
-    Hit best{BIG, -1};
-    cluster_walk(sph, tri, walk_ray(ox, oy, oz, dx, dy, dz, a, inv_a), p.t_min, p.t_max,
-                 q.flags & FLAG_BACKFACE_CULL, best.t, best.prim);
-    return best;
-  }
-};
 
 __device__ __forceinline__ float uncharted2(float x) {
   // (x(Ax + CB) + DE) / (x(Ax + B) + DF) - E/F, constants folded in double
@@ -230,205 +220,233 @@ __device__ float2 hit_uv(const float* __restrict__ f, bool is_sphere, bool bbox_
   return make_float2(w0 * ua_u + bu * ub_u + bv * uc_u, w0 * ua_v + bu * ub_v + bv * uc_v);
 }
 
-// Radiance of one path (megakernel.py:2788-3216 for one lane).  `table`
-// holds one row of F_ROWS values per id the search returns.
-template <class Search>
-__device__ float3 trace(const Params& p, const Ints& q, const Search& search,
-                        const float* __restrict__ table, const float* __restrict__ atlas,
-                        uint32_t gid, float ox, float oy, float oz, float dx, float dy,
-                        float dz) {
-  float tpr = 1.0f, tpg = 1.0f, tpb = 1.0f;
-  for (int depth = 0;; ++depth) {
-    const float a = dx * dx + dy * dy + dz * dz;
-    const float inv_a = 1.0f / a;
-    const Hit hit = search(p, q, ox, oy, oz, dx, dy, dz, a, inv_a);
-    const float inv_dn = 1.0f / fmaxf(sqrtf(a), 1e-20f);
-    const float udx = dx * inv_dn, udy = dy * inv_dn, udz = dz * inv_dn;
-    if (!(hit.t < BIG)) {
-      const float3 s = sky(p, q.flags, udx, udy, udz);
-      return make_float3(tpr * s.x, tpg * s.y, tpb * s.z);
+// One lane's path between bounces: the segment to search next, the
+// throughput so far, and the keys of its draws.
+struct Path {
+  float ox, oy, oz, dx, dy, dz;
+  float tpr, tpg, tpb;
+  uint32_t gid;
+  int depth;
+};
+
+// The camera ray of sample `s` of pixel `pix` (megakernel.py:493-530).
+__device__ __forceinline__ Path camera_path(const Params& p, const Ints& q, uint32_t pix, int s) {
+  const float fx0 = (float)(int)(pix % (uint32_t)q.width);
+  const float fy0 = (float)(int)(pix / (uint32_t)q.width);
+  const uint32_t samp = (uint32_t)(q.sample_offset + s);
+  const uint32_t gwork = samp * (uint32_t)q.n_global + pix;  // int32 wrap, as in JAX
+
+  // Halton jitter by sample index (camera.rs:239), optionally scrambled
+  // per pixel with purposes 5/6.
+  float off_u = radical2(samp + 1u);
+  float off_v = radical3(samp + 1u);
+  if (!(q.flags & FLAG_SHARED_JITTER)) {
+    off_u = off_u + uniform01(q.seed, pix, 0u, 5u);
+    off_u = off_u - floorf(off_u);
+    off_v = off_v + uniform01(q.seed, pix, 0u, 6u);
+    off_v = off_v - floorf(off_v);
+  }
+  const float fx = fx0 + off_u, fy = fy0 + off_v;
+  const float sx = p.pix00[0] + fx * p.du[0] + fy * p.dv[0];
+  const float sy = p.pix00[1] + fx * p.du[1] + fy * p.dv[1];
+  const float sz = p.pix00[2] + fx * p.du[2] + fy * p.dv[2];
+  float ox = p.center[0], oy = p.center[1], oz = p.center[2];
+  if (q.flags & FLAG_DEFOCUS) {  // thin lens, purposes 21/22 (camera.rs:366-371)
+    const float r = sqrtf(uniform01(q.seed, gwork, 0u, 21u));
+    const float th = uniform01(q.seed, gwork, 0u, 22u) * (float)(2.0 * 3.141592653589793);
+    const float dskx = r * cosf(th), dsky = r * sinf(th);
+    ox = p.center[0] + dskx * p.dku[0] + dsky * p.dkv[0];
+    oy = p.center[1] + dskx * p.dku[1] + dsky * p.dkv[1];
+    oz = p.center[2] + dskx * p.dku[2] + dsky * p.dkv[2];
+  }
+  return Path{ox, oy, oz, sx - ox, sy - oy, sz - oz, 1.0f, 1.0f, 1.0f, gwork, 0};
+}
+
+// One bounce of path `ps` after its search found `hit` (megakernel.py:
+// 2788-3216 for one lane).  `table` holds one row of F_ROWS values per id
+// the search returns.  Returns true when the path ends, with its radiance
+// in `out`; otherwise advances `ps` to its next segment.
+__device__ __forceinline__ bool bounce(const Params& p, const Ints& q, const float* __restrict__ table,
+                       const float* __restrict__ atlas, Hit hit, Path& ps, float3& out) {
+  const float ox = ps.ox, oy = ps.oy, oz = ps.oz, dx = ps.dx, dy = ps.dy, dz = ps.dz;
+  const float tpr = ps.tpr, tpg = ps.tpg, tpb = ps.tpb;
+  const uint32_t gid = ps.gid;
+  const int depth = ps.depth;
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float inv_dn = 1.0f / fmaxf(sqrtf(a), 1e-20f);
+  const float udx = dx * inv_dn, udy = dy * inv_dn, udz = dz * inv_dn;
+  if (!(hit.t < BIG)) {
+    const float3 s = sky(p, q.flags, udx, udy, udz);
+    out = make_float3(tpr * s.x, tpg * s.y, tpb * s.z);
+    return true;
+  }
+  const float* __restrict__ f = table + F_ROWS * hit.prim;
+  const float px = ox + hit.t * dx, py = oy + hit.t * dy, pz = oz + hit.t * dz;
+
+  // Normal and front face (hittable.rs:340-346, 464).
+  const bool is_sphere = __ldg(f + F_IS_SPHERE) > 0.5f;
+  const float inv_r = 1.0f / fmaxf(__ldg(f + F_RADIUS), 1e-20f);
+  float snx = (px - __ldg(f + F_AX)) * inv_r;
+  float sny = (py - __ldg(f + F_AY)) * inv_r;
+  float snz = (pz - __ldg(f + F_AZ)) * inv_r;
+  const bool s_front = dx * snx + dy * sny + dz * snz < 0.0f;
+  const float sgn = s_front ? 1.0f : -1.0f;
+  snx = snx * sgn;
+  sny = sny * sgn;
+  snz = snz * sgn;
+  const float tnx = __ldg(f + F_NX), tny = __ldg(f + F_NY), tnz = __ldg(f + F_NZ);
+  const bool t_front = dx * tnx + dy * tny + dz * tnz <= 0.0f;
+  const float nx = is_sphere ? snx : tnx;
+  const float ny = is_sphere ? sny : tny;
+  const float nz = is_sphere ? snz : tnz;
+  const bool front = is_sphere ? s_front : t_front;
+
+  // Texture: solid, checker on floor(p / scale) parity, image.
+  const float tex_kind = __ldg(f + F_TEX_KIND);
+  const float inv_scale = __ldg(f + F_INV_SCALE);
+  const int cells = (int)floorf(inv_scale * px) + (int)floorf(inv_scale * py) +
+                    (int)floorf(inv_scale * pz);
+  const bool use_even = tex_kind < 0.5f || (cells & 1) == 0;
+  const int col = use_even ? F_CE : F_CO;
+  float tr = __ldg(f + col), tg = __ldg(f + col + 1), tb = __ldg(f + col + 2);
+  if ((q.flags & FLAG_IMAGES) && tex_kind > 1.5f) {
+    const float2 uv = hit_uv(f, is_sphere, q.flags & FLAG_UV_BBOX_REMAP, snx, sny, snz, ox,
+                             oy, oz, dx, dy, dz);
+    // Nearest texel, clamped, index truncated (texture.rs:107-117).
+    const float w_img = fmaxf(__ldg(f + F_RECT + 2), 1.0f);
+    const float h_img = fmaxf(__ldg(f + F_RECT + 3), 1.0f);
+    const int ix = (int)(clampf(uv.x, 0.0f, 1.0f) * (w_img - 1.0f));
+    const int iy = (int)(clampf(uv.y, 0.0f, 1.0f) * (h_img - 1.0f));
+    const int tx = min(max((int)__ldg(f + F_RECT + 0) + ix, 0), q.atlas_w - 1);
+    const int ty = min(max((int)__ldg(f + F_RECT + 1) + iy, 0), q.atlas_h - 1);
+    const float* texel = atlas + 3 * (ty * q.atlas_w + tx);
+    tr = __ldg(texel);
+    tg = __ldg(texel + 1);
+    tb = __ldg(texel + 2);
+  }
+
+  const float kind = __ldg(f + F_MAT_KIND);
+  if (kind > 2.5f) {  // emissive: deposit and terminate
+    out = make_float3(tpr * tr, tpg * tg, tpb * tb);
+    return true;
+  }
+
+  // Scatter draws: purposes 3..9 keyed on (gid, depth) (material.rs).
+  const uint32_t seed = q.seed, dep = (uint32_t)depth;
+  const float ux3 = uniform01(seed, gid, dep, 3) * 2.0f - 1.0f;
+  const float uy3 = uniform01(seed, gid, dep, 4) * 2.0f - 1.0f;
+  const float uz3 = uniform01(seed, gid, dep, 5) * 2.0f - 1.0f;
+  const float inv_n1 = 1.0f / fmaxf(sqrtf(ux3 * ux3 + uy3 * uy3 + uz3 * uz3), 1e-12f);
+  const float r1x = ux3 * inv_n1, r1y = uy3 * inv_n1, r1z = uz3 * inv_n1;
+  const float vx3 = uniform01(seed, gid, dep, 6) * 2.0f - 1.0f;
+  const float vy3 = uniform01(seed, gid, dep, 7) * 2.0f - 1.0f;
+  const float vz3 = uniform01(seed, gid, dep, 8) * 2.0f - 1.0f;
+  const float inv_n2 = 1.0f / fmaxf(sqrtf(vx3 * vx3 + vy3 * vy3 + vz3 * vz3), 1e-12f);
+  const float r2x = vx3 * inv_n2, r2y = vy3 * inv_n2, r2z = vz3 * inv_n2;
+  const float noise = uniform01(seed, gid, dep, 9);
+
+  float new_dx, new_dy, new_dz;
+  float att_r = tr, att_g = tg, att_b = tb;
+  const float fuzz = __ldg(f + F_FUZZ);
+  if (kind < 0.5f) {
+    // Lambertian: n + unit, near-zero fallback (material.rs:110-120).
+    new_dx = nx + r1x;
+    new_dy = ny + r1y;
+    new_dz = nz + r1z;
+    if (fabsf(new_dx) < 3.45e-4f && fabsf(new_dy) < 3.45e-4f && fabsf(new_dz) < 3.45e-4f) {
+      new_dx = nx;
+      new_dy = ny;
+      new_dz = nz;
     }
-    const float* __restrict__ f = table + F_ROWS * hit.prim;
-    const float px = ox + hit.t * dx, py = oy + hit.t * dy, pz = oz + hit.t * dz;
-
-    // Normal and front face (hittable.rs:340-346, 464).
-    const bool is_sphere = __ldg(f + F_IS_SPHERE) > 0.5f;
-    const float inv_r = 1.0f / fmaxf(__ldg(f + F_RADIUS), 1e-20f);
-    float snx = (px - __ldg(f + F_AX)) * inv_r;
-    float sny = (py - __ldg(f + F_AY)) * inv_r;
-    float snz = (pz - __ldg(f + F_AZ)) * inv_r;
-    const bool s_front = dx * snx + dy * sny + dz * snz < 0.0f;
-    const float sgn = s_front ? 1.0f : -1.0f;
-    snx = snx * sgn;
-    sny = sny * sgn;
-    snz = snz * sgn;
-    const float tnx = __ldg(f + F_NX), tny = __ldg(f + F_NY), tnz = __ldg(f + F_NZ);
-    const bool t_front = dx * tnx + dy * tny + dz * tnz <= 0.0f;
-    const float nx = is_sphere ? snx : tnx;
-    const float ny = is_sphere ? sny : tny;
-    const float nz = is_sphere ? snz : tnz;
-    const bool front = is_sphere ? s_front : t_front;
-
-    // Texture: solid, checker on floor(p / scale) parity, image.
-    const float tex_kind = __ldg(f + F_TEX_KIND);
-    const float inv_scale = __ldg(f + F_INV_SCALE);
-    const int cells = (int)floorf(inv_scale * px) + (int)floorf(inv_scale * py) +
-                      (int)floorf(inv_scale * pz);
-    const bool use_even = tex_kind < 0.5f || (cells & 1) == 0;
-    const int col = use_even ? F_CE : F_CO;
-    float tr = __ldg(f + col), tg = __ldg(f + col + 1), tb = __ldg(f + col + 2);
-    if ((q.flags & FLAG_IMAGES) && tex_kind > 1.5f) {
-      const float2 uv = hit_uv(f, is_sphere, q.flags & FLAG_UV_BBOX_REMAP, snx, sny, snz, ox,
-                               oy, oz, dx, dy, dz);
-      // Nearest texel, clamped, index truncated (texture.rs:107-117).
-      const float w_img = fmaxf(__ldg(f + F_RECT + 2), 1.0f);
-      const float h_img = fmaxf(__ldg(f + F_RECT + 3), 1.0f);
-      const int ix = (int)(clampf(uv.x, 0.0f, 1.0f) * (w_img - 1.0f));
-      const int iy = (int)(clampf(uv.y, 0.0f, 1.0f) * (h_img - 1.0f));
-      const int tx = min(max((int)__ldg(f + F_RECT + 0) + ix, 0), q.atlas_w - 1);
-      const int ty = min(max((int)__ldg(f + F_RECT + 1) + iy, 0), q.atlas_h - 1);
-      const float* texel = atlas + 3 * (ty * q.atlas_w + tx);
-      tr = __ldg(texel);
-      tg = __ldg(texel + 1);
-      tb = __ldg(texel + 2);
-    }
-
-    const float kind = __ldg(f + F_MAT_KIND);
-    if (kind > 2.5f) {  // emissive: deposit and terminate
-      return make_float3(tpr * tr, tpg * tg, tpb * tb);
-    }
-
-    // Scatter draws: purposes 3..9 keyed on (gid, depth) (material.rs).
-    const uint32_t seed = q.seed, dep = (uint32_t)depth;
-    const float ux3 = uniform01(seed, gid, dep, 3) * 2.0f - 1.0f;
-    const float uy3 = uniform01(seed, gid, dep, 4) * 2.0f - 1.0f;
-    const float uz3 = uniform01(seed, gid, dep, 5) * 2.0f - 1.0f;
-    const float inv_n1 = 1.0f / fmaxf(sqrtf(ux3 * ux3 + uy3 * uy3 + uz3 * uz3), 1e-12f);
-    const float r1x = ux3 * inv_n1, r1y = uy3 * inv_n1, r1z = uz3 * inv_n1;
-    const float vx3 = uniform01(seed, gid, dep, 6) * 2.0f - 1.0f;
-    const float vy3 = uniform01(seed, gid, dep, 7) * 2.0f - 1.0f;
-    const float vz3 = uniform01(seed, gid, dep, 8) * 2.0f - 1.0f;
-    const float inv_n2 = 1.0f / fmaxf(sqrtf(vx3 * vx3 + vy3 * vy3 + vz3 * vz3), 1e-12f);
-    const float r2x = vx3 * inv_n2, r2y = vy3 * inv_n2, r2z = vz3 * inv_n2;
-    const float noise = uniform01(seed, gid, dep, 9);
-
-    float new_dx, new_dy, new_dz;
-    float att_r = tr, att_g = tg, att_b = tb;
-    const float fuzz = __ldg(f + F_FUZZ);
-    if (kind < 0.5f) {
-      // Lambertian: n + unit, near-zero fallback (material.rs:110-120).
-      new_dx = nx + r1x;
-      new_dy = ny + r1y;
-      new_dz = nz + r1z;
-      if (fabsf(new_dx) < 3.45e-4f && fabsf(new_dy) < 3.45e-4f && fabsf(new_dz) < 3.45e-4f) {
-        new_dx = nx;
-        new_dy = ny;
-        new_dz = nz;
-      }
-    } else if (kind < 1.5f) {
-      // Metal: reflect the raw direction + fuzz * unit (material.rs:94-107).
-      const float d_dot_n = dx * nx + dy * ny + dz * nz;
-      new_dx = dx - 2.0f * d_dot_n * nx + fuzz * r2x;
-      new_dy = dy - 2.0f * d_dot_n * ny + fuzz * r2y;
-      new_dz = dz - 2.0f * d_dot_n * nz + fuzz * r2z;
+  } else if (kind < 1.5f) {
+    // Metal: reflect the raw direction + fuzz * unit (material.rs:94-107).
+    const float d_dot_n = dx * nx + dy * ny + dz * nz;
+    new_dx = dx - 2.0f * d_dot_n * nx + fuzz * r2x;
+    new_dy = dy - 2.0f * d_dot_n * ny + fuzz * r2y;
+    new_dz = dz - 2.0f * d_dot_n * nz + fuzz * r2z;
+  } else {
+    // Dielectric with optional frost (material.rs:150-178).
+    const float ior = __ldg(f + F_IOR);
+    const float ri = front ? 1.0f / ior : ior;
+    const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+    const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+    const bool cannot = ri * sin_t > 1.0f;
+    float r0 = (1.0f - ri) / (1.0f + ri);
+    r0 = r0 * r0;
+    const float omc = 1.0f - cos_t;
+    const float omc2 = omc * omc;
+    const float reflectance = r0 + (1.0f - r0) * omc2 * omc2 * omc;
+    float ddx, ddy, ddz;
+    if (cannot || reflectance > noise) {
+      const float ud_dot_n = udx * nx + udy * ny + udz * nz;
+      ddx = udx - 2.0f * ud_dot_n * nx;
+      ddy = udy - 2.0f * ud_dot_n * ny;
+      ddz = udz - 2.0f * ud_dot_n * nz;
     } else {
-      // Dielectric with optional frost (material.rs:150-178).
-      const float ior = __ldg(f + F_IOR);
-      const float ri = front ? 1.0f / ior : ior;
-      const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
-      const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-      const bool cannot = ri * sin_t > 1.0f;
-      float r0 = (1.0f - ri) / (1.0f + ri);
-      r0 = r0 * r0;
-      const float omc = 1.0f - cos_t;
-      const float omc2 = omc * omc;
-      const float reflectance = r0 + (1.0f - r0) * omc2 * omc2 * omc;
-      float ddx, ddy, ddz;
-      if (cannot || reflectance > noise) {
-        const float ud_dot_n = udx * nx + udy * ny + udz * nz;
-        ddx = udx - 2.0f * ud_dot_n * nx;
-        ddy = udy - 2.0f * ud_dot_n * ny;
-        ddz = udz - 2.0f * ud_dot_n * nz;
-      } else {
-        const float rpx = (udx + nx * cos_t) * ri;
-        const float rpy = (udy + ny * cos_t) * ri;
-        const float rpz = (udz + nz * cos_t) * ri;
-        const float perp_sq = rpx * rpx + rpy * rpy + rpz * rpz;
-        const float par = -sqrtf(fmaxf(fabsf(1.0f - perp_sq), 1e-12f));
-        ddx = rpx + par * nx + fuzz * r2x;
-        ddy = rpy + par * ny + fuzz * r2y;
-        ddz = rpz + par * nz + fuzz * r2z;
-      }
-      const float inv_dd = 1.0f / fmaxf(sqrtf(ddx * ddx + ddy * ddy + ddz * ddz), 1e-20f);
-      new_dx = ddx * inv_dd;
-      new_dy = ddy * inv_dd;
-      new_dz = ddz * inv_dd;
-      att_r = att_g = att_b = 1.0f;
+      const float rpx = (udx + nx * cos_t) * ri;
+      const float rpy = (udy + ny * cos_t) * ri;
+      const float rpz = (udz + nz * cos_t) * ri;
+      const float perp_sq = rpx * rpx + rpy * rpy + rpz * rpz;
+      const float par = -sqrtf(fmaxf(fabsf(1.0f - perp_sq), 1e-12f));
+      ddx = rpx + par * nx + fuzz * r2x;
+      ddy = rpy + par * ny + fuzz * r2y;
+      ddz = rpz + par * nz + fuzz * r2z;
     }
+    const float inv_dd = 1.0f / fmaxf(sqrtf(ddx * ddx + ddy * ddy + ddz * ddz), 1e-20f);
+    new_dx = ddx * inv_dd;
+    new_dy = ddy * inv_dd;
+    new_dz = ddz * inv_dd;
+    att_r = att_g = att_b = 1.0f;
+  }
 
-    // Russian roulette, purpose 10 (camera.rs:280-293; clamped).
-    const float p_rr = clampf(fmaxf(fmaxf(att_r, att_g), att_b), 0.0f, p.rr_clamp);
-    if (!(uniform01(seed, gid, dep, 10) < p_rr) || depth >= q.max_depth) {
-      return make_float3(0.0f, 0.0f, 0.0f);
-    }
-    const float inv_p = 1.0f / fmaxf(p_rr, 1e-12f);
+  // Russian roulette, purpose 10 (camera.rs:280-293; clamped).
+  const float p_rr = clampf(fmaxf(fmaxf(att_r, att_g), att_b), 0.0f, p.rr_clamp);
+  if (!(uniform01(seed, gid, dep, 10) < p_rr) || depth >= q.max_depth) {
+    out = make_float3(0.0f, 0.0f, 0.0f);
+    return true;
+  }
+  const float inv_p = 1.0f / fmaxf(p_rr, 1e-12f);
 
-    // New origin, offset along the normal toward the outgoing side by an
-    // amount that scales with the hit point's magnitude.
-    const float scale = fmaxf(fmaxf(fabsf(px), fmaxf(fabsf(py), fabsf(pz))), 1.0f);
-    const float off = p.origin_offset * scale * signf(new_dx * nx + new_dy * ny + new_dz * nz);
-    ox = px + off * nx;
-    oy = py + off * ny;
-    oz = pz + off * nz;
-    dx = new_dx;
-    dy = new_dy;
-    dz = new_dz;
-    tpr = tpr * att_r * inv_p;
-    tpg = tpg * att_g * inv_p;
-    tpb = tpb * att_b * inv_p;
+  // New origin, offset along the normal toward the outgoing side by an
+  // amount that scales with the hit point's magnitude.
+  const float scale = fmaxf(fmaxf(fabsf(px), fmaxf(fabsf(py), fabsf(pz))), 1.0f);
+  const float off = p.origin_offset * scale * signf(new_dx * nx + new_dy * ny + new_dz * nz);
+  ps.ox = px + off * nx;
+  ps.oy = py + off * ny;
+  ps.oz = pz + off * nz;
+  ps.dx = new_dx;
+  ps.dy = new_dy;
+  ps.dz = new_dz;
+  ps.tpr = tpr * att_r * inv_p;
+  ps.tpg = tpg * att_g * inv_p;
+  ps.tpb = tpb * att_b * inv_p;
+  ps.depth = depth + 1;
+  return false;
+}
+
+// Radiance of one path through K1's search.
+__device__ float3 trace(const Params& p, const Ints& q, const float4* __restrict__ sph,
+                        const float* __restrict__ tri, const float* __restrict__ table,
+                        const float* __restrict__ atlas, Path ps) {
+  for (;;) {
+    const float a = ps.dx * ps.dx + ps.dy * ps.dy + ps.dz * ps.dz;
+    const Hit hit = nearest(p, q, sph, tri, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, a, 1.0f / a);
+    float3 c;
+    if (bounce(p, q, table, atlas, hit, ps, c)) return c;
   }
 }
 
-template <class Search>
+// K1: one thread a pixel.
 __global__ void __launch_bounds__(kBlock)
-    megakernel(const Params p, const Ints q, const Search search,
-               const float* __restrict__ table, const float* __restrict__ atlas,
-               float* __restrict__ out) {
+    megakernel_flat(const Params p, const Ints q, const float4* __restrict__ sph,
+                    const float* __restrict__ tri, const float* __restrict__ table,
+                    const float* __restrict__ atlas, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= q.n_pixels) return;
   const uint32_t pix = (uint32_t)(q.pixel_base + i);
-  const float fx0 = (float)(int)(pix % (uint32_t)q.width);
-  const float fy0 = (float)(int)(pix / (uint32_t)q.width);
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int s = 0; s < q.spp; ++s) {
-    const uint32_t samp = (uint32_t)(q.sample_offset + s);
-    const uint32_t gwork = samp * (uint32_t)q.n_global + pix;  // int32 wrap, as in JAX
-
-    // Halton jitter by sample index (camera.rs:239), optionally scrambled
-    // per pixel with purposes 5/6.
-    float off_u = radical2(samp + 1u);
-    float off_v = radical3(samp + 1u);
-    if (!(q.flags & FLAG_SHARED_JITTER)) {
-      off_u = off_u + uniform01(q.seed, pix, 0u, 5u);
-      off_u = off_u - floorf(off_u);
-      off_v = off_v + uniform01(q.seed, pix, 0u, 6u);
-      off_v = off_v - floorf(off_v);
-    }
-    const float fx = fx0 + off_u, fy = fy0 + off_v;
-    const float sx = p.pix00[0] + fx * p.du[0] + fy * p.dv[0];
-    const float sy = p.pix00[1] + fx * p.du[1] + fy * p.dv[1];
-    const float sz = p.pix00[2] + fx * p.du[2] + fy * p.dv[2];
-    float ox = p.center[0], oy = p.center[1], oz = p.center[2];
-    if (q.flags & FLAG_DEFOCUS) {  // thin lens, purposes 21/22 (camera.rs:366-371)
-      const float r = sqrtf(uniform01(q.seed, gwork, 0u, 21u));
-      const float th = uniform01(q.seed, gwork, 0u, 22u) * (float)(2.0 * 3.141592653589793);
-      const float dskx = r * cosf(th), dsky = r * sinf(th);
-      ox = p.center[0] + dskx * p.dku[0] + dsky * p.dkv[0];
-      oy = p.center[1] + dskx * p.dku[1] + dsky * p.dkv[1];
-      oz = p.center[2] + dskx * p.dku[2] + dsky * p.dkv[2];
-    }
-    const float3 c = trace(p, q, search, table, atlas, gwork, ox, oy, oz, sx - ox, sy - oy,
-                           sz - oz);
+    const float3 c = trace(p, q, sph, tri, table, atlas, camera_path(p, q, pix, s));
     acc_r = acc_r + c.x;
     acc_g = acc_g + c.y;
     acc_b = acc_b + c.z;
@@ -438,23 +456,91 @@ __global__ void __launch_bounds__(kBlock)
   out[3 * i + 2] = acc_b * p.inv_spp;
 }
 
-}  // namespace
-}  // namespace rt
+// K5: a persistent grid of warps in a converged step loop (see the top of
+// this file).  `next_pixel` is a device int, 0 at launch: the claim counter.
+template <bool kShared>
+__global__ void __launch_bounds__(kClusteredBlock)
+    megakernel_clustered(const Params p, const Ints q, ClusterSet sph, ClusterSet tri,
+                         const float* __restrict__ table, const float* __restrict__ atlas,
+                         float* __restrict__ out, int* __restrict__ next_pixel) {
+  extern __shared__ __align__(16) float boxes[];
+  __shared__ __align__(8) uint64_t bar;
+  stage_boxes<kShared>(sph, tri, boxes, &bar);
+  const int lane = threadIdx.x & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const bool cull = q.flags & FLAG_BACKFACE_CULL;
+  Path ps{};
+  bool alive = false;  // a path is in flight
+  bool done = false;   // no pixel is left to claim
+  int pix_i = -1;      // the lane's pixel in the launch's range; -1: none
+  int s = 0;           // the lane's next sample of pix_i
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (;;) {
+    if (!alive && pix_i >= 0 && s == q.spp) {  // every sample summed: write the pixel
+      out[3 * pix_i + 0] = acc_r * p.inv_spp;
+      out[3 * pix_i + 1] = acc_g * p.inv_spp;
+      out[3 * pix_i + 2] = acc_b * p.inv_spp;
+      pix_i = -1;
+    }
+    const bool need = !alive && pix_i < 0 && !done;
+    const unsigned need_m = __ballot_sync(kFullMask, need);
+    if (need_m) {  // claim a pixel for each lane that needs one, one atomic a warp
+      const int leader = __ffs(need_m) - 1;
+      int first = 0;
+      if (lane == leader) first = atomicAdd(next_pixel, __popc(need_m));
+      first = __shfl_sync(kFullMask, first, leader);
+      if (need) {
+        const int c = first + __popc(need_m & lanes_below);
+        if (c < q.n_pixels) {
+          pix_i = c;
+          s = 0;
+          acc_r = acc_g = acc_b = 0.0f;
+        } else {
+          done = true;
+        }
+      }
+    }
+    if (!alive && pix_i >= 0) {
+      ps = camera_path(p, q, (uint32_t)(q.pixel_base + pix_i), s);
+      alive = true;
+    }
+    const unsigned active = __ballot_sync(kFullMask, alive);
+    if (active == 0u) break;
+    float t = BIG;
+    int prim = -1;
+    warp_walk_rays<kShared>(sph, tri, active, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, p.t_min,
+                            p.t_max, cull, lane, t, prim);
+    float3 c;
+    if (alive && bounce(p, q, table, atlas, Hit{t, prim}, ps, c)) {
+      acc_r = acc_r + c.x;
+      acc_g = acc_g + c.y;
+      acc_b = acc_b + c.z;
+      ++s;
+      alive = false;
+    }
+  }
+}
 
-namespace rt {
-namespace {
-
-template <class Search>
-int launch(const float* params, const Ints& q, const Search& search, const float* table,
-           const float* atlas, float* out, void* stream) {
+Params load_params(const float* params) {
   Params p;
   const float* src = params;
   float* dst = reinterpret_cast<float*>(&p);
   for (int k = 0; k < 80; ++k) dst[k] = src[k];
-  const int blocks = (q.n_pixels + kBlock - 1) / kBlock;
-  megakernel<Search><<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, q, search, table, atlas, out);
-  return static_cast<int>(cudaGetLastError());
+  return p;
+}
+
+template <bool kShared>
+cudaError_t launch_clustered(const Params& p, const Ints& q, const ClusterSet& sph,
+                             const ClusterSet& tri, const float* table, const float* atlas,
+                             float* out, int* next_pixel, cudaStream_t stream) {
+  const size_t smem = kShared ? box_bytes(sph, tri) : 0;
+  int fit = 0;
+  const cudaError_t e = resident_blocks(megakernel_clustered<kShared>, kClusteredBlock, smem, fit);
+  if (e != cudaSuccess) return e;
+  const int want = (q.n_pixels + kClusteredBlock - 1) / kClusteredBlock;
+  megakernel_clustered<kShared><<<want < fit ? want : fit, kClusteredBlock, smem, stream>>>(
+      p, q, sph, tri, table, atlas, out, next_pixel);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -474,26 +560,36 @@ extern "C" int rt_megakernel_flat(const float* params, int n_pixels, int pixel_b
                                   void* stream) {
   const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
                    n_spheres, n_tris, atlas_h, atlas_w, flags};
-  return rt::launch(params, q, rt::FlatSearch{reinterpret_cast<const float4*>(sph), tri}, table,
-                    atlas, out, stream);
+  const int blocks = (n_pixels + rt::kBlock - 1) / rt::kBlock;
+  rt::megakernel_flat<<<blocks, rt::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      rt::load_params(params), q, reinterpret_cast<const float4*>(sph), tri, table, atlas, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K5: per kind the super and cluster AABBs f32[., 8] and the slot table
-// f32[rows, n_clusters * 128] of scene.ClusterData; triangle slot ids start
-// at n_sph_slots.  `table` is the slot-ordered shade table, one row per slot.
+// K5: per kind the super and cluster AABBs f32[., 8] (16-byte aligned) and
+// the slot table f32[rows, n_clusters * 128] of scene.ClusterData; triangle
+// slot ids start at n_sph_slots.  `table` is the slot-ordered shade table,
+// one row per slot.  `next_pixel` is one int, 0 at launch.  `stage_boxes`
+// nonzero stages the boxes in shared memory (the caller checks that they
+// fit its budget); zero reads them from global memory.
 extern "C" int rt_megakernel_clustered(
     const float* params, int n_pixels, int pixel_base, int spp, int sample_offset,
     unsigned int seed, int width, int n_global, int max_depth, int atlas_h, int atlas_w,
     int flags, const float* sph_super, int n_sph_super, const float* sph_cluster,
     int n_sph_cluster, const float* sph_slots, const float* tri_super, int n_tri_super,
     const float* tri_cluster, int n_tri_cluster, const float* tri_slots, int n_sph_slots,
-    const float* table, const float* atlas, float* out, void* stream) {
+    const float* table, const float* atlas, float* out, int* next_pixel, int stage_boxes,
+    void* stream) {
   const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
                    0, 0, atlas_h, atlas_w, flags};
-  const rt::ClusterSearch search{
-      rt::ClusterSet{sph_super, sph_cluster, sph_slots, n_sph_super, n_sph_cluster,
-                     (long long)n_sph_cluster * rt::kClusterSlots, 0},
-      rt::ClusterSet{tri_super, tri_cluster, tri_slots, n_tri_super, n_tri_cluster,
-                     (long long)n_tri_cluster * rt::kClusterSlots, n_sph_slots}};
-  return rt::launch(params, q, search, table, atlas, out, stream);
+  const rt::ClusterSet sph{sph_super, sph_cluster, sph_slots, n_sph_super, n_sph_cluster,
+                           (long long)n_sph_cluster * rt::kClusterSlots, 0};
+  const rt::ClusterSet tri{tri_super, tri_cluster, tri_slots, n_tri_super, n_tri_cluster,
+                           (long long)n_tri_cluster * rt::kClusterSlots, n_sph_slots};
+  const rt::Params p = rt::load_params(params);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      stage_boxes ? rt::launch_clustered<true>(p, q, sph, tri, table, atlas, out, next_pixel, s)
+                  : rt::launch_clustered<false>(p, q, sph, tri, table, atlas, out, next_pixel, s);
+  return static_cast<int>(e);
 }

@@ -9,7 +9,8 @@ range, like the JAX function of the same name, through K1 where
 ``eligible`` holds and K5 where ``eligible_clustered`` holds:
 
 - on a CUDA device it launches the hand-written CUDA kernel
-  (csrc/megakernel.cu), one thread per pixel;
+  (csrc/megakernel.cu): K1 a thread a pixel, K5 a persistent grid of warps
+  that walk their lanes' rays together and claim pixels as they finish;
 - on the CPU it runs ``render_megakernel_plain``, the same computation in
   plain PyTorch, which the tests hold against the JAX package and the
   kernel is held against on the card.
@@ -43,11 +44,14 @@ from rt_tpu_torch.fast_shade import (
 from rt_tpu_torch.scene import SceneData
 from rt_tpu_torch.sky import XYZ_TO_SRGB, frame_scalars
 
-# Launches of K1 (LAUNCHES) and of K5 (LAUNCHES_CLUSTERED) since the last
-# reset.  Only the wrappers change them, once per launch; callers read and
-# reset them to show that a run went through the kernel.
+# Launches of K1 (LAUNCHES) and of K5 (LAUNCHES_CLUSTERED, and per variant:
+# boxes staged in "shared" memory or read from "global" memory, as
+# cluster_ops.staged decides) since the last reset.  Only the wrappers
+# change them, once per launch; callers read and reset them to show that a
+# run went through the kernel.
 LAUNCHES = 0
 LAUNCHES_CLUSTERED = 0
+CLUSTERED_VARIANT_LAUNCHES = {"shared": 0, "global": 0}
 
 # Static switches (csrc/rt_common.cuh FLAG_*).
 FLAG_BACKFACE_CULL = 1
@@ -116,12 +120,14 @@ def render_megakernel(
     *,
     pixel_base: int = 0,
     n_pixels: int | None = None,
+    box_budget: int = cluster_ops.BOX_BUDGET,
 ) -> torch.Tensor:
     """Mean radiance f32[n_pixels, 3] of pixels [pixel_base, pixel_base +
     n_pixels) over samples [sample_offset, sample_offset + spp), on the
     scene's device, through K1 or K5 (one launch).  ``seed`` is the hash
     seed: the JAX package's ``jax.random.key(seed)`` renders the same
-    image."""
+    image.  K5 stages the cluster boxes in shared memory when they fit
+    ``box_budget`` bytes (cluster_ops.staged)."""
     clustered = eligible_clustered(scene, cfg)
     if not (clustered or eligible(scene, cfg)):
         raise NotImplementedError(
@@ -130,8 +136,10 @@ def render_megakernel(
         )
     device = scene.device
     if device.type == "cuda":
-        launch = _launch_clustered if clustered else _launch
-        return launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels)
+        if clustered:
+            return _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base,
+                                     n_pixels, box_budget)
+        return _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels)
     if device.type == "cpu":
         return render_megakernel_plain(
             scene, camera, cfg, spp, sample_offset, seed, pixel_base=pixel_base, n_pixels=n_pixels
@@ -218,10 +226,11 @@ def cluster_tables(cl) -> tuple:
             cl.tri_slots)
 
 
-def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels
-                      ) -> torch.Tensor:
-    """Wrapper of K5: checks its inputs, allocates the output and launches
-    on the current stream.  Raises on any failure."""
+def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels,
+                      box_budget: int) -> torch.Tensor:
+    """Wrapper of K5: checks its inputs, allocates the output and the
+    pixel-claim counter and launches on the current stream.  Raises on any
+    failure."""
     global LAUNCHES_CLUSTERED
     n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
     device = scene.device
@@ -242,6 +251,8 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, 
         cluster_ops.cluster_args(tables, device, "megakernel_clustered"))
     pf = kernel_params(scene, camera, cfg, spp)
     out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
+    next_pixel = torch.zeros((1,), dtype=torch.int32, device=device)
+    variant = cluster_ops.staged(tables, box_budget)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -250,11 +261,13 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, 
             camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
             atlas.shape[0], atlas.shape[1], _flags(scene, camera, cfg),
             s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots,
-            cl.n_sph_slots, table.data_ptr(), atlas.data_ptr(), out.data_ptr(), stream,
+            cl.n_sph_slots, table.data_ptr(), atlas.data_ptr(), out.data_ptr(),
+            next_pixel.data_ptr(), int(variant == "shared"), stream,
         )
     if err != 0:
         raise RuntimeError(f"clustered megakernel launch failed with CUDA error {err}")
     LAUNCHES_CLUSTERED += 1
+    CLUSTERED_VARIANT_LAUNCHES[variant] += 1
     return out
 
 

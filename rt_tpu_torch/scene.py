@@ -44,9 +44,11 @@ TEX_SOLID = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
 
-# Clusters per page of the clustered wavefront's kernel (K4): larger
-# cluster sets are split into pages, one launch each (rt_tpu/scene.py:55;
-# tests shrink it to exercise the paged merge).
+# Clusters per page (rt_tpu/scene.py:55): larger cluster sets are split
+# into pages, as the JAX package splits them for its K4 launches (tests
+# shrink it to exercise paged tables).  The port's wavefront walks the
+# whole tables in one K4 launch; the pages are kept for parity and for K4
+# on one page.
 CLUSTER_PAGE = 512
 
 # Names of the table buffers, in the JAX SceneData's field order.
@@ -87,8 +89,8 @@ PAGE_TABLES = ("sph_cluster", "sph_slots", "tri_cluster", "tri_slots", "sph_supe
 
 class ClusterPage(nn.Module):
     """One page of clustered primitive tables (rt_tpu/scene.py:76-94): the
-    clustered wavefront launches K4 once per page and merges the pages'
-    winners.  sph_cluster f32[Ms_pad, 8] and tri_cluster f32[Mt_pad, 8] are
+    JAX package's clustered wavefront launches K4 once per page and merges
+    the pages' winners.  sph_cluster f32[Ms_pad, 8] and tri_cluster f32[Mt_pad, 8] are
     cluster AABBs (lo xyz, hi xyz, pad), sph_super and tri_super those of
     each 64-cluster group, sph_slots f32[8, Ms_pad*128] and tri_slots
     f32[16 or 24, Mt_pad*128] the slot tables (cluster.pack_*_slots).
@@ -108,8 +110,8 @@ CLUSTER_TABLES = PAGE_TABLES + ("shade_table", "checker_table")
 class ClusterData(nn.Module):
     """Clustered primitive tables (rt_tpu/scene.py:97-125; cluster.py):
     fixed-stride clusters of 128 primitive slots in 64-cluster supers, the
-    whole tables (which the clustered megakernel K5 walks) and their
-    ``pages`` (which K4 walks), and ``shade_table`` f32[40, slots_pad]
+    whole tables (which K5 and the wavefront's K4 walk) and their
+    ``pages`` (which the JAX package's K4 walks), and ``shade_table`` f32[40, slots_pad]
     ordered by slot, so that the kernels' winner slot ids index it
     directly.  ``n_sph_slots`` is the first triangle slot id.
     ``checker_table``, ``inline_ok`` and ``chord_clusters`` are the JAX

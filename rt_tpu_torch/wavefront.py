@@ -15,10 +15,11 @@ Two implementations share that skeleton, as in the JAX package:
   and the shade-table fetch are one launch of K3
   (``prim_ops.prim_nearest_shaded``, the CUDA kernel on the card, its
   plain version on the CPU); on a clustered scene the intersection is one
-  launch of K4 (``cluster_ops.cluster_worklist_nearest``) per cluster
-  page, the pages' winners merged with a strict ``<`` (the earlier page
-  wins ties), and the winners' columns are gathered from the slot-ordered
-  shade table by slot id.  Needs a shade table;
+  launch of K4 (``cluster_ops.cluster_worklist_nearest``) over the whole
+  cluster tables, with slot bases 0 as K5 reads them (the JAX package
+  launches it once per cluster page and merges the pages' winners, which
+  gives the same winners), and the winners' columns are gathered from the
+  slot-ordered shade table by slot id.  Needs a shade table;
 - ``_render_generic``: [B, 3] state, ``geometry.nearest_hit`` with K2 and
   the readable ``materials``/``textures``; the route for scenes without a
   shade table (a checker whose children are not solid) and the port's own
@@ -36,8 +37,8 @@ JAX's ``lax.while_loop`` becomes a Python loop.  The host knows how many
 lanes each iteration claims (the idle count and the queue position), so the
 only device-to-host read per iteration is the count of lanes still active,
 which decides whether to go on.  ``COUNTS`` accumulates the iterations
-(one K3 launch each on a flat scene's fast path, one K4 launch per page on
-a clustered scene's) and the ray segments intersected.  The JAX fast
+(one K3 launch each on a flat scene's fast path, one K4 launch on a
+clustered scene's) and the ray segments intersected.  The JAX fast
 path's ray sorting on its cluster path (``sort_pool``, ``cfg.sort_rays``)
 orders lanes for its tile-granular kernel; the port's kernel walks each
 ray on its own, so ``sort_rays`` is accepted and does nothing.
@@ -47,7 +48,8 @@ from __future__ import annotations
 
 import torch
 
-from rt_tpu_torch import cluster_ops, fast_shade, materials, nearest_ops, prim_ops, rng, sky
+from rt_tpu_torch import cluster_ops, fast_shade, materials, megakernel, nearest_ops, prim_ops
+from rt_tpu_torch import rng, sky
 from rt_tpu_torch.camera import Camera, generate_rays
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.geometry import nearest_hit
@@ -156,26 +158,15 @@ def _render_fast(
     sph, tri, table = scene.sph_packed, scene.tri_packed, scene.shade_table
     cull = cfg.compat.triangle_backface_cull
     cl = scene.clusters
+    cl_tables = None if cl is None else megakernel.cluster_tables(cl)
 
     def intersect(rays):
         """(t, winner id, the winners' shade columns f32[F, B])."""
         if cl is None:
             return prim_nearest(rays, sph, tri, table, scene.num_spheres, cfg.t_min, cfg.t_max,
                                 cull)
-        # One K4 launch per page (wavefront.py:252-278); a later page wins
-        # only when strictly nearer.
-        t_best = slot = None
-        for page in cl.pages:
-            t_p, s_p = cluster_nearest(
-                rays, page.sph_super, page.sph_cluster, page.sph_slots, page.tri_super,
-                page.tri_cluster, page.tri_slots, cl.n_sph_slots, cfg.t_min, cfg.t_max, cull,
-                page.sph_slot_base, page.tri_slot_base)
-            if t_best is None:
-                t_best, slot = t_p, s_p
-            else:
-                better = t_p < t_best
-                t_best, slot = torch.where(better, t_p, t_best), torch.where(better, s_p, slot)
-        return t_best, slot, cl.shade_table.index_select(1, torch.clamp(slot, min=0))
+        t, slot = cluster_nearest(rays, *cl_tables, cl.n_sph_slots, cfg.t_min, cfg.t_max, cull)
+        return t, slot, cl.shade_table.index_select(1, torch.clamp(slot, min=0))
 
     acc = torch.zeros((pool.total + 1, 3), device=device)  # the last row is the sentinel
     rays = torch.cat([torch.zeros((3, b), device=device), torch.ones((5, b), device=device)])

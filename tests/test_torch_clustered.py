@@ -158,8 +158,9 @@ def test_wavefront_on_k4_matches_render_fast_and_k5():
 
 
 def test_wavefront_pages_merge_like_one_page(monkeypatch):
-    """The image rendered with pages of 64 clusters (one K4 call per page
-    per iteration) equals the image of the unpaged tables bit for bit."""
+    """A scene paged at 64 clusters renders through one K4 call per
+    iteration over its whole tables (slot bases 0), and its image equals
+    that of the same scene built unpaged, bit for bit."""
     _, cfg = _cfgs(spp=1, max_depth=3)
     cam = _camera(make_camera)
     pix = torch.arange(W * H, dtype=torch.int32)
@@ -170,19 +171,21 @@ def test_wavefront_pages_merge_like_one_page(monkeypatch):
     calls = []
 
     def counting(*args):
-        calls.append(1)
+        calls.append(args)
         return cluster_ops.cluster_worklist_nearest(*args)
 
     wavefront.COUNTS.update(iterations=0, segments=0)
     img = wavefront.render_wavefront(paged, cam, pix, cfg, 1, 0, rng.key(0), cluster_nearest=counting)
-    assert len(calls) == len(paged.clusters.pages) * wavefront.COUNTS["iterations"] > 0
+    assert len(calls) == wavefront.COUNTS["iterations"] > 0
+    tables = megakernel.cluster_tables(paged.clusters)
+    assert all(len(a) == 11 and all(x is y for x, y in zip(a[1:7], tables)) for a in calls)
     ref = wavefront.render_wavefront(whole, cam, pix, cfg, 1, 0, rng.key(0))
     assert torch.equal(img, ref)
 
 
 def test_routing(monkeypatch):
     """"auto" and "megakernel" take K5 on a clustered scene; "wavefront"
-    takes K4 once per page per iteration."""
+    takes K4 once per iteration."""
     ts = cases.tri_cloud(tscene, n_tris=135, with_materials=False).build()
     _, cfg = _cfgs(spp=1, max_depth=3)
     cam = _camera(make_camera)
@@ -200,7 +203,7 @@ def test_routing(monkeypatch):
     walks.clear()
     wavefront.COUNTS.update(iterations=0, segments=0)
     render_pixel_colors(ts, cam, cfg.replace(renderer="wavefront"), device="cpu")
-    assert not k5 and len(walks) == len(ts.clusters.pages) * wavefront.COUNTS["iterations"] > 0
+    assert not k5 and len(walks) == wavefront.COUNTS["iterations"] > 0
 
 
 def test_bvh_scenes_refuse_the_unported_traversal():
