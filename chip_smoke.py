@@ -31,8 +31,7 @@ the launch counts set to 0 just before and read just after:
   config's 64): ``render_image`` through K5, the wavefront through K4 (one
   launch per iteration), one progressive pass with the "mega" engine, and
   the CLI's ``obj:`` scene; K4/K4b and K5 are held against their plain
-  versions in both variants of their walk (boxes in shared and in global
-  memory) and on the tie scene of tests/test_torch_walk_order.py;
+  versions there and on the tie scene of tests/test_torch_walk_order.py;
 - the primitives probe (``python -m rt_tpu_torch.micro_probe all``), K6:
   ns per unit of each body and each gather mode;
 - the blob's BVH through the walk kernel: ``grad.pixel_grad`` at 800x450,
@@ -781,7 +780,7 @@ def mesh_rays(scene, camera, cfg, n: int, dev):
     pixels spread over it) and n/2 rays of the camera rays' first bounce."""
     import torch
 
-    from rt_tpu_torch import cluster_ops, fast_shade, megakernel as mk
+    from rt_tpu_torch import cluster_ops, fast_shade
     from rt_tpu_torch.camera import generate_rays
 
     n_pix = camera.image_width * camera.image_height
@@ -790,7 +789,7 @@ def mesh_rays(scene, camera, cfg, n: int, dev):
     cam_rays = torch.zeros((8, n), device=dev)
     cam_rays[0:3], cam_rays[3:6] = org.T, dirn.T
     cl = scene.clusters
-    t, slot = cluster_ops.cluster_nearest(cam_rays, *mk.cluster_tables(cl), cl.n_sph_slots,
+    t, slot = cluster_ops.cluster_nearest(cam_rays, *cluster_ops.cluster_tables(cl), cl.n_sph_slots,
                                           cfg.t_min, cfg.t_max, cfg.compat.triangle_backface_cull)
     params = cl.shade_table.index_select(1, torch.clamp(slot, min=0))
     out = fast_shade.shade_bounce(scene, cam_rays, t, slot, cfg.seed, gwork, 0, cfg, params=params)
@@ -821,9 +820,7 @@ def equal(got, ref) -> bool:
 
 def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     """K4 and K4b against their plain versions, bit for bit (t and slot ids
-    on every ray), culling on and off, in both variants (boxes staged in
-    shared memory, and from global memory with the box budget forced to 0):
-    on ``n`` rays of the config-3 blob frame, over the whole tables (K4 as
+    on every ray), culling on and off: on ``n`` rays of the config-3 blob frame, over the whole tables (K4 as
     the wavefront launches it, and K4b) and per cluster page (K4 with the
     page's slot bases; the pages merged equal the whole tables); and on the
     tie scene's rays.  Returns, for K4 (one wavefront intersect: one launch
@@ -831,39 +828,25 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     ms, bound_by)."""
     import torch
 
-    from rt_tpu_torch import cluster_ops, megakernel as mk
+    from rt_tpu_torch import cluster_ops
 
     cl = scene.clusters
     rays = mesh_rays(scene, camera, cfg, n, dev)
-    whole = mk.cluster_tables(cl)
-    pages = [(mk.cluster_tables(p), p.sph_slot_base, p.tri_slot_base) for p in cl.pages]
+    whole = cluster_ops.cluster_tables(cl)
+    pages = [(cluster_ops.cluster_tables(p), p.sph_slot_base, p.tri_slot_base) for p in cl.pages]
     ns = cl.n_sph_slots
-    budgets = {"shared": cluster_ops.BOX_BUDGET, "global": 0}
-    check(cluster_ops.staged(whole, cluster_ops.BOX_BUDGET) == "shared",
-          "the blob's boxes do not fit the default box budget")
     tie_scene, tie_rays = tie_cases()
     tie = tie_scene().clusters.to(dev)
     t_rays = tie_rays().to(dev)
-    t_whole = mk.cluster_tables(tie)
-    # The plain walk at the frame's culling counts its work and is timed.
-    work, k4_plain_ms = {}, 0.0
-    for cull in (cfg.compat.triangle_backface_cull, not cfg.compat.triangle_backface_cull):
+    t_whole = cluster_ops.cluster_tables(tie)
+    for cull in (True, False):
         args = (ns, cfg.t_min, cfg.t_max, cull)
-        counting = cull == cfg.compat.triangle_backface_cull
-        sync(dev)
-        t0 = time.perf_counter()
-        ref = cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work if counting else None)
-        sync(dev)
-        k4_plain_ms = (time.perf_counter() - t0) * 1e3 if counting else k4_plain_ms
+        ref = cluster_ops.cluster_nearest_plain(rays, *whole, *args)
         t_ref = cluster_ops.cluster_nearest_plain(t_rays, *t_whole, tie.n_sph_slots, cfg.t_min,
                                                   cfg.t_max, cull)
-        same = {}
-        for variant, budget in budgets.items():
-            same[variant] = all(
-                equal(fn(rays, *whole, *args, box_budget=budget), ref)
-                and equal(fn(t_rays, *t_whole, tie.n_sph_slots, cfg.t_min, cfg.t_max, cull,
-                             box_budget=budget), t_ref)
-                for fn in (cluster_ops.cluster_worklist_nearest, cluster_ops.cluster_nearest))
+        same = {fn.__name__: equal(fn(rays, *whole, *args), ref)
+                and equal(fn(t_rays, *t_whole, tie.n_sph_slots, cfg.t_min, cfg.t_max, cull), t_ref)
+                for fn in (cluster_ops.cluster_worklist_nearest, cluster_ops.cluster_nearest)}
         pages_same, merged_k, merged_p = True, None, None
         for tables, s_base, t_base in pages:
             k = cluster_ops.cluster_worklist_nearest(rays, *tables, *args, s_base, t_base)
@@ -877,26 +860,30 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
         paged_same = equal(merged_k, ref) and equal(merged_p, ref)
         hit = ref[1] >= 0
         print(f"[K4] {n} rays (camera + first bounce) x {scene.num_triangles} triangles, cull "
-              f"{cull}: K4 and K4b over the whole tables equal to plain, boxes in shared memory "
-              f"{same['shared']}, in global memory {same['global']}; every K4 page equal to "
-              f"plain {pages_same}; the {len(pages)} pages merged equal to the whole tables "
-              f"{paged_same}; hits {int(hit.sum())}; the tie scene's {t_rays.shape[1]} rays "
-              f"(hits {int((t_ref[1] >= 0).sum())}) in both")
+              f"{cull}: over the whole tables, and on the tie scene's {t_rays.shape[1]} rays "
+              f"(hits {int((t_ref[1] >= 0).sum())}), equal to plain: K4 "
+              f"{same['cluster_worklist_nearest']}, K4b {same['cluster_nearest']}; every K4 page "
+              f"equal to plain {pages_same}; the {len(pages)} pages merged equal to the whole "
+              f"tables {paged_same}; hits {int(hit.sum())}")
         check(all(same.values()) and pages_same and paged_same and int(hit.sum()) > n // 4,
               "K4/K4b: kernel and plain version disagree")
     args = (ns, cfg.t_min, cfg.t_max, cfg.compat.triangle_backface_cull)
     _, k4_ms = timer(lambda: cluster_ops.cluster_worklist_nearest(rays, *whole, *args), 5)
+    _, k4_plain_ms = timer(lambda: cluster_ops.cluster_nearest_plain(rays, *whole, *args), 1)
     _, k4b_ms = timer(lambda: cluster_ops.cluster_nearest(rays, *whole, *args), 5)
-    _, k4_global_ms = timer(
-        lambda: cluster_ops.cluster_worklist_nearest(rays, *whole, *args, box_budget=0), 5)
+    _, k4b_plain_ms = timer(lambda: cluster_ops.cluster_nearest_plain(rays, *whole, *args), 1)
     _, pages_ms = timer(lambda: [cluster_ops.cluster_worklist_nearest(rays, *t, *args, sb, tb)
                                  for t, sb, tb in pages], 5)
+    # The work is counted apart from the timed plain runs (counting syncs
+    # with the host).  K4 and K4b compute one function on the same rays,
+    # so they share one bound.
+    work = {}
+    cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work)
     k4_bound = walk_bound(work, walk_bytes(work, n, whole[0].shape[0] + whole[3].shape[0]))
     print(f"[K4] walk work on these rays (tests; supers and clusters entered): "
-          f"{walk_counts(work)}; boxes {cluster_ops.box_bytes(whole)} B")
-    print(f"[K4] one launch over the whole tables: {k4_ms:.4f} ms with the boxes in shared "
-          f"memory, {k4_global_ms:.4f} ms in global memory; the {len(pages)} page launches "
-          f"together {pages_ms:.4f} ms")
+          f"{walk_counts(work)}")
+    print(f"[K4] one launch over the whole tables: {k4_ms:.4f} ms; the {len(pages)} page "
+          f"launches together {pages_ms:.4f} ms")
     # Coherent against incoherent rays, and four times the rays.
     tests = walk_tests(work)
     for label, part in (("camera rays", rays[:, : n // 2]), ("first bounces", rays[:, n // 2 :])):
@@ -910,16 +897,15 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     _, ms4 = timer(lambda: cluster_ops.cluster_nearest(four, *whole, *args), 5)
     print(f"[K4] K4b on the rays four times over ({4 * n}): {ms4:.4f} ms, "
           f"{ms4 * 1e6 / (4 * tests):.4f} ns per test (at {n}: {k4b_ms * 1e6 / tests:.4f})")
-    return (0.0, k4_ms, k4_plain_ms, *k4_bound), (0.0, k4b_ms, k4_plain_ms, *k4_bound)
+    return (0.0, k4_ms, k4_plain_ms, *k4_bound), (0.0, k4b_ms, k4b_plain_ms, *k4_bound)
 
 
 def k5_small_phase(dev):
-    """K5 against its plain version, bit for bit, in both variants: the
-    32x24 triangle-cloud and image-textured triangle scenes of
+    """K5 against its plain version, bit for bit: the 32x24 triangle-cloud and image-textured triangle scenes of
     tests/test_megakernel_cluster.py, and the tie scene seen from above."""
     import torch
 
-    from rt_tpu_torch import cluster_ops, megakernel as mk
+    from rt_tpu_torch import megakernel as mk
     from rt_tpu_torch import scene as tscene
     from rt_tpu_torch.camera import make_camera
     from rt_tpu_torch.config import RenderConfig
@@ -940,12 +926,10 @@ def k5_small_phase(dev):
                              ("tie scene", tie_scene, down)):
         small = build().to(dev)
         ref = mk.render_megakernel_plain(small, cam, small_cfg, 2, 0, 0)
-        same = {v: bool(torch.equal(mk.render_megakernel(small, cam, small_cfg, 2, 0, 0,
-                                                         box_budget=b), ref))
-                for v, b in (("shared", cluster_ops.BOX_BUDGET), ("global", 0))}
-        print(f"[K5] {name} 32x24 2 spp depth 6: equal to plain, boxes in shared memory "
-              f"{same['shared']}, in global memory {same['global']}; mean {float(ref.mean()):.4f}")
-        check(all(same.values()), f"K5 {name}: kernel and plain version disagree")
+        same = bool(torch.equal(mk.render_megakernel(small, cam, small_cfg, 2, 0, 0), ref))
+        print(f"[K5] {name} 32x24 2 spp depth 6: equal to plain {same}; mean "
+              f"{float(ref.mean()):.4f}")
+        check(same, f"K5 {name}: kernel and plain version disagree")
 
 
 def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
@@ -954,8 +938,8 @@ def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 
     ``frame`` is K5's full-frame launch at ``cfg``'s spp (``frame_ms`` per
     launch); its pixels are independent, so ``runs`` runs of ``run_len``
     pixels spread down the frame's diagonal are held against
-    render_megakernel_plain on the same pixels at the same spp, and so is a
-    full-frame launch of the global-memory variant.  The plain walk counts
+    render_megakernel_plain on the same pixels at the same spp.  The plain
+    walk counts
     its tests on those pixels, scaled to the frame, and the clusters and
     shade rows they touch: the frame's least time.  Returns (max |d|, frame
     ms, plain ms on the runs, bound ms, bound_by)."""
@@ -969,16 +953,14 @@ def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 
     def counted(scene_, cfg_, rays):
         c = scene_.clusters
         t, slot = cluster_ops.cluster_nearest_plain(
-            rays, *mk.cluster_tables(c), c.n_sph_slots, cfg_.t_min, cfg_.t_max,
+            rays, *cluster_ops.cluster_tables(c), c.n_sph_slots, cfg_.t_min, cfg_.t_max,
             cfg_.compat.triangle_backface_cull, work=work)
         winners.update(slot[slot >= 0].unique().tolist())
         return t, slot
 
-    global_frame, global_ms = timed_cuda(
-        lambda: mk.render_megakernel(scene, camera, cfg, spp, 0, cfg.seed, box_budget=0), 3)
     bases = [(h * (2 * k + 1) // (2 * runs)) * w + (w - run_len) * k // (runs - 1)
              for k in range(runs)]
-    err, same, same_global, refs, plain_ms = 0.0, True, True, [], 0.0
+    err, same, refs, plain_ms = 0.0, True, [], 0.0
     for base in bases:
         sync(dev)
         t0 = time.perf_counter()
@@ -989,17 +971,14 @@ def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 
         got = frame[base : base + run_len]
         err = max(err, float((got - ref).abs().max()))
         same = same and bool(torch.equal(got, ref))
-        same_global = same_global and bool(torch.equal(global_frame[base : base + run_len], ref))
         refs.append(ref)
     refs = torch.cat(refs)
     n_sample = runs * run_len
     print(f"[K5] config-3 {name} {w}x{h} {spp} spp depth {cfg.max_depth}: the full-frame launch "
           f"against plain on {runs} runs of {run_len} pixels down the diagonal (first pixels "
-          f"{bases}): equal {same}, the global-memory variant's frame ({global_ms:.4f} ms a "
-          f"launch, mean of 3) equal {same_global}, max|d| {err:.3e}, sample mean "
-          f"{float(refs.mean()):.4f}; walk work "
-          f"{walk_counts(work)}, {len(winners)} distinct winners")
-    check(same and same_global and bool(torch.isfinite(refs).all()) and float(refs.mean()) > 0.01,
+          f"{bases}): equal {same}, max|d| {err:.3e}, sample mean {float(refs.mean()):.4f}; "
+          f"walk work {walk_counts(work)}, {len(winners)} distinct winners")
+    check(same and bool(torch.isfinite(refs).all()) and float(refs.mean()) > 0.01,
           f"K5: kernel and plain version disagree on the {name} frame")
     cl = scene.clusters
     nbytes = (walk_bytes(work, 0, cl.sph_super.shape[0] + cl.tri_super.shape[0])
@@ -1023,12 +1002,11 @@ def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
                        max_depth=MESH_DEPTH)
     frames, runs = {}, {}
     mk.LAUNCHES_CLUSTERED = 0
-    mk.CLUSTERED_VARIANT_LAUNCHES.update({"shared": 0, "global": 0})
     for name, scene in scenes_.items():
         img, m = render_image(scene, camera, cfg, device=dev)
         again, m2 = render_image(scene, camera, cfg, device=dev)
         runs[name] = (img, m, again, m2)
-    launches, variants = mk.LAUNCHES_CLUSTERED, dict(mk.CLUSTERED_VARIANT_LAUNCHES)
+    launches = mk.LAUNCHES_CLUSTERED
     kernel_ms = {}
     for name, (img, m, again, m2) in runs.items():
         print(f"[config3] {name} {MESH_W}x{MESH_H} {MESH_SPP} spp (the config's 64 cut to "
@@ -1044,9 +1022,8 @@ def mesh_frames_phase(dev, card: str, scenes_: dict, timer):
         rays = MESH_SPP * MESH_W * MESH_H
         print(f"[config3] {name}: K5 {kernel_ms[name]:.3f} ms per launch (CUDA events, mean of 5 "
               f"after a warm-up), {rays / kernel_ms[name] / 1e3:.3f} Mray/s in the kernel")
-    print(f"[config3] K5 launches during the render_image frames: {launches} {variants}")
-    check(launches == variants["shared"] == 2 * len(scenes_),
-          "the config-3 frames did not go through K5 with its boxes in shared memory")
+    print(f"[config3] K5 launches during the render_image frames: {launches}")
+    check(launches == 2 * len(scenes_), "the config-3 frames did not go through K5")
     return launches, kernel_ms, frames
 
 
@@ -1656,7 +1633,7 @@ def main() -> int:
     k4, k4b = cluster_phase(dev, blob, mesh_camera, mesh_cfg, timed_cuda)
     print(f"[time] K4 cluster_worklist_nearest, 65536 rays x the blob's whole tables (one "
           f"wavefront intersect) on {card}: kernel {k4[1]:.4f} ms, plain {k4[2]:.2f} ms, "
-          f"bound {k4[3]:.4f} ms (CUDA events, mean of 5 after a warm-up; plain: its first run, wall)")
+          f"bound {k4[3]:.4f} ms (CUDA events, mean of 5 after a warm-up; plain: one run after one)")
     print(f"[time] K4b cluster_nearest, the same rays x the whole tables on {card}: kernel "
           f"{k4b[1]:.4f} ms, plain {k4b[2]:.2f} ms, bound {k4b[3]:.4f} ms")
 

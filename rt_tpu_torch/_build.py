@@ -106,12 +106,12 @@ def library() -> ctypes.CDLL:
                        ptr, ptr, ptr, ptr]
         fn.restype = i32
         fn = lib.rt_cluster_nearest
-        fn.argtypes = [ptr, i32] + [ptr, i32, ptr, i32, ptr, i32] * 2 + [f32, f32, i32, i32, ptr,
-                                                                         ptr, ptr]
+        fn.argtypes = [ptr, i32] + [ptr, i32, ptr, i32, ptr, i32] * 2 + [f32, f32, i32, ptr, ptr,
+                                                                         ptr]
         fn.restype = i32
         fn = lib.rt_megakernel_clustered
         fn.argtypes = ([ptr] + [i32] * 4 + [ctypes.c_uint] + [i32] * 6
-                       + [ptr, i32, ptr, i32, ptr] * 2 + [i32, ptr, ptr, ptr, ptr, i32, ptr])
+                       + [ptr, i32, ptr, i32, ptr] * 2 + [i32, ptr, ptr, ptr, ptr, ptr])
         fn.restype = i32
         fn = lib.rt_micro_reduce
         fn.argtypes = [ptr, ptr] + [i32] * 3 + [ptr] * 6

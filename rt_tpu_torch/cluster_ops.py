@@ -26,11 +26,6 @@ shares) or raises; on a CPU tensor it runs ``cluster_nearest_plain``, the
 same walk in plain PyTorch, which the tests hold against the Pallas kernels
 in interpret mode and against which the kernel is held on the card.  The
 clustered megakernel's plain version searches through it too.
-
-The kernel stages the super and cluster boxes in shared memory when they
-take at most ``box_budget`` bytes (``BOX_BUDGET`` by default) and reads
-them from global memory otherwise: two variants of one kernel, with the
-same results, counted apart in ``VARIANT_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -53,17 +48,10 @@ PAD_ADD = float(np.float32(1e-6))
 # Rays per pass of the plain walk: bounds its [rays, 128] temporaries.
 _PLAIN_CHUNK = 1 << 16
 
-# Bytes of super and cluster boxes (32 a box, both kinds) up to which the
-# kernels stage them in shared memory, once a block.  ~2,000 boxes: the
-# tables of ~250k triangles.
-BOX_BUDGET = 64 * 1024
-
-# Launches of the CUDA kernel per wrapper, and per variant (boxes in
-# "shared" or "global" memory) over both wrappers, since the last reset.
-# Only the wrappers change them, once per launch; callers read and reset
-# them to show that a run went through the kernel.
+# Launches of the CUDA kernel per wrapper since the last reset.  Only the
+# wrappers change them, once per launch; callers read and reset them to
+# show that a run went through the kernel.
 LAUNCHES = {"cluster_worklist_nearest": 0, "cluster_nearest": 0}
-VARIANT_LAUNCHES = {"shared": 0, "global": 0}
 
 
 def _enters(box, r, best):
@@ -220,6 +208,14 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tr
     return t_out, i_out
 
 
+def cluster_tables(cl) -> tuple:
+    """The whole two-level tables of ``ClusterData`` (or one of its pages)
+    in the order the wrappers take them: (sph_super, sph_cluster,
+    sph_slots, tri_super, tri_cluster, tri_slots)."""
+    return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
+            cl.tri_slots)
+
+
 def check_tables(name: str, tables) -> None:
     """Raise unless ``tables`` (sph_super, sph_cluster, sph_slots,
     tri_super, tri_cluster, tri_slots) have the two-level layout."""
@@ -245,7 +241,7 @@ def _check_rays(name: str, rays) -> None:
 def cluster_worklist_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_cluster,
                              tri_slots, n_sph_slots: int, t_min: float, t_max: float,
                              backface_cull: bool = True, sph_slot_base: int = 0,
-                             tri_slot_base: int = 0, *, box_budget: int = BOX_BUDGET):
+                             tri_slot_base: int = 0):
     """K4: (t f32[N], slot int32[N]) over the whole cluster tables, or
     over one page of them with its slot bases."""
     tables = (sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots)
@@ -255,31 +251,18 @@ def cluster_worklist_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super,
         return cluster_nearest_plain(rays, *tables, n_sph_slots, t_min, t_max, backface_cull,
                                      sph_slot_base, tri_slot_base)
     return _launch("cluster_worklist_nearest", rays, tables, sph_slot_base,
-                   n_sph_slots + tri_slot_base, t_min, t_max, backface_cull, box_budget)
+                   n_sph_slots + tri_slot_base, t_min, t_max, backface_cull)
 
 
 def cluster_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots,
-                    n_sph_slots: int, t_min: float, t_max: float, backface_cull: bool = True, *,
-                    box_budget: int = BOX_BUDGET):
+                    n_sph_slots: int, t_min: float, t_max: float, backface_cull: bool = True):
     """K4b: (t f32[N], slot int32[N]) over unpaged cluster tables."""
     tables = (sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots)
     _check_rays("cluster_nearest", rays)
     check_tables("cluster_nearest", tables)
     if rays.device.type == "cpu":
         return cluster_nearest_plain(rays, *tables, n_sph_slots, t_min, t_max, backface_cull)
-    return _launch("cluster_nearest", rays, tables, 0, n_sph_slots, t_min, t_max, backface_cull,
-                   box_budget)
-
-
-def box_bytes(tables) -> int:
-    """Bytes of the super and cluster boxes of both kinds in ``tables``."""
-    return 32 * sum(tables[k].shape[0] for k in (0, 1, 3, 4))
-
-
-def staged(tables, box_budget: int) -> str:
-    """The kernels' variant for these tables: "shared" when their boxes
-    fit ``box_budget`` bytes of shared memory, else "global"."""
-    return "shared" if box_bytes(tables) <= box_budget else "global"
+    return _launch("cluster_nearest", rays, tables, 0, n_sph_slots, t_min, t_max, backface_cull)
 
 
 def cluster_args(tables, device, name: str = "cluster tables") -> list:
@@ -295,7 +278,7 @@ def cluster_args(tables, device, name: str = "cluster tables") -> list:
 
 
 def _launch(name: str, rays, tables, sph_base: int, tri_base: int, t_min: float, t_max: float,
-            backface_cull: bool, box_budget: int):
+            backface_cull: bool):
     """Wrapper of the CUDA kernel: checks its inputs, allocates the outputs
     and launches on the current stream.  Raises on any failure."""
     device = rays.device
@@ -307,18 +290,15 @@ def _launch(name: str, rays, tables, sph_base: int, tri_base: int, t_min: float,
     n = rays.shape[1]
     t_out = torch.empty((n,), dtype=torch.float32, device=device)
     idx = torch.empty((n,), dtype=torch.int32, device=device)
-    variant = staged(tables, box_budget)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rt_cluster_nearest(
             rays.data_ptr(), n, s_sup, s_n_sup, s_cl, s_n_cl, s_slots, int(sph_base),
             t_sup, t_n_sup, t_cl, t_n_cl, t_slots, int(tri_base), t_min, t_max,
-            int(bool(backface_cull)), int(variant == "shared"), t_out.data_ptr(), idx.data_ptr(),
-            stream,
+            int(bool(backface_cull)), t_out.data_ptr(), idx.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
-    VARIANT_LAUNCHES[variant] += 1
     return t_out, idx

@@ -13,15 +13,14 @@
 // The wavefront launches it once per intersect over the whole tables
 // (bases 0); a call on one cluster page (its slot bases) stays possible.
 //
-// Design.  A persistent grid: each block stages the box tables in shared
-// memory once (cluster_walk.cuh), then each warp takes `per_warp`
-// consecutive rays at a time, lane l < per_warp loading one ray from the
-// [8, N] rows (neighbouring lanes, neighbouring addresses), and walks them
-// one after another with all 32 lanes (cluster_walk.cuh warp_walk_rays).
-// The lane of each ray writes its (t, id).
+// Design.  A persistent grid: each warp takes `per_warp` consecutive rays
+// at a time, lane l < per_warp loading one ray from the [8, N] rows
+// (neighbouring lanes, neighbouring addresses), and walks them one after
+// another with all 32 lanes (cluster_walk.cuh warp_walk_rays).  The lane
+// of each ray writes its (t, id).
 //
 // What bounds it on this card: the walk's chain of dependent steps for each
-// ray (slab tests from shared memory, ballots, shuffles, the slot rows from
+// ray (slab tests on boxes from L1, ballots, shuffles, the slot rows from
 // L2, the warp minimum); the operations (20 FLOP a slab test, 24 a sphere
 // pair, 46 a triangle pair) and the bytes are far below the card's rates
 // (PERF.md).  A warp's rays run one after another, so the launch's time is
@@ -30,6 +29,7 @@
 // enough rays to fill every resident warp that way, and fewer (down to
 // one) otherwise, so that a wavefront of 65,536 rays still fills the card.
 #include <algorithm>
+#include <atomic>
 
 #include <cuda_runtime.h>
 
@@ -39,14 +39,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 cluster_nearest_kernel(const float* __restrict__ rays, int n, int per_warp, rt::ClusterSet sph,
                        rt::ClusterSet tri, float t_min, float t_max, int backface_cull,
                        float* __restrict__ t_out, int* __restrict__ idx_out) {
-  extern __shared__ __align__(16) float boxes[];
-  __shared__ __align__(8) uint64_t bar;
-  rt::stage_boxes<kShared>(sph, tri, boxes, &bar);
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * (kThreads / 32);
   const bool cull = backface_cull != 0;
@@ -58,8 +54,8 @@ cluster_nearest_kernel(const float* __restrict__ rays, int n, int per_warp, rt::
     const float dx = rays[3 * n + k], dy = rays[4 * n + k], dz = rays[5 * n + k];
     float t = rt::BIG;
     int idx = -1;
-    rt::warp_walk_rays<kShared>(sph, tri, __ballot_sync(rt::kFullMask, mine), ox, oy, oz, dx, dy,
-                                dz, t_min, t_max, cull, lane, t, idx);
+    rt::warp_walk_rays(sph, tri, __ballot_sync(rt::kFullMask, mine), ox, oy, oz, dx, dy, dz,
+                       t_min, t_max, cull, lane, t, idx);
     if (mine) {
       t_out[i] = t;
       idx_out[i] = idx;
@@ -73,20 +69,20 @@ rt::ClusterSet make_set(const float* supers, int n_supers, const float* clusters
                         (long long)n_clusters * rt::kClusterSlots, id_base};
 }
 
-template <bool kShared>
+std::atomic<int> resident[rt::kMaxDevices];  // cluster_nearest_kernel's grid per device
+
 cudaError_t launch(const float* rays, int n, const rt::ClusterSet& sph, const rt::ClusterSet& tri,
                    float t_min, float t_max, int backface_cull, float* t_out, int* idx_out,
                    cudaStream_t stream) {
-  const size_t smem = kShared ? rt::box_bytes(sph, tri) : 0;
   int fit = 0;
-  const cudaError_t e = rt::resident_blocks(cluster_nearest_kernel<kShared>, kThreads, smem, fit);
+  const cudaError_t e = rt::resident_blocks(cluster_nearest_kernel, kThreads, resident, fit);
   if (e != cudaSuccess) return e;
   // Rays a warp: as many as it takes for the resident warps to hold them
   // all, at most 32; then only as many blocks as those rays need.
   const long long warps = (long long)fit * (kThreads / 32);
   const int per_warp = (int)std::min<long long>(32, std::max<long long>(1, (n + warps - 1) / warps));
   const long long want = ((long long)n + per_warp * kThreads / 32 - 1) / (per_warp * kThreads / 32);
-  cluster_nearest_kernel<kShared><<<(int)std::min<long long>(want, fit), kThreads, smem, stream>>>(
+  cluster_nearest_kernel<<<(int)std::min<long long>(want, fit), kThreads, 0, stream>>>(
       rays, n, per_warp, sph, tri, t_min, t_max, backface_cull, t_out, idx_out);
   return cudaGetLastError();
 }
@@ -95,9 +91,7 @@ cudaError_t launch(const float* rays, int n, const rt::ClusterSet& sph, const rt
 
 // C entry point (ctypes).  Every pointer is device memory: rays f32[8, n];
 // per kind the super and cluster AABBs f32[., 8] (16-byte aligned) and the
-// slot table f32[rows, n_clusters * 128].  `stage_boxes` nonzero stages the
-// boxes in shared memory (the caller checks that they fit its budget);
-// zero reads them from global memory.  Launches on `stream` and returns the
+// slot table f32[rows, n_clusters * 128].  Launches on `stream` and returns the
 // CUDA error of the launch (0 on success); it neither allocates nor
 // synchronizes.
 extern "C" int rt_cluster_nearest(const float* rays, int n, const float* sph_super,
@@ -105,17 +99,13 @@ extern "C" int rt_cluster_nearest(const float* rays, int n, const float* sph_sup
                                   const float* sph_slots, int sph_base, const float* tri_super,
                                   int n_tri_super, const float* tri_cluster, int n_tri_cluster,
                                   const float* tri_slots, int tri_base, float t_min, float t_max,
-                                  int backface_cull, int stage_boxes, float* t_out, int* idx_out,
+                                  int backface_cull, float* t_out, int* idx_out,
                                   cudaStream_t stream) {
   if (n <= 0) return 0;
   const rt::ClusterSet sph =
       make_set(sph_super, n_sph_super, sph_cluster, n_sph_cluster, sph_slots, sph_base);
   const rt::ClusterSet tri =
       make_set(tri_super, n_tri_super, tri_cluster, n_tri_cluster, tri_slots, tri_base);
-  const cudaError_t e =
-      stage_boxes ? launch<true>(rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out,
-                                 stream)
-                  : launch<false>(rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out,
-                                  stream);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      launch(rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out, stream));
 }

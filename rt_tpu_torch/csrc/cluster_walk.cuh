@@ -28,11 +28,10 @@
 //     row of the cluster (128 consecutive floats, 512 B) is one coalesced
 //     16-byte load a lane and a cluster's 4 or 10 rows are in flight at
 //     once; a warp minimum picks the winner.
-// The super and cluster boxes of both kinds are staged once per block in
-// shared memory (one bulk asynchronous copy each, completed on an
-// mbarrier), so the slab tests read shared memory; scenes whose boxes
-// exceed the caller's byte budget read them from global memory instead (the
-// kShared = false variant of the same code).  What remains is the latency
+// The super and cluster boxes are read through the read-only cache
+// (__ldg): the blob's ~40 KB of boxes stay in L1/L2, and staging them in
+// shared memory once a block (a bulk asynchronous copy on an mbarrier) was
+// measured no faster on this card (PERF.md).  What remains is the latency
 // of the slot rows (L2) and the walk's chain of ballots and shuffles: the
 // callers keep enough warps resident to hide them.
 //
@@ -63,6 +62,7 @@
 // JAX package read.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -78,7 +78,7 @@ constexpr unsigned kNoKey = 0xffffffffu;  // no valid slot (the key of no float 
 
 // One primitive kind's two-level tables.  Winner ids are id_base + slot.
 struct ClusterSet {
-  const float* supers;    // [n_supers, 8]: lo xyz, hi xyz, pad (global or shared memory)
+  const float* supers;    // [n_supers, 8]: lo xyz, hi xyz, pad
   const float* clusters;  // [n_clusters, 8]
   const float* slots;     // [rows, stride] field-row-major, global memory
   int n_supers, n_clusters;
@@ -105,17 +105,9 @@ __device__ __forceinline__ WalkRay walk_ray(float ox, float oy, float oz, float 
 // condition: is box b live and does the ray's line meet it ahead of the
 // origin?  Sets tn, the entry distance; the ray enters b when also tn <
 // its best t.
-template <bool kShared>
 __device__ __forceinline__ bool admits(const float* __restrict__ b, const WalkRay& r, float& tn) {
-  float4 lo;  // lx ly lz hx
-  float2 hi;  // hy hz
-  if (kShared) {
-    lo = *reinterpret_cast<const float4*>(b);
-    hi = *reinterpret_cast<const float2*>(b + 4);
-  } else {
-    lo = __ldg(reinterpret_cast<const float4*>(b));
-    hi = __ldg(reinterpret_cast<const float2*>(b + 4));
-  }
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(b));      // lx ly lz hx
+  const float2 hi = __ldg(reinterpret_cast<const float2*>(b + 4));  // hy hz
   const float t0x = (lo.x - r.ox) * r.idx, t1x = (lo.w - r.ox) * r.idx;
   const float t0y = (lo.y - r.oy) * r.idy, t1y = (hi.x - r.oy) * r.idy;
   const float t0z = (lo.z - r.oz) * r.idz, t1z = (hi.y - r.oz) * r.idz;
@@ -228,22 +220,22 @@ __device__ __forceinline__ void visit_clusters(const ClusterSet& s, unsigned adm
 
 // One kind's walk of one ray by the whole warp (every lane passes the same
 // ray and best; all 32 lanes must take part).
-template <bool kShared, bool kSpheres>
+template <bool kSpheres>
 __device__ __forceinline__ void walk_set(const ClusterSet& s, const WalkRay& r, float t_min,
                                          float t_max, bool cull, int lane, float& best_t,
                                          int& best_i) {
   for (int s0 = 0; s0 < s.n_supers; s0 += 32) {
     float tn_s = 0.0f;
     const int sl = s0 + lane;
-    const bool adm_s = sl < s.n_supers && admits<kShared>(s.supers + 8 * sl, r, tn_s);
+    const bool adm_s = sl < s.n_supers && admits(s.supers + 8 * sl, r, tn_s);
     for (unsigned m = __ballot_sync(kFullMask, adm_s); m; m &= m - 1) {
       const int b = __ffs(m) - 1;
       if (!(__shfl_sync(kFullMask, tn_s, b) < best_t)) continue;
       const int c0 = (s0 + b) * kSuperClusters;
       float tn_lo = 0.0f, tn_hi = 0.0f;
       const int cl = c0 + lane, ch = c0 + 32 + lane;
-      const bool adm_lo = cl < s.n_clusters && admits<kShared>(s.clusters + 8 * cl, r, tn_lo);
-      const bool adm_hi = ch < s.n_clusters && admits<kShared>(s.clusters + 8 * ch, r, tn_hi);
+      const bool adm_lo = cl < s.n_clusters && admits(s.clusters + 8 * cl, r, tn_lo);
+      const bool adm_hi = ch < s.n_clusters && admits(s.clusters + 8 * ch, r, tn_hi);
       const unsigned m_lo = __ballot_sync(kFullMask, adm_lo);
       const unsigned m_hi = __ballot_sync(kFullMask, adm_hi);
       visit_clusters<kSpheres>(s, m_lo, tn_lo, c0, r, t_min, t_max, cull, lane, best_t, best_i);
@@ -258,7 +250,6 @@ __device__ __forceinline__ void walk_set(const ClusterSet& s, const WalkRay& r, 
 // passes it; lane l's (t_out, i_out) are set to its ray's nearest hit
 // (BIG and -1 on a miss) and left alone when l is not in `active`.
 // Every lane of the warp must call it, with the same `active`.
-template <bool kShared>
 __device__ __forceinline__ void warp_walk_rays(const ClusterSet& sph, const ClusterSet& tri,
                                                unsigned active, float ox, float oy, float oz,
                                                float dx, float dy, float dz, float t_min,
@@ -271,8 +262,8 @@ __device__ __forceinline__ void warp_walk_rays(const ClusterSet& sph, const Clus
                                __shfl_sync(kFullMask, dy, src), __shfl_sync(kFullMask, dz, src));
     float best_t = BIG;
     int best_i = -1;
-    walk_set<kShared, true>(sph, r, t_min, t_max, cull, lane, best_t, best_i);
-    walk_set<kShared, false>(tri, r, t_min, t_max, cull, lane, best_t, best_i);
+    walk_set<true>(sph, r, t_min, t_max, cull, lane, best_t, best_i);
+    walk_set<false>(tri, r, t_min, t_max, cull, lane, best_t, best_i);
     if (lane == src) {
       t_out = best_t;
       i_out = best_i;
@@ -280,83 +271,28 @@ __device__ __forceinline__ void warp_walk_rays(const ClusterSet& sph, const Clus
   }
 }
 
-// -- staging the boxes in shared memory ------------------------------------------
+// Blocks of `kernel` (`threads` a block, no dynamic shared memory) that fit
+// on the current device at once: the grid of a persistent launch.  Asked of
+// the runtime once a device; `cache` (zero-initialised, one per kernel)
+// keeps the answer, so a launch costs no query.
+constexpr int kMaxDevices = 64;
 
-// Bytes of the super and cluster boxes of both kinds (32 B a box).
-inline size_t box_bytes(const ClusterSet& sph, const ClusterSet& tri) {
-  return 32u * (size_t)(sph.n_supers + sph.n_clusters + tri.n_supers + tri.n_clusters);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// With kShared, copies the four box tables into `boxes` (dynamic shared
-// memory of box_bytes(sph, tri) bytes, 16-byte aligned) with one bulk
-// asynchronous copy each, completed on the mbarrier `bar`, and points the
-// sets' boxes there.  Every thread of the block must call it; it returns
-// when the copies have landed.  Without kShared it does nothing.
-template <bool kShared>
-__device__ __forceinline__ void stage_boxes(ClusterSet& sph, ClusterSet& tri, float* boxes,
-                                            uint64_t* bar) {
-  if (!kShared) return;
-  const float* src[4] = {sph.supers, sph.clusters, tri.supers, tri.clusters};
-  const int rows[4] = {sph.n_supers, sph.n_clusters, tri.n_supers, tri.n_clusters};
-  float* dst[4];
-  unsigned total = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    dst[k] = boxes + total / 4;
-    total += 32u * (unsigned)rows[k];
-  }
-  const uint32_t b = smem_addr(bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(total)
-                 : "memory");
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (rows[k] > 0) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-            "[%3];" ::"r"(smem_addr(dst[k])),
-            "l"(src[k]), "r"(32u * (unsigned)rows[k]), "r"(b)
-            : "memory");
-      }
-    }
-  }
-  __syncthreads();  // the barrier is initialised before anyone waits on it
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(b), "r"(0)
-        : "memory");
-  }
-  sph.supers = dst[0];
-  sph.clusters = dst[1];
-  tri.supers = dst[2];
-  tri.clusters = dst[3];
-}
-
-// Blocks of `kernel` (`threads` a block, `smem` bytes of dynamic shared
-// memory) that fit on the card at once: the grid of a persistent launch.
 template <class Kernel>
-inline cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int& blocks) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+inline cudaError_t resident_blocks(Kernel kernel, int threads, std::atomic<int> (&cache)[kMaxDevices],
+                                   int& blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (blocks = cache[dev].load(std::memory_order_relaxed)) > 0) {
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   blocks = per_sm * sms;
+  if (dev < kMaxDevices) cache[dev].store(blocks, std::memory_order_relaxed);
   return cudaSuccess;
 }
 

@@ -40,16 +40,16 @@
 // pool.  A persistent grid of warps runs a converged step loop: at each
 // step every lane with work starts its pixel's next sample or continues its
 // path; the warp then walks its lanes' rays one after another, all 32 lanes
-// on each (cluster_walk.cuh, over box tables staged in shared memory once a
-// block); then each lane shades its own hit.  A lane that has summed its
-// pixel's `spp` samples writes the pixel and claims the next from a global
-// counter (one atomicAdd a warp).  What bounded the first port (one thread
-// a pixel, walking alone: 0.27% of its operation bound) was the walk's load
-// latency and a warp waiting for its longest path; here the walk's cost
-// follows the number of live paths, not the longest one, each of its steps
-// has 32 pieces of work, and the slab tests read shared memory.  What is
-// left is the walk's chain of dependent steps per ray and the divergent
-// shading, which the resident warps overlap.
+// on each (cluster_walk.cuh); then each lane shades its own hit.  A lane
+// that has summed its pixel's `spp` samples writes the pixel and claims the
+// next from a global counter (one atomicAdd a warp).  What bounded the
+// first port (one thread a pixel, walking alone: 0.27% of its operation
+// bound) was the walk's load latency and a warp waiting for its longest
+// path; here the walk's cost follows the number of live paths, not the
+// longest one, each of its steps has 32 pieces of work, and its loads are
+// coalesced rows.  What is left is the walk's chain of dependent steps per
+// ray and the divergent shading, which the resident warps overlap.
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -458,14 +458,10 @@ __global__ void __launch_bounds__(kBlock)
 
 // K5: a persistent grid of warps in a converged step loop (see the top of
 // this file).  `next_pixel` is a device int, 0 at launch: the claim counter.
-template <bool kShared>
 __global__ void __launch_bounds__(kClusteredBlock)
-    megakernel_clustered(const Params p, const Ints q, ClusterSet sph, ClusterSet tri,
+    megakernel_clustered(const Params p, const Ints q, const ClusterSet sph, const ClusterSet tri,
                          const float* __restrict__ table, const float* __restrict__ atlas,
                          float* __restrict__ out, int* __restrict__ next_pixel) {
-  extern __shared__ __align__(16) float boxes[];
-  __shared__ __align__(8) uint64_t bar;
-  stage_boxes<kShared>(sph, tri, boxes, &bar);
   const int lane = threadIdx.x & 31;
   const unsigned lanes_below = (1u << lane) - 1u;
   const bool cull = q.flags & FLAG_BACKFACE_CULL;
@@ -508,8 +504,8 @@ __global__ void __launch_bounds__(kClusteredBlock)
     if (active == 0u) break;
     float t = BIG;
     int prim = -1;
-    warp_walk_rays<kShared>(sph, tri, active, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, p.t_min,
-                            p.t_max, cull, lane, t, prim);
+    warp_walk_rays(sph, tri, active, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, p.t_min, p.t_max,
+                   cull, lane, t, prim);
     float3 c;
     if (alive && bounce(p, q, table, atlas, Hit{t, prim}, ps, c)) {
       acc_r = acc_r + c.x;
@@ -529,16 +525,17 @@ Params load_params(const float* params) {
   return p;
 }
 
-template <bool kShared>
+std::atomic<int> resident_clustered[kMaxDevices];  // megakernel_clustered's grid per device
+
 cudaError_t launch_clustered(const Params& p, const Ints& q, const ClusterSet& sph,
                              const ClusterSet& tri, const float* table, const float* atlas,
                              float* out, int* next_pixel, cudaStream_t stream) {
-  const size_t smem = kShared ? box_bytes(sph, tri) : 0;
   int fit = 0;
-  const cudaError_t e = resident_blocks(megakernel_clustered<kShared>, kClusteredBlock, smem, fit);
+  const cudaError_t e =
+      resident_blocks(megakernel_clustered, kClusteredBlock, resident_clustered, fit);
   if (e != cudaSuccess) return e;
   const int want = (q.n_pixels + kClusteredBlock - 1) / kClusteredBlock;
-  megakernel_clustered<kShared><<<want < fit ? want : fit, kClusteredBlock, smem, stream>>>(
+  megakernel_clustered<<<want < fit ? want : fit, kClusteredBlock, 0, stream>>>(
       p, q, sph, tri, table, atlas, out, next_pixel);
   return cudaGetLastError();
 }
@@ -569,17 +566,14 @@ extern "C" int rt_megakernel_flat(const float* params, int n_pixels, int pixel_b
 // K5: per kind the super and cluster AABBs f32[., 8] (16-byte aligned) and
 // the slot table f32[rows, n_clusters * 128] of scene.ClusterData; triangle
 // slot ids start at n_sph_slots.  `table` is the slot-ordered shade table,
-// one row per slot.  `next_pixel` is one int, 0 at launch.  `stage_boxes`
-// nonzero stages the boxes in shared memory (the caller checks that they
-// fit its budget); zero reads them from global memory.
+// one row per slot.  `next_pixel` is one int, 0 at launch.
 extern "C" int rt_megakernel_clustered(
     const float* params, int n_pixels, int pixel_base, int spp, int sample_offset,
     unsigned int seed, int width, int n_global, int max_depth, int atlas_h, int atlas_w,
     int flags, const float* sph_super, int n_sph_super, const float* sph_cluster,
     int n_sph_cluster, const float* sph_slots, const float* tri_super, int n_tri_super,
     const float* tri_cluster, int n_tri_cluster, const float* tri_slots, int n_sph_slots,
-    const float* table, const float* atlas, float* out, int* next_pixel, int stage_boxes,
-    void* stream) {
+    const float* table, const float* atlas, float* out, int* next_pixel, void* stream) {
   const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
                    0, 0, atlas_h, atlas_w, flags};
   const rt::ClusterSet sph{sph_super, sph_cluster, sph_slots, n_sph_super, n_sph_cluster,
@@ -588,8 +582,5 @@ extern "C" int rt_megakernel_clustered(
                            (long long)n_tri_cluster * rt::kClusterSlots, n_sph_slots};
   const rt::Params p = rt::load_params(params);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      stage_boxes ? rt::launch_clustered<true>(p, q, sph, tri, table, atlas, out, next_pixel, s)
-                  : rt::launch_clustered<false>(p, q, sph, tri, table, atlas, out, next_pixel, s);
-  return static_cast<int>(e);
+  return static_cast<int>(rt::launch_clustered(p, q, sph, tri, table, atlas, out, next_pixel, s));
 }

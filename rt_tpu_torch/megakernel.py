@@ -44,14 +44,11 @@ from rt_tpu_torch.fast_shade import (
 from rt_tpu_torch.scene import SceneData
 from rt_tpu_torch.sky import XYZ_TO_SRGB, frame_scalars
 
-# Launches of K1 (LAUNCHES) and of K5 (LAUNCHES_CLUSTERED, and per variant:
-# boxes staged in "shared" memory or read from "global" memory, as
-# cluster_ops.staged decides) since the last reset.  Only the wrappers
-# change them, once per launch; callers read and reset them to show that a
-# run went through the kernel.
+# Launches of K1 (LAUNCHES) and of K5 (LAUNCHES_CLUSTERED) since the last
+# reset.  Only the wrappers change them, once per launch; callers read and
+# reset them to show that a run went through the kernel.
 LAUNCHES = 0
 LAUNCHES_CLUSTERED = 0
-CLUSTERED_VARIANT_LAUNCHES = {"shared": 0, "global": 0}
 
 # Static switches (csrc/rt_common.cuh FLAG_*).
 FLAG_BACKFACE_CULL = 1
@@ -120,14 +117,12 @@ def render_megakernel(
     *,
     pixel_base: int = 0,
     n_pixels: int | None = None,
-    box_budget: int = cluster_ops.BOX_BUDGET,
 ) -> torch.Tensor:
     """Mean radiance f32[n_pixels, 3] of pixels [pixel_base, pixel_base +
     n_pixels) over samples [sample_offset, sample_offset + spp), on the
     scene's device, through K1 or K5 (one launch).  ``seed`` is the hash
     seed: the JAX package's ``jax.random.key(seed)`` renders the same
-    image.  K5 stages the cluster boxes in shared memory when they fit
-    ``box_budget`` bytes (cluster_ops.staged)."""
+    image."""
     clustered = eligible_clustered(scene, cfg)
     if not (clustered or eligible(scene, cfg)):
         raise NotImplementedError(
@@ -138,7 +133,7 @@ def render_megakernel(
     if device.type == "cuda":
         if clustered:
             return _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base,
-                                     n_pixels, box_budget)
+                                     n_pixels)
         return _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels)
     if device.type == "cpu":
         return render_megakernel_plain(
@@ -220,14 +215,8 @@ def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) 
     return out
 
 
-def cluster_tables(cl) -> tuple:
-    """K5's search tables: the whole two-level tables of ``ClusterData``."""
-    return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
-            cl.tri_slots)
-
-
-def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels,
-                      box_budget: int) -> torch.Tensor:
+def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base,
+                      n_pixels) -> torch.Tensor:
     """Wrapper of K5: checks its inputs, allocates the output and the
     pixel-claim counter and launches on the current stream.  Raises on any
     failure."""
@@ -236,7 +225,7 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, 
     device = scene.device
     cl = scene.clusters
     atlas = _build.require(scene.atlas, "atlas", device)
-    tables = cluster_tables(cl)
+    tables = cluster_ops.cluster_tables(cl)
     cluster_ops.check_tables("megakernel_clustered", tables)
     if atlas.dim() != 3 or atlas.shape[2] != 3:
         raise ValueError("atlas is not in the kernel layout")
@@ -252,7 +241,6 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, 
     pf = kernel_params(scene, camera, cfg, spp)
     out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
     next_pixel = torch.zeros((1,), dtype=torch.int32, device=device)
-    variant = cluster_ops.staged(tables, box_budget)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -262,12 +250,11 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base, 
             atlas.shape[0], atlas.shape[1], _flags(scene, camera, cfg),
             s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots,
             cl.n_sph_slots, table.data_ptr(), atlas.data_ptr(), out.data_ptr(),
-            next_pixel.data_ptr(), int(variant == "shared"), stream,
+            next_pixel.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"clustered megakernel launch failed with CUDA error {err}")
     LAUNCHES_CLUSTERED += 1
-    CLUSTERED_VARIANT_LAUNCHES[variant] += 1
     return out
 
 
@@ -540,7 +527,7 @@ def cluster_search(scene, cfg, rays):
     over the whole cluster tables -> (t, slot id)."""
     cl = scene.clusters
     return cluster_ops.cluster_nearest_plain(
-        rays, *cluster_tables(cl), cl.n_sph_slots, cfg.t_min, cfg.t_max,
+        rays, *cluster_ops.cluster_tables(cl), cl.n_sph_slots, cfg.t_min, cfg.t_max,
         cfg.compat.triangle_backface_cull)
 
 

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from rt_tpu_torch import cluster_ops, fast_shade, materials, megakernel, nearest_ops, prim_ops
+from rt_tpu_torch import cluster_ops, fast_shade, materials, nearest_ops, prim_ops
 from rt_tpu_torch import rng, sky
 from rt_tpu_torch.camera import Camera, generate_rays
 from rt_tpu_torch.config import RenderConfig
@@ -158,7 +158,7 @@ def _render_fast(
     sph, tri, table = scene.sph_packed, scene.tri_packed, scene.shade_table
     cull = cfg.compat.triangle_backface_cull
     cl = scene.clusters
-    cl_tables = None if cl is None else megakernel.cluster_tables(cl)
+    cl_tables = None if cl is None else cluster_ops.cluster_tables(cl)
 
     def intersect(rays):
         """(t, winner id, the winners' shade columns f32[F, B])."""

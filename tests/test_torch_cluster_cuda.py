@@ -2,10 +2,8 @@
 
 The ``cuda`` tests run only where a card is present: built without fused
 multiply-adds, each kernel must agree with its plain version bit for bit
-(winners and t for K4/K4b, the image for K5), in both variants of its walk
-(boxes staged in shared memory, and read from global memory when the box
-budget is forced to 0), on the test scenes and on the tie scene of
-test_torch_walk_order.py.  This file imports nothing of the JAX package, so
+(winners and t for K4/K4b, the image for K5), on the test scenes and on the
+tie scene of test_torch_walk_order.py.  This file imports nothing of the JAX package, so
 that it also runs on a machine that has PyTorch for CUDA but not the JAX
 package's dependencies; the comparisons with the JAX package are in
 test_torch_cluster.py and test_torch_clustered.py.
@@ -26,12 +24,7 @@ torch.set_num_threads(2)
 
 T_MIN, T_MAX = 1e-3, 1e9
 W, H = 32, 24
-BUDGETS = (cluster_ops.BOX_BUDGET, 0)  # the shared-memory and the global-memory variant
-
-
-def _tables(cl):
-    return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
-            cl.tri_slots)
+_tables = cluster_ops.cluster_tables
 
 
 def _rays(n, seed, device="cpu"):
@@ -75,7 +68,7 @@ def test_plain_walk_does_not_depend_on_its_chunks(monkeypatch):
 @pytest.mark.cuda
 def test_cuda_cluster_kernel_matches_plain_version(monkeypatch):
     """K4 on the whole tables and per page and K4b on the whole tables,
-    culling on and off, in both variants, on a scene paged at 64 clusters:
+    culling on and off, on a scene paged at 64 clusters:
     winners and t bit for bit."""
     _cuda()
     monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
@@ -85,18 +78,15 @@ def test_cuda_cluster_kernel_matches_plain_version(monkeypatch):
     for cull in (True, False):
         ref = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
                                                 cull)
-        for budget in BUDGETS:
-            before = dict(cluster_ops.LAUNCHES)
-            variants = dict(cluster_ops.VARIANT_LAUNCHES)
-            got = cluster_ops.cluster_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
-                                              cull, box_budget=budget)
-            whole = cluster_ops.cluster_worklist_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN,
-                                                         T_MAX, cull, box_budget=budget)
-            assert cluster_ops.LAUNCHES["cluster_nearest"] == before["cluster_nearest"] + 1
-            variant = "shared" if budget else "global"
-            assert cluster_ops.VARIANT_LAUNCHES[variant] == variants[variant] + 2
-            for a, b in zip((*got, *whole), (*ref, *ref)):
-                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        before = dict(cluster_ops.LAUNCHES)
+        got = cluster_ops.cluster_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX, cull)
+        whole = cluster_ops.cluster_worklist_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN,
+                                                     T_MAX, cull)
+        assert cluster_ops.LAUNCHES["cluster_nearest"] == before["cluster_nearest"] + 1
+        assert (cluster_ops.LAUNCHES["cluster_worklist_nearest"]
+                == before["cluster_worklist_nearest"] + 1)
+        for a, b in zip((*got, *whole), (*ref, *ref)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
         for page in cl.pages:
             args = (rays, *_tables(page), cl.n_sph_slots, T_MIN, T_MAX, cull, page.sph_slot_base,
                     page.tri_slot_base)
@@ -110,7 +100,7 @@ def test_cuda_cluster_kernel_matches_plain_version(monkeypatch):
 def test_cuda_clustered_megakernel_matches_plain_version():
     """K5 against its plain version on the card: the image bit for bit on
     the triangle cloud, the image-textured triangles and the tie scene, a
-    full frame and an offset half frame, in both variants."""
+    full frame and an offset half frame."""
     _cuda()
     cam = make_camera((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=0.0,
                       image_width=W, image_height=H, vertical_fov=30.0)
@@ -124,31 +114,26 @@ def test_cuda_clustered_megakernel_matches_plain_version():
         for off, base, n in ((0, 0, None), (3, W * H // 2, W * H // 2)):
             ref = megakernel.render_megakernel_plain(scene, camera, cfg, 2, off, 0,
                                                      pixel_base=base, n_pixels=n)
-            for budget in BUDGETS:
-                before = megakernel.LAUNCHES_CLUSTERED
-                variant = "shared" if budget else "global"
-                variants = dict(megakernel.CLUSTERED_VARIANT_LAUNCHES)
-                got = megakernel.render_megakernel(scene, camera, cfg, 2, off, 0, pixel_base=base,
-                                                   n_pixels=n, box_budget=budget)
-                assert megakernel.LAUNCHES_CLUSTERED == before + 1
-                assert megakernel.CLUSTERED_VARIANT_LAUNCHES[variant] == variants[variant] + 1
-                torch.testing.assert_close(got, ref, rtol=0, atol=0)
+            before = megakernel.LAUNCHES_CLUSTERED
+            got = megakernel.render_megakernel(scene, camera, cfg, 2, off, 0, pixel_base=base,
+                                               n_pixels=n)
+            assert megakernel.LAUNCHES_CLUSTERED == before + 1
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
             assert float(ref.mean()) > 0.01
 
 
 @pytest.mark.cuda
 def test_cuda_cluster_kernel_ties_bit_for_bit():
-    """K4 and K4b on the tie scene's rays, culling on and off, both
-    variants: the first copy of every tie wins, as in the plain version."""
+    """K4 and K4b on the tie scene's rays, culling on and off: the first
+    copy of every tie wins, as in the plain version."""
     _cuda()
     cl = tie_scene().clusters.to("cuda")
     rays = tie_rays().to("cuda")
     for cull in (True, False):
         ref = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
                                                 cull)
-        for budget in BUDGETS:
-            for fn in (cluster_ops.cluster_nearest, cluster_ops.cluster_worklist_nearest):
-                got = fn(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX, cull, box_budget=budget)
-                for a, b in zip(got, ref):
-                    torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for fn in (cluster_ops.cluster_nearest, cluster_ops.cluster_worklist_nearest):
+            got = fn(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX, cull)
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert (ref[1] >= 0).sum() > 500

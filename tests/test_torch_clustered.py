@@ -135,7 +135,7 @@ def test_megakernel_plain_takes_a_search():
     def counting(scene, cfg_, rays):
         c = scene.clusters
         return cluster_ops.cluster_nearest_plain(
-            rays, *megakernel.cluster_tables(c), c.n_sph_slots, cfg_.t_min, cfg_.t_max,
+            rays, *cluster_ops.cluster_tables(c), c.n_sph_slots, cfg_.t_min, cfg_.t_max,
             cfg_.compat.triangle_backface_cull, work=work)
 
     run = megakernel.render_megakernel_plain(ts, cam, cfg, 2, 0, 0, pixel_base=300, n_pixels=16,
@@ -177,7 +177,7 @@ def test_wavefront_pages_merge_like_one_page(monkeypatch):
     wavefront.COUNTS.update(iterations=0, segments=0)
     img = wavefront.render_wavefront(paged, cam, pix, cfg, 1, 0, rng.key(0), cluster_nearest=counting)
     assert len(calls) == wavefront.COUNTS["iterations"] > 0
-    tables = megakernel.cluster_tables(paged.clusters)
+    tables = cluster_ops.cluster_tables(paged.clusters)
     assert all(len(a) == 11 and all(x is y for x, y in zip(a[1:7], tables)) for a in calls)
     ref = wavefront.render_wavefront(whole, cam, pix, cfg, 1, 0, rng.key(0))
     assert torch.equal(img, ref)

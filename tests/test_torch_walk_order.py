@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from rt_tpu_torch import cluster_ops, megakernel
+from rt_tpu_torch import cluster_ops
 from rt_tpu_torch import scene as tscene
 from rt_tpu_torch.cluster_ops import BIG, CLUSTER_SLOTS, SUPER_CLUSTERS
 from rt_tpu_torch.elementwise import div
@@ -265,7 +265,7 @@ def test_warp_walk_matches_sequential_walk(name, cull):
     cl = scene.clusters
     rays = tie_rays() if name == "ties" else torch.from_numpy(
         cases.random_rays(np.random.default_rng(5), n=1024, extent=4.0))
-    tables = megakernel.cluster_tables(cl)
+    tables = cluster_ops.cluster_tables(cl)
     stats = {}
     got = warp_walk(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, cull, stats)
     ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
@@ -282,7 +282,7 @@ def test_tie_scene_winners_are_the_first_copies():
     scene = tie_scene()
     cl = scene.clusters
     rays = tie_rays()
-    t, slot = cluster_ops.cluster_nearest_plain(rays, *megakernel.cluster_tables(cl),
+    t, slot = cluster_ops.cluster_nearest_plain(rays, *cluster_ops.cluster_tables(cl),
                                                 cl.n_sph_slots, T_MIN, T_MAX, True)
     ns = cl.n_sph_slots
     copies = [ns - SUPER_CLUSTERS * CLUSTER_SLOTS, cl.shade_table.shape[1] - SUPER_CLUSTERS * CLUSTER_SLOTS]
@@ -298,7 +298,7 @@ def test_negative_t_min_orders_negative_keys():
     scene = tie_scene()
     cl = scene.clusters
     rays = tie_rays()
-    tables = megakernel.cluster_tables(cl)
+    tables = cluster_ops.cluster_tables(cl)
     got = warp_walk(rays, tables, cl.n_sph_slots, -1.0, T_MAX, True)
     ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, -1.0, T_MAX, True)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
