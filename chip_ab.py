@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Time the brute-force kernels of two checkouts of the port in turns, on
+one NVIDIA GPU.
+
+    python3 chip_ab.py PARENT_DIR
+
+PARENT_DIR is the root of another checkout that holds ``rt_tpu_torch/``
+(for example the parent commit, unpacked with ``git archive`` into a
+git-ignored directory); each checkout builds its own kernels into its own
+``build/``.  The script runs parent, change, change, parent, each in a
+fresh process that imports only that checkout's package, and times, with
+this checkout's ``chip_smoke.timed_cuda``, at the bench configuration:
+
+- K1 (``megakernel.render_megakernel``) on the cover frame at 400x225, 10
+  and 640 spp, and at 1600x900, 10 spp;
+- K3 and K3b (``prim_ops.prim_nearest_shaded`` / ``_packed``) on the
+  65,536 rays of ``chip_smoke.prim_rays``.
+
+It prints the card, one JSON line per run and, last, whether each output
+of the first change run equals the first parent run's bit for bit, and
+exits non-zero if one differs.  Outputs go to ``build/chip_ab/``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, "build", "chip_ab")
+
+
+def run(root: str, tag: str) -> None:
+    """One timed run of the package of the checkout at ``root``."""
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch import prim_ops as po
+    from rt_tpu_torch import scenes
+    from rt_tpu_torch.config import RenderConfig
+
+    if not mk.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"{tag}: imported {mk.__file__}, not the checkout at {root}")
+    timed = smoke.timed_cuda
+    dev = torch.device("cuda:0")
+    scene, camera, cfg = scenes.bench_cover_config()
+    scene.to(dev)
+    wide_cam = scenes.cam1(1600, 900)
+    wide = scenes.cover_scene(11, 11, wide_cam, z=-0.2, seed=0).to(dev)
+    wide_cfg = RenderConfig(width=1600, height=900, samples_per_pixel=10, max_depth=50)
+    rays = smoke.prim_rays(scene, camera, cfg, 65_536, dev)
+    args = (rays, scene.sph_packed, scene.tri_packed)
+    ns = scene.num_spheres
+    outs, ms = {}, {}
+    outs["k1_10"], ms["k1_10spp_ms"] = timed(
+        lambda: mk.render_megakernel(scene, camera, cfg, 10, 0, cfg.seed), 5)
+    outs["k1_640"], ms["k1_640spp_ms"] = timed(
+        lambda: mk.render_megakernel(scene, camera, cfg, 640, 0, cfg.seed), 2)
+    outs["k1_wide"], ms["k1_1600x900_ms"] = timed(
+        lambda: mk.render_megakernel(wide, wide_cam, wide_cfg, 10, 0, wide_cfg.seed), 3)
+    outs["k3"], ms["k3_ms"] = timed(
+        lambda: po.prim_nearest_shaded(*args, scene.shade_table, ns, 1e-3, 3e38), 20)
+    outs["k3b"], ms["k3b_ms"] = timed(lambda: po.prim_nearest_packed(*args, ns, 1e-3, 3e38), 20)
+    os.makedirs(OUT, exist_ok=True)
+    torch.save({k: [x.cpu() for x in v] if isinstance(v, tuple) else v.cpu()
+                for k, v in outs.items()}, os.path.join(OUT, f"{tag}.pt"))
+    print(json.dumps({"run": tag, **ms}), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--run":
+        run(os.path.abspath(sys.argv[2]), sys.argv[3])
+        return 0
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    parent = os.path.abspath(sys.argv[1])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[card] {card}")
+    for root, tag in ((parent, "parent1"), (HERE, "change1"), (HERE, "change2"),
+                      (parent, "parent2")):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--run", root, tag], check=True)
+    a = torch.load(os.path.join(OUT, "parent1.pt"))
+    b = torch.load(os.path.join(OUT, "change1.pt"))
+    same = {k: (all(torch.equal(x, y) for x, y in zip(a[k], b[k])) if isinstance(a[k], list)
+                else torch.equal(a[k], b[k])) for k in a}
+    print(json.dumps({"bit_equal_parent_change": same}))
+    return 0 if all(same.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,10 @@ against its plain PyTorch
 version on the card, and drives each path at the bench configuration, with
 the launch counts set to 0 just before and read just after:
 
-- the forward megakernel path (``render_image`` and the CLI), K1;
+- the forward megakernel path (``render_image`` and the CLI), K1, held
+  bit for bit against its plain version on the test scenes (also cut into
+  several sample chunks) and the bench frame, and timed at 10 and 640 spp
+  and on a 1600x900 frame;
 - the gradient path (``grad.pixel_grad`` at 400x225, 1 spp), K2: finite
   gradients that agree with the same path run on K2's plain version,
   bit-identical repeats, and autograd against finite differences;
@@ -55,13 +58,6 @@ import sys
 import time
 
 ATOL = RTOL = 1e-3  # the JAX package's megakernel parity tolerance
-# On the 400x225 bench frame the kernel and the plain version may part on a
-# few paths: their sqrt, division and arithmetic round identically, but
-# expf/acosf/atan2f/cosf may differ by an ulp between CUDA's and PyTorch's
-# implementations, which can flip a texel index or, downstream of it, a
-# Russian-roulette or Fresnel decision.  Allow 0.1% of the values outside
-# the tolerance there; the small scenes must match strictly.
-BENCH_OUTLIER_SHARE = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -122,6 +118,67 @@ def small_scenes():
     return out
 
 
+def k1_chunk_phase(dev, spps=(5, 9)):
+    """K1 against its plain version, bit for bit, where a launch cuts its
+    samples into several chunks: three of the 32x24 scenes (defocus, a
+    pixel range with a sample offset, the cover crop) with the scratch cap
+    lowered to two samples of the whole frame."""
+    import torch
+
+    from rt_tpu_torch import megakernel as mk
+
+    cap = mk.SCRATCH_CAP
+    mk.SCRATCH_CAP = 12 * 32 * 24 * 2
+    try:
+        for name, scene, camera, cfg, off, base, n in small_scenes():
+            if name not in ("defocus", "offsets_half", "cover_4x4"):
+                continue
+            scene.to(dev)
+            for spp in spps:
+                chunks = mk.chunk_schedule(n or 32 * 24, spp)
+                got = mk.render_megakernel(scene, camera, cfg, spp, off, cfg.seed, pixel_base=base,
+                                           n_pixels=n)
+                ref = mk.render_megakernel_plain(scene, camera, cfg, spp, off, cfg.seed,
+                                                 pixel_base=base, n_pixels=n)
+                same = bool(torch.equal(got, ref))
+                print(f"[parity] {name:17s} 32x24 {spp}spp in {len(chunks)} chunks "
+                      f"{[c for _, c in chunks]}: equal to plain {same}")
+                check(same and len(chunks) > 1, f"{name} {spp} spp: chunked K1 and plain disagree")
+    finally:
+        mk.SCRATCH_CAP = cap
+
+
+def k1_wide_phase(dev, card: str, spp: int = 10, block: int = 256) -> float:
+    """The cover scene at 1600x900, 10 spp, depth 50 through K1, timed;
+    three 256-pixel runs of the frame (its middle row and corners) equal to
+    the plain version bit for bit.  Returns the kernel's ms per frame."""
+    import torch
+
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch import scenes
+    from rt_tpu_torch.config import RenderConfig
+
+    w, h = 1600, 900
+    camera = scenes.cam1(w, h)
+    scene = scenes.cover_scene(11, 11, camera, z=-0.2, seed=0).to(dev)
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp, max_depth=50)
+    img, ms = timed_cuda(lambda: mk.render_megakernel(scene, camera, cfg, spp, 0, cfg.seed), 3)
+    chunks = mk.chunk_schedule(w * h, spp)
+    print(f"[time] K1 cover 1600x900 {spp} spp depth 50 ({len(chunks)} chunks) on {card}: kernel "
+          f"{ms:.3f} ms, {spp * w * h / ms / 1e3:.2f} Mray/s (CUDA events, mean of 3 after a "
+          f"warm-up)")
+    check(img.shape == (w * h, 3) and bool(torch.isfinite(img).all()), "1600x900: non-finite image")
+    mean = float(img.mean())
+    check(0.05 < mean < 2.0, f"1600x900: implausible image mean {mean}")
+    for base in (0, (h // 2) * w + w // 2 - block // 2, w * h - block):
+        ref = mk.render_megakernel_plain(scene, camera, cfg, spp, 0, cfg.seed, pixel_base=base,
+                                         n_pixels=block)
+        check(bool(torch.equal(img[base : base + block], ref)),
+              f"1600x900: pixels [{base}, {base + block}) differ from the plain version")
+    print(f"[parity] 1600x900: image mean {mean:.4f}; three {block}-pixel runs equal to plain")
+    return ms
+
+
 # Gradient path against the same path on K2's plain version: the loss at
 # rtol 1e-5, each leaf at |d| <= 1e-3 |ref| + 1e-3 max|ref|.  Kernel and
 # plain version pick the same winners, so the two runs should agree to the
@@ -135,8 +192,13 @@ GRAD_LEAF_TOL = 1e-3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # Floating-point operations per pair, counted from the kernels' code
-# (csrc/nearest.cu, csrc/prim_nearest.cu); compares and selects not counted.
-FLOPS_SPHERE_PAIR = 24  # 3 sub, 5 for h, 7 for c, 3 for disc, max, sqrt, 2 + 2 for the roots
+# (csrc/brute_force.cuh, csrc/nearest.cu); compares and selects not counted.
+# A sphere pair needs its root only where the discriminant admits it, so the
+# brute-force bounds (K1, K2, K3) count FLOPS_SPHERE_TEST for every pair
+# and FLOPS_SPHERE_ROOT for each admitted pair, counted on the run's rays.
+FLOPS_SPHERE_TEST = 18  # 3 sub, 5 for h, 7 for c, 3 for disc
+FLOPS_SPHERE_ROOT = 6  # max, sqrt, 2 + 2 for the roots
+FLOPS_SPHERE_PAIR = FLOPS_SPHERE_TEST + FLOPS_SPHERE_ROOT  # with its root: the walk and K6 take each
 FLOPS_TRIANGLE_PAIR = 46  # 9 + 9 for the crosses, 5 det, 1 div, 3 sub, 6 u, 6 v, 6 t, 1 u+v
 FLOPS_SLAB = 20  # a box test of the cluster walk: 6 sub, 6 mul, min/max of the slabs, the pad
 
@@ -151,6 +213,36 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def admitted_pairs(rays, sph, chunk: int = 1 << 15) -> int:
+    """The (ray, sphere) pairs of rays f32[>=6, N] and sphere rows f32[S, 4]
+    whose discriminant admits a root (tests/torch_brute_cases.admitted)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_brute_cases as brute  # by path: another package may be "tests"
+
+    return sum(int(brute.admitted(rays[:, k : k + chunk], sph).sum())
+               for k in range(0, rays.shape[1], chunk))
+
+
+def brute_flops(n_rays: int, n_spheres: int, n_triangles: int, admitted: int) -> int:
+    """Operations of a brute-force search of n_rays rays: every pair's test,
+    and the root of each of the ``admitted`` sphere pairs."""
+    return (n_rays * (n_spheres * FLOPS_SPHERE_TEST + n_triangles * FLOPS_TRIANGLE_PAIR)
+            + admitted * FLOPS_SPHERE_ROOT)
+
+
+def counting_search(counts: dict):
+    """K1's plain search (megakernel.flat_search) that adds to ``counts``
+    the ray segments it searches and their admitted sphere pairs."""
+    from rt_tpu_torch import megakernel as mk
+
+    def search(scene, cfg, rays):
+        counts["segments"] += rays.shape[1]
+        counts["admitted"] += admitted_pairs(rays, scene.sph_packed[: scene.num_spheres])
+        return mk.flat_search(scene, cfg, rays)
+
+    return search
+
+
 def compare(got, ref):
     """(max |got - ref|, values outside atol + rtol * |ref|, value count)."""
     d = (got - ref).abs()
@@ -159,12 +251,18 @@ def compare(got, ref):
 
 
 def timed_cuda(fn, reps: int):
-    """(last result, mean ms per call) by CUDA events after one warm-up."""
+    """(last result, mean ms per call) by CUDA events after one warm-up.
+    The timed calls are queued behind a ~10 ms spin of the card, so that a
+    kernel shorter than its call's host work runs back to back and is timed
+    itself, not the rate at which the host issues it.  A call that waits
+    for the card (a plain version's host sync) is timed with its host work,
+    as before."""
     import torch
 
     out = fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -189,7 +287,8 @@ def nearest_phase(dev, scene, timer):
     """K2 and K2b against their plain versions: the winner equal on every
     ray and t equal on every hit.  Returns, for K2 and for K2b, (max |d t|
     over its cases, kernel ms, plain ms at 90,000 rays x the scene's
-    spheres)."""
+    spheres), and the sphere pairs of those rays that the discriminant
+    admits (the same for K2 and K2b)."""
     import numpy as np
     import torch
 
@@ -239,7 +338,8 @@ def nearest_phase(dev, scene, timer):
     _, packed_ms = timer(lambda: no.sphere_nearest_packed(rays, scene.sph_packed, 1e-3, 3e38), 5)
     _, packed_plain_ms = timer(
         lambda: no.sphere_nearest_packed_plain(rays, scene.sph_packed, 1e-3, 3e38), 5)
-    return (worst, kernel_ms, plain_ms), (err, packed_ms, packed_plain_ms)
+    admitted = admitted_pairs(rays, scene.sph_packed)  # the pad rows (radius 0) admit none
+    return (worst, kernel_ms, plain_ms), (err, packed_ms, packed_plain_ms), admitted
 
 
 def sync(device) -> None:
@@ -463,19 +563,37 @@ def prim_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
               f"equal to plain {same} (K3b too), hits {int(hit.sum())} ({tri_hits} on triangles), "
               f"max|d t| {err:.3e}")
         check(same and err == 0.0 and tri_hits > 0, "K3/K3b: kernel and plain version disagree")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_brute_cases as brute  # by path: another package may be "tests"
+
+    tie, tie_rays = brute.tie_scene().to(dev), brute.tie_rays().to(dev)
+    tie_args = (tie_rays, tie.sph_packed, tie.tri_packed)
+    for cull in (True, False):
+        k3 = po.prim_nearest_shaded(*tie_args, tie.shade_table, tie.num_spheres, 1e-3, 3e38, cull)
+        k3b = po.prim_nearest_packed(*tie_args, tie.num_spheres, 1e-3, 3e38, cull)
+        ref = po.prim_nearest_shaded_plain(*tie_args, tie.shade_table, tie.num_spheres, 1e-3, 3e38,
+                                           cull)
+        same = equal(k3, ref) and equal(k3b, ref[:2])
+        print(f"[K3] tie scene of tests/torch_brute_cases.py, {tie_rays.shape[1]} rays, cull "
+              f"{cull}: t, prim and params equal to plain {same} (K3b too), hits "
+              f"{int((ref[1] >= 0).sum())}")
+        check(same, "K3/K3b on the tie scene: kernel and plain version disagree")
     args = (rays, *tables)
     _, k3_ms = timer(lambda: po.prim_nearest_shaded(*args, table, ns, 1e-3, 3e38), 5)
     _, k3_plain_ms = timer(lambda: po.prim_nearest_shaded_plain(*args, table, ns, 1e-3, 3e38), 5)
     _, k3b_ms = timer(lambda: po.prim_nearest_packed(*args, ns, 1e-3, 3e38), 5)
     _, k3b_plain_ms = timer(lambda: po.prim_nearest_packed_plain(*args, ns, 1e-3, 3e38), 5)
-    # Least work: every real (ray, primitive) pair once; the rays' six rows
-    # and the tables read once, t and prim (and K3's params) written once.
-    flops = n * (ns * FLOPS_SPHERE_PAIR + nt * FLOPS_TRIANGLE_PAIR)
+    # Least work: every real (ray, primitive) pair's test once and the roots
+    # of the admitted sphere pairs; the rays' six rows and the tables read
+    # once, t and prim (and K3's params) written once.
+    admitted = admitted_pairs(rays, scene.sph_packed[:ns])
+    flops = brute_flops(n, ns, nt, admitted)
     read = n * 6 * 4 + scene.sph_packed.numel() * 4 + scene.tri_packed.numel() * 4
     k3_bound = bound(flops, read + table.numel() * 4 + n * 8 + n * table.shape[0] * 4)
     k3b_bound = bound(flops, read + n * 8)
     print(f"[K3] least time on this card: K3 {k3_bound[0] * 1e3:.2f} us, K3b "
-          f"{k3b_bound[0] * 1e3:.2f} us, both bound by {k3_bound[1]} ({flops / 1e9:.3f} GFLOP)")
+          f"{k3b_bound[0] * 1e3:.2f} us, both bound by {k3_bound[1]} ({flops / 1e9:.3f} GFLOP; "
+          f"{admitted} of {n * ns} sphere pairs admitted)")
     return (err, k3_ms, k3_plain_ms, *k3_bound), (err, k3b_ms, k3b_plain_ms, *k3b_bound)
 
 
@@ -1493,21 +1611,35 @@ def main() -> int:
         got = mk.render_megakernel(scene, camera, cfg, 2, off, cfg.seed, pixel_base=base, n_pixels=n)
         ref = mk.render_megakernel_plain(scene, camera, cfg, 2, off, cfg.seed, pixel_base=base, n_pixels=n)
         err, bad, total = compare(got, ref)
-        print(f"[parity] {name:17s} 32x24 2spp: max|d| {err:.3e}, outside tol {bad}/{total}")
-        check(bad == 0, f"{name}: kernel and plain version disagree")
+        same = bool(torch.equal(got, ref))
+        print(f"[parity] {name:17s} 32x24 2spp: equal to plain {same}, max|d| {err:.3e}")
+        check(same, f"{name}: kernel and plain version disagree")
+    k1_chunk_phase(dev)
 
     scene, camera, cfg = bench_cover_config()
     scene.to(dev)
     spp = cfg.samples_per_pixel
-    plain = mk.render_megakernel_plain(scene, camera, cfg, spp, 0, cfg.seed)
+    k1_work = {"segments": 0, "admitted": 0}
+    plain = mk.render_megakernel_plain(scene, camera, cfg, spp, 0, cfg.seed,
+                                       search=counting_search(k1_work))
+    print(f"[K1] the plain run searched {k1_work['segments']} ray segments, "
+          f"{k1_work['admitted']} of their sphere pairs admitted")
     got, kernel_ms = timed_cuda(lambda: mk.render_megakernel(scene, camera, cfg, spp, 0, cfg.seed), 5)
-    bench_err, bad, total = compare(got, plain)
-    print(f"[parity] bench cover 400x225 {spp}spp depth {cfg.max_depth}: max|d| {bench_err:.3e}, "
-          f"outside tol {bad}/{total} ({bad / total:.4%}, allowed {BENCH_OUTLIER_SHARE:.1%})")
-    check(bad <= BENCH_OUTLIER_SHARE * total, "bench frame: kernel and plain version disagree")
+    bench_err, _, _ = compare(got, plain)
+    same = bool(torch.equal(got, plain))
+    print(f"[parity] bench cover 400x225 {spp}spp depth {cfg.max_depth}: equal to plain {same}, "
+          f"max|d| {bench_err:.3e}")
+    check(same, "bench frame: kernel and plain version disagree")
     print(f"[time] bench frame {spp} spp on {card}: kernel {kernel_ms:.3f} ms "
           f"(CUDA events, mean of 5 after a warm-up)")
     k1_frame = got.reshape(225, 400, 3).cpu().numpy()
+    k1_640, k1_640_ms = timed_cuda(
+        lambda: mk.render_megakernel(scene, camera, cfg, 640, 0, cfg.seed), 2)
+    chunks = mk.chunk_schedule(400 * 225, 640)
+    print(f"[time] K1 bench frame 640 spp (one render_megakernel call, {len(chunks)} chunks) on "
+          f"{card}: kernel {k1_640_ms:.3f} ms, {640 * 400 * 225 / k1_640_ms / 1e3:.2f} Mray/s "
+          f"(CUDA events, mean of 2 after a warm-up)")
+    k1_wide_ms = k1_wide_phase(dev, card)
 
     # -- 4. the main path through render_image ----------------------------------
     mk.LAUNCHES = 0
@@ -1524,6 +1656,9 @@ def main() -> int:
     launches = mk.LAUNCHES
     print(f"[main] megakernel launches during the main path: {launches}")
     check(launches >= 5, "the main path did not go through the CUDA kernel")
+    check(np.array_equal(img640, k1_640.reshape(225, 400, 3).cpu().numpy()),
+          "render_image at 640 spp differs from phase 3's timed launch")
+    print("[main] the 640-spp image equals phase 3's timed 640-spp launch bit for bit")
     for label, img, _ in runs + [("640spp", img640, m640)]:
         check(img.shape == (225, 400, 3), f"{label}: image shape {img.shape}")
         check(bool(np.isfinite(img).all()), f"{label}: non-finite values")
@@ -1572,7 +1707,7 @@ def main() -> int:
     # -- 7. K2/K2b kernel vs plain on the card ------------------------------------
     bench_scene, _, _ = bench_cover_config()
     bench_scene.to(dev)
-    (k2_err, k2_ms, k2_plain_ms), (k2b_err, k2b_ms, k2b_plain_ms) = nearest_phase(
+    (k2_err, k2_ms, k2_plain_ms), (k2b_err, k2b_ms, k2b_plain_ms), k2_admitted = nearest_phase(
         dev, bench_scene, timed_cuda)
     print(f"[time] K2 sphere_nearest 90000 rays x {bench_scene.num_spheres} spheres on {card}: "
           f"kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms (CUDA events, mean of 5 after a warm-up)")
@@ -1609,7 +1744,7 @@ def main() -> int:
           f"plain {k3b[2]:.4f} ms, bound {k3b[3]:.4f} ms")
 
     # -- 12. the persistent wavefront (K3) --------------------------------------------
-    wf_launches, wf_counts, wf_s = wavefront_phase(dev, k1_frame)
+    wf_launches, _, wf_s = wavefront_phase(dev, k1_frame)
 
     # -- 13. the wavefront's generic path (K2) ----------------------------------------
     generic_phase(dev)
@@ -1687,7 +1822,8 @@ def main() -> int:
     defocus_phase(dev, card)
 
     # -- 26. result -------------------------------------------------------------------
-    check(all(math.isfinite(v) for v in (bench_err, kernel_ms, plain_ms, k2_ms, k2_plain_ms,
+    check(all(math.isfinite(v) for v in (bench_err, kernel_ms, k1_640_ms, k1_wide_ms, plain_ms,
+                                          k2_ms, k2_plain_ms,
                                           k2b_ms, k2b_plain_ms, *k3[:4], *k3b[:4], wf_s,
                                           *k4[:4], *k4b[:4], *k5[:4], *k5_hf[:4], mesh_wf_s,
                                           *k5_frame_ms.values(), *k6_ms.values(),
@@ -1695,19 +1831,23 @@ def main() -> int:
                                           k6_reduce_library_ms, walk_ms,
                                           walk_plain_ms, mesh_step_s, mesh_chunk_s)),
           "non-finite measurement")
-    # Least times: K1 does at least the pair tests of the ray segments the
-    # wavefront counted for the same frame (the same paths); K2/K2b the pair
-    # tests of phase 7's rays (90,000, and 90,112 packed) with the bench
-    # scene's spheres, reading the rays once and writing t and idx once.
+    # Least times: K1 does at least the pair tests of the ray segments its
+    # plain run searched for the same frame (the same paths), and the roots
+    # of their admitted sphere pairs; K2/K2b the pair tests of phase 7's rays
+    # (90,000, and 90,112 packed) with the bench scene's spheres, reading the
+    # rays once and writing t and idx once.
     ns, nt = bench_scene.num_spheres, bench_scene.num_triangles
-    seg = wf_counts["segments"]
-    k1_bound = bound(seg * (ns * FLOPS_SPHERE_PAIR + nt * FLOPS_TRIANGLE_PAIR), 90_000 * 12)
-    k2_bound = bound(90_000 * ns * FLOPS_SPHERE_PAIR, 90_000 * (24 + 8) + ns * 16)
-    k2b_bound = bound(90_112 * ns * FLOPS_SPHERE_PAIR, 90_112 * (24 + 8) + 512 * 16)
+    seg = k1_work["segments"]
+    k1_bound = bound(brute_flops(seg, ns, nt, k1_work["admitted"]), 90_000 * 12)
+    k2_bound = bound(brute_flops(90_000, ns, 0, k2_admitted), 90_000 * (24 + 8) + ns * 16)
+    k2b_bound = bound(brute_flops(90_112, ns, 0, k2_admitted), 90_112 * (24 + 8) + 512 * 16)
     print(f"[kernels] least time on this card ({PEAK_FP32 / 1e12:.0f} TFLOP/s FP32, "
-          f"{PEAK_BYTES / 1e12:.2f} TB/s): K1 {k1_bound[0]:.4f} ms ({seg} ray segments), "
-          f"K2 {k2_bound[0]:.4f} ms, K2b {k2b_bound[0]:.4f} ms, K3 {k3[3]:.4f} ms, "
-          f"K3b {k3b[3]:.4f} ms")
+          f"{PEAK_BYTES / 1e12:.2f} TB/s; {FLOPS_SPHERE_TEST} FLOP a sphere pair, "
+          f"{FLOPS_SPHERE_ROOT} more for each admitted one): K1 {k1_bound[0]:.4f} ms ({seg} ray "
+          f"segments, {k1_work['admitted']} admitted sphere pairs), {64 * k1_bound[0]:.4f} ms at "
+          f"640 spp (64 x the 10-spp frame's; kernel {k1_640_ms:.3f} ms), "
+          f"K2 {k2_bound[0]:.4f} ms, K2b {k2b_bound[0]:.4f} ms ({k2_admitted} admitted), "
+          f"K3 {k3[3]:.4f} ms, K3b {k3b[3]:.4f} ms")
     print(f"[kernels] K4 {k4[3]:.4f} ms and K4b {k4b[3]:.4f} ms from the walk's counted slab and "
           f"pair tests on phase 17's rays, K5 {k5[3]:.4f} ms (blob) and {k5_hf[3]:.4f} ms "
           f"(height field) from those on phase 19's 144 pixels of each frame scaled to the "

@@ -73,7 +73,6 @@ namespace rt {
 
 constexpr int kSuperClusters = 64;   // clusters per super (cluster.SUPER_SLOTS)
 constexpr int kClusterSlots = 128;   // slots per cluster (cluster.CLUSTER_SLOTS)
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kNoKey = 0xffffffffu;  // no valid slot (the key of no float but a NaN)
 
 // One primitive kind's two-level tables.  Winner ids are id_base + slot.
@@ -115,12 +114,6 @@ __device__ __forceinline__ bool admits(const float* __restrict__ b, const WalkRa
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   tf = tf * (float)(1.0 + 6e-7) + (float)1e-6;
   return lo.x <= lo.w && tn <= tf && tf >= 0.0f;  // lx > hx: an inverted dummy box
-}
-
-// An unsigned that orders like t (-0 taken as +0).
-__device__ __forceinline__ unsigned order_key(float t) {
-  const unsigned b = t == 0.0f ? 0u : __float_as_uint(t);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
 // Component q (0..3, known when compiled) of v.

@@ -17,23 +17,40 @@
 // plain PyTorch version of both is `render_megakernel_plain` in
 // rt_tpu_torch/megakernel.py.
 //
-// Common to both.  A pixel's samples are traced by one thread, in order,
-// and summed there; the thread writes the pixel once: no float atomics, so
-// two launches give bit-identical images.  The RNG keys on the global work
-// id gwork = sample * W * H + pixel, so which thread renders which pixel
-// cannot change the image.  The TPU mechanisms go: no one-hot matmul fetch,
-// bf16 hi/lo split, rank-1 deposit matmul or packed-mantissa argmin.  The
-// winner's shade row and the texel are direct loads, the argmin is exact
-// with the lowest id winning ties (spheres first), and
-// sqrt/sin/cos/acos/atan2/exp are the native functions.  One bounce after
-// the search (`bounce`: shading, scatter, Russian roulette, the next
-// segment) is one device function that both kernels call.
+// Common to both.  The RNG keys on the global work id gwork = sample * W *
+// H + pixel, so which thread renders which sample cannot change the image,
+// and a pixel's samples are summed in sample order, whichever lanes traced
+// them: no float atomics, so two launches give bit-identical images.  The
+// TPU mechanisms go: no one-hot matmul fetch, bf16 hi/lo split, rank-1
+// deposit matmul or packed-mantissa argmin.  The winner's shade row and the
+// texel are direct loads, the argmin is exact with the lowest id winning
+// ties (spheres first), and sqrt/sin/cos/acos/atan2/exp are the native
+// functions.  One bounce after the search (`bounce`: shading, scatter,
+// Russian roulette, the next segment) is one device function that both
+// kernels call, and both claim their work with one atomicAdd a warp
+// (`warp_claim`).
 //
-// K1: one thread owns one pixel and loops over its samples and each path's
-// bounces (`trace`), brute-forcing every primitive of the scene at each
-// segment.  What bounds it on this card: ~25 FLOPs per (ray segment,
-// primitive), then occupancy at the bench size (a thread a pixel fills the
-// card only from ~1600x900) and warp divergence on path length.
+// K1 is a persistent grid of converged warps over (pixel, sample) work
+// items.  The wrapper cuts the launch's samples into chunks
+// (megakernel.chunk_schedule); a chunk's items are numbered sample-major,
+// k = s_local * n_pixels + i, so neighbouring lanes trace neighbouring
+// pixels of one sample.  Each step, the lanes without a live path claim the
+// next items, then every live lane searches its own ray, brute force over
+// every primitive with the shared late-sqrt pair tests (brute_force.cuh;
+// the lanes of a warp test the same sphere at once, a broadcast load), and
+// shades its hit.  A finished path writes its radiance to the chunk's
+// scratch f32[S, n_pixels, 3]; `accumulate` then adds the chunk's samples
+// into the pixel sums in sample order and scales by 1/spp after the last
+// chunk: acc = acc + c_s, out = acc * inv_spp, as the plain version and the
+// first port's thread-per-pixel loop compute it.  What bounds it on this
+// card: ~18 operations for each (ray segment, sphere) pair the
+// discriminant rejects, ~24 for one it admits, ~46 for a triangle, from the
+// issue slots of 132 SMs.  The first port gave a pixel to one thread, which
+// filled the card only from ~1600x900 (the bench frame's 90,000 pixels
+// half-filled it, and each thread ran its pixel's paths in series), and
+// each warp waited for its longest path; here the resident lanes stay busy
+// as long as items are left, and the primitive loop, the same for every
+// lane, does not diverge.
 //
 // K5 drops the TPU's clustered machinery (row sweep, streamed DMA ring,
 // expansion sweep, lane binning, winner fetch) and keeps its persistent
@@ -42,74 +59,50 @@
 // path; the warp then walks its lanes' rays one after another, all 32 lanes
 // on each (cluster_walk.cuh); then each lane shades its own hit.  A lane
 // that has summed its pixel's `spp` samples writes the pixel and claims the
-// next from a global counter (one atomicAdd a warp).  What bounded the
-// first port (one thread a pixel, walking alone: 0.27% of its operation
-// bound) was the walk's load latency and a warp waiting for its longest
-// path; here the walk's cost follows the number of live paths, not the
-// longest one, each of its steps has 32 pieces of work, and its loads are
-// coalesced rows.  What is left is the walk's chain of dependent steps per
-// ray and the divergent shading, which the resident warps overlap.
+// next.  What bounded the first port (one thread a pixel, walking alone:
+// 0.27% of its operation bound) was the walk's load latency and a warp
+// waiting for its longest path; here the walk's cost follows the number of
+// live paths, not the longest one, each of its steps has 32 pieces of work,
+// and its loads are coalesced rows.  What is left is the walk's chain of
+// dependent steps per ray and the divergent shading, which the resident
+// warps overlap.
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "brute_force.cuh"
 #include "cluster_walk.cuh"
 #include "rt_common.cuh"
 
 namespace rt {
 namespace {
 
-constexpr int kBlock = 128;           // K1: a thread a pixel
+constexpr int kFlatBlock = 256;       // K1: eight warps a block
 constexpr int kClusteredBlock = 256;  // K5: eight warps a block
+constexpr int kSumBlock = 256;        // accumulate: a thread a pixel channel
 
 struct Hit {
   float t;
   int prim;  // global id: spheres first, then triangles; -1 on a miss
 };
 
-// Nearest hit over all spheres, then all triangles (megakernel.py:751-852).
-__device__ Hit nearest(const Params& p, const Ints& q, const float4* __restrict__ sph,
-                       const float* __restrict__ tri, float ox, float oy, float oz,
-                       float dx, float dy, float dz, float a, float inv_a) {
-  Hit best{BIG, -1};
-  for (int i = 0; i < q.n_spheres; ++i) {
-    const float4 s = __ldg(&sph[i]);
-    const float ocx = s.x - ox, ocy = s.y - oy, ocz = s.z - oz;
-    const float h = dx * ocx + dy * ocy + dz * ocz;
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - s.w * s.w;
-    const float disc = h * h - a * c;
-    const float sd = sqrtf(fmaxf(disc, 0.0f));
-    const float t0 = (h - sd) * inv_a;
-    const float t1 = (h + sd) * inv_a;
-    const float t = t0 >= p.t_min ? t0 : t1;
-    if (disc >= 0.0f && s.w > 0.0f && t >= p.t_min && t < p.t_max && t < best.t) {
-      best.t = t;
-      best.prim = i;
-    }
-  }
+// Nearest hit of the ray over all spheres, then all triangles, a strict
+// `<` scan (megakernel.py:751-852).
+__device__ __forceinline__ Hit nearest(const Params& p, const Ints& q,
+                                       const float4* __restrict__ sph,
+                                       const float4* __restrict__ tri, const PairRay& r) {
   const bool cull = q.flags & FLAG_BACKFACE_CULL;
+  Hit best{BIG, -1};
+  for (int i0 = 0; i0 < q.n_spheres; i0 += 32) {
+    sphere_batch([&](int b) { return __ldg(&sph[i0 + b]); }, min(32, q.n_spheres - i0), i0, 1, r,
+                 p.t_min, p.t_max, best.t, best.prim);
+  }
   for (int j = 0; j < q.n_tris; ++j) {
-    const float* r = tri + 12 * j;
-    const float ax = __ldg(r + 0), ay = __ldg(r + 1), az = __ldg(r + 2);
-    const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
-    const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
-    const float live = __ldg(r + 9);
-    const float uvx = dy * e2z - dz * e2y;
-    const float uvy = dz * e2x - dx * e2z;
-    const float uvz = dx * e2y - dy * e2x;
-    const float det = e1x * uvx + e1y * uvy + e1z * uvz;
-    const bool det_ok = cull ? det > 1e-7f : fabsf(det) > 1e-7f;
-    const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-    const float aox = ox - ax, aoy = oy - ay, aoz = oz - az;
-    const float u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det;
-    const float vvx = aoy * e1z - aoz * e1y;
-    const float vvy = aoz * e1x - aox * e1z;
-    const float vvz = aox * e1y - aoy * e1x;
-    const float v = (dx * vvx + dy * vvy + dz * vvz) * inv_det;
-    const float tt = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det;
-    if (det_ok && live > 0.5f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-        tt >= p.t_min && tt < p.t_max && tt > 1e-7f && tt < best.t) {
-      best.t = tt;
+    float t;
+    if (triangle_pair(__ldg(&tri[3 * j]), __ldg(&tri[3 * j + 1]), __ldg(&tri[3 * j + 2]), r, cull,
+                      p.t_min, p.t_max, t) &&
+        t < best.t) {
+      best.t = t;
       best.prim = q.n_spheres + j;
     }
   }
@@ -424,36 +417,73 @@ __device__ __forceinline__ bool bounce(const Params& p, const Ints& q, const flo
   return false;
 }
 
-// Radiance of one path through K1's search.
-__device__ float3 trace(const Params& p, const Ints& q, const float4* __restrict__ sph,
-                        const float* __restrict__ tri, const float* __restrict__ table,
-                        const float* __restrict__ atlas, Path ps) {
+// The next indices of `counter` for the lanes with `need` set, one each in
+// lane order, by one atomicAdd a warp; -1 for the other lanes.  Every lane
+// of the warp must call it.
+__device__ __forceinline__ int warp_claim(bool need, int* __restrict__ counter, int lane) {
+  const unsigned need_m = __ballot_sync(kFullMask, need);
+  if (need_m == 0u) return -1;
+  const int leader = __ffs(need_m) - 1;
+  int first = 0;
+  if (lane == leader) first = atomicAdd(counter, __popc(need_m));
+  first = __shfl_sync(kFullMask, first, leader);
+  return need ? first + __popc(need_m & ((1u << lane) - 1u)) : -1;
+}
+
+// K1: a persistent grid of warps in a converged step loop over the items
+// of one chunk, samples [s0, s0 + n_items / n_pixels) (see the top of this
+// file).  `next_item` is a device int, 0 at launch: the claim counter.
+// Item k's radiance goes to scratch[3k..3k+2].
+__global__ void __launch_bounds__(kFlatBlock)
+    megakernel_flat(const Params p, const Ints q, int s0, int n_items,
+                    const float4* __restrict__ sph, const float4* __restrict__ tri,
+                    const float* __restrict__ table, const float* __restrict__ atlas,
+                    float* __restrict__ scratch, int* __restrict__ next_item) {
+  const int lane = threadIdx.x & 31;
+  Path ps{};
+  bool alive = false;  // a path is in flight
+  bool done = false;   // no item is left to claim
+  int k = 0;           // the live path's item
   for (;;) {
-    const float a = ps.dx * ps.dx + ps.dy * ps.dy + ps.dz * ps.dz;
-    const Hit hit = nearest(p, q, sph, tri, ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz, a, 1.0f / a);
-    float3 c;
-    if (bounce(p, q, table, atlas, hit, ps, c)) return c;
+    const bool need = !alive && !done;
+    const int claimed = warp_claim(need, next_item, lane);
+    if (need) {
+      if (claimed < n_items) {
+        k = claimed;
+        const int s_local = k / q.n_pixels;
+        const int i = k - s_local * q.n_pixels;
+        ps = camera_path(p, q, (uint32_t)(q.pixel_base + i), s0 + s_local);
+        alive = true;
+      } else {
+        done = true;
+      }
+    }
+    if (!__any_sync(kFullMask, alive)) break;
+    if (alive) {
+      const Hit hit = nearest(p, q, sph, tri, pair_ray(ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz));
+      float3 c;
+      if (bounce(p, q, table, atlas, hit, ps, c)) {
+        scratch[3 * (long long)k + 0] = c.x;
+        scratch[3 * (long long)k + 1] = c.y;
+        scratch[3 * (long long)k + 2] = c.z;
+        alive = false;
+      }
+    }
   }
 }
 
-// K1: one thread a pixel.
-__global__ void __launch_bounds__(kBlock)
-    megakernel_flat(const Params p, const Ints q, const float4* __restrict__ sph,
-                    const float* __restrict__ tri, const float* __restrict__ table,
-                    const float* __restrict__ atlas, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q.n_pixels) return;
-  const uint32_t pix = (uint32_t)(q.pixel_base + i);
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int s = 0; s < q.spp; ++s) {
-    const float3 c = trace(p, q, sph, tri, table, atlas, camera_path(p, q, pix, s));
-    acc_r = acc_r + c.x;
-    acc_g = acc_g + c.y;
-    acc_b = acc_b + c.z;
-  }
-  out[3 * i + 0] = acc_r * p.inv_spp;
-  out[3 * i + 1] = acc_g * p.inv_spp;
-  out[3 * i + 2] = acc_b * p.inv_spp;
+// Adds a chunk's `count` samples of scratch f32[count, n_pixels, 3] to the
+// pixel sums `out` f32[n_pixels, 3] in sample order: from 0 on the first
+// chunk, scaled by inv_spp on the last.
+__global__ void __launch_bounds__(kSumBlock)
+    accumulate(const float* __restrict__ scratch, int n_pixels, int count, bool first, bool last,
+               float inv_spp, float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * kSumBlock + threadIdx.x;
+  const long long n = 3 * (long long)n_pixels;
+  if (e >= n) return;
+  float acc = first ? 0.0f : out[e];
+  for (int s = 0; s < count; ++s) acc = acc + scratch[s * n + e];
+  out[e] = last ? acc * inv_spp : acc;
 }
 
 // K5: a persistent grid of warps in a converged step loop (see the top of
@@ -463,7 +493,6 @@ __global__ void __launch_bounds__(kClusteredBlock)
                          const float* __restrict__ table, const float* __restrict__ atlas,
                          float* __restrict__ out, int* __restrict__ next_pixel) {
   const int lane = threadIdx.x & 31;
-  const unsigned lanes_below = (1u << lane) - 1u;
   const bool cull = q.flags & FLAG_BACKFACE_CULL;
   Path ps{};
   bool alive = false;  // a path is in flight
@@ -479,21 +508,14 @@ __global__ void __launch_bounds__(kClusteredBlock)
       pix_i = -1;
     }
     const bool need = !alive && pix_i < 0 && !done;
-    const unsigned need_m = __ballot_sync(kFullMask, need);
-    if (need_m) {  // claim a pixel for each lane that needs one, one atomic a warp
-      const int leader = __ffs(need_m) - 1;
-      int first = 0;
-      if (lane == leader) first = atomicAdd(next_pixel, __popc(need_m));
-      first = __shfl_sync(kFullMask, first, leader);
-      if (need) {
-        const int c = first + __popc(need_m & lanes_below);
-        if (c < q.n_pixels) {
-          pix_i = c;
-          s = 0;
-          acc_r = acc_g = acc_b = 0.0f;
-        } else {
-          done = true;
-        }
+    const int claimed = warp_claim(need, next_pixel, lane);
+    if (need) {
+      if (claimed < q.n_pixels) {
+        pix_i = claimed;
+        s = 0;
+        acc_r = acc_g = acc_b = 0.0f;
+      } else {
+        done = true;
       }
     }
     if (!alive && pix_i >= 0) {
@@ -525,7 +547,30 @@ Params load_params(const float* params) {
   return p;
 }
 
+std::atomic<int> resident_flat[kMaxDevices];       // megakernel_flat's grid per device
 std::atomic<int> resident_clustered[kMaxDevices];  // megakernel_clustered's grid per device
+
+// K1 over one chunk of samples [s0, s0 + count), then its accumulation.
+cudaError_t launch_flat(const Params& p, const Ints& q, int s0, int count, const float4* sph,
+                        const float4* tri, const float* table, const float* atlas, float* scratch,
+                        int* next_item, float* out, cudaStream_t stream) {
+  int fit = 0;
+  cudaError_t e = resident_blocks(megakernel_flat, kFlatBlock, resident_flat, fit);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)count * q.n_pixels;
+  if (count < 1 || s0 < 0 || s0 + count > q.spp || items > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  const long long want = (items + kFlatBlock - 1) / kFlatBlock;
+  megakernel_flat<<<(int)(want < fit ? want : fit), kFlatBlock, 0, stream>>>(
+      p, q, s0, (int)items, sph, tri, table, atlas, scratch, next_item);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long elems = 3LL * q.n_pixels;
+  accumulate<<<(int)((elems + kSumBlock - 1) / kSumBlock), kSumBlock, 0, stream>>>(
+      scratch, q.n_pixels, count, s0 == 0, s0 + count == q.spp, p.inv_spp, out);
+  return cudaGetLastError();
+}
 
 cudaError_t launch_clustered(const Params& p, const Ints& q, const ClusterSet& sph,
                              const ClusterSet& tri, const float* table, const float* atlas,
@@ -548,19 +593,25 @@ cudaError_t launch_clustered(const Params& p, const Ints& q, const ClusterSet& s
 // is device memory.  Each launches on `stream` and returns
 // cudaGetLastError().
 
-// K1: `table` is the per-primitive shade table, one row per primitive.
+// K1 over one chunk, samples [chunk_first, chunk_first + chunk_count) of
+// the launch's spp, then their sum into `out` f32[n_pixels, 3] (the mean
+// after the last chunk; chunks go in order, the first from chunk_first 0).
+// `table` is the per-primitive shade table, one row per primitive;
+// `scratch` holds f32[chunk_count, n_pixels, 3]; `next_item` is one int, 0
+// at launch.
 extern "C" int rt_megakernel_flat(const float* params, int n_pixels, int pixel_base, int spp,
                                   int sample_offset, unsigned int seed, int width, int n_global,
                                   int max_depth, int n_spheres, int n_tris, int atlas_h,
                                   int atlas_w, int flags, const float* sph, const float* tri,
-                                  const float* table, const float* atlas, float* out,
+                                  const float* table, const float* atlas, int chunk_first,
+                                  int chunk_count, float* scratch, int* next_item, float* out,
                                   void* stream) {
   const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
                    n_spheres, n_tris, atlas_h, atlas_w, flags};
-  const int blocks = (n_pixels + rt::kBlock - 1) / rt::kBlock;
-  rt::megakernel_flat<<<blocks, rt::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      rt::load_params(params), q, reinterpret_cast<const float4*>(sph), tri, table, atlas, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rt::launch_flat(
+      rt::load_params(params), q, chunk_first, chunk_count, reinterpret_cast<const float4*>(sph),
+      reinterpret_cast<const float4*>(tri), table, atlas, scratch, next_item, out,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K5: per kind the super and cluster AABBs f32[., 8] (16-byte aligned) and

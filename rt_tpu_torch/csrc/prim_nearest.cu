@@ -13,38 +13,46 @@
 // K3b.  The plain PyTorch versions are `prim_ops.prim_nearest_packed_plain`
 // and `prim_ops.prim_nearest_shaded_plain`.
 //
-// Design.  One thread owns one ray and keeps (best_t, best_i) in registers;
-// the ray's six components come from the [8, N] rows, so neighbouring
-// threads read neighbouring addresses.  The block stages the sphere table
-// (one float4 a row) and then the triangle table (three float4 a row: a xyz
-// e1.x | e1.yz e2.xy | e2.z live pad pad) through shared memory, kThreads
-// rows at a time; every thread then reads the same row, a broadcast.  A row
-// that can never be hit (radius <= 0, live <= 0.5) is skipped by all threads
-// alike, which leaves the result unchanged: those conditions are part of the
-// hit test.  Scanning spheres then triangles with a strict `<` gives the
-// Pallas kernel's result: the lowest id among equal t within each kind, and
-// a triangle only when strictly nearer than every sphere.  The fetch is a
-// direct load per row f of the table (which stays in L1 and L2), each row's
-// stores coalesced.  The TPU's one-hot product, which exists to feed its
-// matrix unit, and its (8, 128) tiling are not carried over.  The
-// arithmetic is `_prim_kernel`'s, operation for operation; built with
-// -fmad=false and IEEE division and sqrt it rounds exactly as the plain
-// version does.
+// What bounds it on this card: arithmetic, ~18 floating-point operations
+// for a (ray, sphere) pair the discriminant rejects (brute_force.cuh) and
+// ~46 for a (ray, triangle) pair; the rays are read once, the tables come
+// from shared memory, and the only large transfer is K3's params write (160
+// bytes a ray).  The first port gave a ray to one thread: 65,536 rays made
+// 512 blocks of 128, a quarter of the card's thread slots, and each thread
+// ran ~450 pair tests in series.
 //
-// What bounds it on this card: arithmetic.  24 floating-point operations
-// per (ray, sphere) pair and 46 per (ray, triangle) pair; the rays are read
-// once, the tables come from shared memory, and the only large transfer is
-// K3's params write (160 bytes a ray).  At the bench pool (65,536 rays x 447
-// spheres) that is ~0.7 GFLOP against ~13 MB.  Left for later: several rays
-// per thread or several threads per ray (the pool fills only a quarter of
-// the card's thread slots), and a BVH in place of the brute force.
+// Design.  A group of kGroup lanes takes one ray, so the pool's rays fill
+// the card kGroup times over.  The block stages the sphere table (one
+// float4 a row) and then the triangle table (three float4 a row: a xyz
+// e1.x | e1.yz e2.xy | e2.z live pad pad) through shared memory, kThreads
+// rows at a time; lane g of a group tests rows g, g + kGroup, ... of each
+// tile (32 rows, one `sphere_batch` of the shared late-sqrt test), keeping
+// its own best with a strict `<` scan from (BIG, -1).  The group's winner
+// is the least packed key (order_key(t), id) of a shuffle reduction, the
+// winning t travelling with its key.  That is the sequential scan's result: a lane's scan returns
+// the first of its least t, the key's minimum the first of all lanes' least
+// t; spheres have the lower ids, so a triangle wins only when strictly
+// nearer.  A lane that found nothing holds the key ~0, which ranks above
+// every hit, so a miss stays (BIG, -1); a hit needs t < BIG whatever
+// t_max is, as the scan from BIG requires.  Last, the block writes its
+// kRays rays' t and id, and K3's 40 shade columns f-major, with coalesced
+// stores: kRays consecutive floats of each column row.  The TPU's one-hot
+// product, which exists to feed its matrix unit, and its (8, 128) tiling
+// are not carried over.
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#include "brute_force.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block and table rows per tile
-constexpr float kBig = 3.0e38f;
-constexpr float kTriEps = 1.0e-7f;
+using rt::BIG;
+
+constexpr int kThreads = 256;               // threads per block and table rows per tile
+constexpr int kGroup = 8;                   // lanes per ray
+constexpr int kRays = kThreads / kGroup;    // rays per block
+constexpr unsigned long long kNoKey = ~0ull;
 
 template <bool kFetch>
 __global__ void __launch_bounds__(kThreads)
@@ -56,10 +64,14 @@ prim_nearest_kernel(const float* __restrict__ rays, int n,
                     float* __restrict__ t_out, int* __restrict__ idx_out,
                     float* __restrict__ params) {
   __shared__ float4 tile[3 * kThreads];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n;
+  __shared__ float win_t[kRays];
+  __shared__ int win_i[kRays];
+  const int g = threadIdx.x % kGroup;  // the lane's place in its ray's group
+  const int slot = threadIdx.x / kGroup;
+  const int first = blockIdx.x * kRays;
+  const int i = first + slot;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 1.0f, dy = 1.0f, dz = 1.0f;
-  if (live) {
+  if (i < n) {
     ox = rays[i];
     oy = rays[n + i];
     oz = rays[2 * n + i];
@@ -67,37 +79,20 @@ prim_nearest_kernel(const float* __restrict__ rays, int n,
     dy = rays[4 * n + i];
     dz = rays[5 * n + i];
   }
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float inv_a = 1.0f / a;
-  float best_t = kBig;
+  const rt::PairRay r = rt::pair_ray(ox, oy, oz, dx, dy, dz);
+  const bool cull = backface_cull != 0;
+  float best_t = BIG;
   int best_i = -1;
 
-  // Spheres (hittable.rs:318-338): the half-b quadratic, near root else far.
   for (int base = 0; base < s_rows; base += kThreads) {
     const int j = base + threadIdx.x;
     tile[threadIdx.x] = j < s_rows ? sph[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     __syncthreads();
     const int m = min(kThreads, s_rows - base);
-    for (int k = 0; k < m; ++k) {
-      const float4 s = tile[k];
-      if (!(s.w > 0.0f)) continue;  // pad row: never a hit
-      const float ocx = s.x - ox, ocy = s.y - oy, ocz = s.z - oz;
-      const float h = dx * ocx + dy * ocy + dz * ocz;
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - s.w * s.w;
-      const float disc = h * h - a * c;
-      const float sd = sqrtf(fmaxf(disc, 0.0f));
-      const float t0 = (h - sd) * inv_a;
-      const float t1 = (h + sd) * inv_a;
-      const float t = t0 >= t_min ? t0 : t1;
-      if (disc >= 0.0f && t >= t_min && t < t_max && t < best_t) {
-        best_t = t;
-        best_i = base + k;
-      }
-    }
+    rt::sphere_batch([&](int b) { return tile[g + kGroup * b]; }, (m - g + kGroup - 1) / kGroup,
+                     base + g, kGroup, r, t_min, t_max, best_t, best_i);
     __syncthreads();
   }
-
-  // Triangles (hittable.rs:411-461): Möller–Trumbore with the det cull.
   for (int base = 0; base < t_rows; base += kThreads) {
     const int j = base + threadIdx.x;
 #pragma unroll
@@ -106,27 +101,11 @@ prim_nearest_kernel(const float* __restrict__ rays, int n,
           j < t_rows ? tri[3 * j + q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     __syncthreads();
     const int m = min(kThreads, t_rows - base);
-    for (int k = 0; k < m; ++k) {
-      const float4 r0 = tile[3 * k], r1 = tile[3 * k + 1], r2 = tile[3 * k + 2];
-      if (!(r2.y > 0.5f)) continue;  // pad row: never a hit
-      const float ax = r0.x, ay = r0.y, az = r0.z;
-      const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
-      const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
-      const float uvx = dy * e2z - dz * e2y;
-      const float uvy = dz * e2x - dx * e2z;
-      const float uvz = dx * e2y - dy * e2x;
-      const float det = e1x * uvx + e1y * uvy + e1z * uvz;
-      const bool det_ok = backface_cull ? det > kTriEps : fabsf(det) > kTriEps;
-      const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-      const float aox = ox - ax, aoy = oy - ay, aoz = oz - az;
-      const float u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det;
-      const float vvx = aoy * e1z - aoz * e1y;
-      const float vvy = aoz * e1x - aox * e1z;
-      const float vvz = aox * e1y - aoy * e1x;
-      const float v = (dx * vvx + dy * vvy + dz * vvz) * inv_det;
-      const float t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det;
-      if (det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-          t >= t_min && t < t_max && t > kTriEps && t < best_t) {
+    for (int k = g; k < m; k += kGroup) {
+      float t;
+      if (rt::triangle_pair(tile[3 * k], tile[3 * k + 1], tile[3 * k + 2], r, cull, t_min, t_max,
+                            t) &&
+          t < best_t) {
         best_t = t;
         best_i = n_spheres + base + k;
       }
@@ -134,14 +113,38 @@ prim_nearest_kernel(const float* __restrict__ rays, int n,
     __syncthreads();
   }
 
-  if (!live) return;
-  t_out[i] = best_t;
-  idx_out[i] = best_i;
+  // The group's winner: the least (order_key(t), id), t carried along.
+  unsigned long long key =
+      best_i < 0 ? kNoKey
+                 : ((unsigned long long)rt::order_key(best_t) << 32) | (unsigned)best_i;
+#pragma unroll
+  for (int off = kGroup / 2; off > 0; off >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(rt::kFullMask, key, off);
+    const float other_t = __shfl_xor_sync(rt::kFullMask, best_t, off);
+    if (other < key) {
+      key = other;
+      best_t = other_t;
+    }
+  }
+  if (g == 0) {
+    win_t[slot] = key == kNoKey ? BIG : best_t;
+    win_i[slot] = key == kNoKey ? -1 : (int)(unsigned)key;
+  }
+  __syncthreads();
+
+  const int nr = min(kRays, n - first);
+  if (threadIdx.x < nr) {
+    t_out[first + threadIdx.x] = win_t[threadIdx.x];
+    idx_out[first + threadIdx.x] = win_i[threadIdx.x];
+  }
   if (kFetch) {
-    const int col = max(best_i, 0);
-    const bool inside = col < p_cols;
-    for (int f = 0; f < f_rows; ++f)
-      params[(long long)f * n + i] = inside ? table[(long long)f * p_cols + col] : 0.0f;
+    for (int e = threadIdx.x; e < f_rows * kRays; e += kThreads) {
+      const int f = e / kRays, k = e % kRays;
+      if (k >= nr) continue;
+      const int col = max(win_i[k], 0);
+      params[(long long)f * n + first + k] =
+          col < p_cols ? table[(long long)f * p_cols + col] : 0.0f;
+    }
   }
 }
 
@@ -156,7 +159,7 @@ extern "C" int rt_prim_nearest(const float* rays, int n, const float* sph, int s
                                int f_rows, int p_cols, float* t_out, int* idx_out,
                                float* params, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const int blocks = (n + kRays - 1) / kRays;
   const float4* s4 = reinterpret_cast<const float4*>(sph);
   const float4* t4 = reinterpret_cast<const float4*>(tri);
   if (table != nullptr) {

@@ -1,5 +1,6 @@
 // Shared device code of the port's CUDA kernels: the per-frame parameter
-// block, the counter-hash RNG and the Halton sequence.
+// block, the counter-hash RNG, the Halton sequence and the order key of a
+// distance.
 //
 // Every function here reproduces the JAX package bit for bit (rng.py,
 // sampling.py): the hash and Halton values feed branch decisions (Russian
@@ -14,6 +15,7 @@ namespace rt {
 
 constexpr float BIG = 3.0e38f;  // miss sentinel (fast_shade.BIG)
 constexpr int F_ROWS = 40;      // shade-table columns per primitive
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // Shade-table columns (fast_shade.py F_*).
 enum : int {
@@ -102,6 +104,14 @@ __device__ __forceinline__ float radical3(uint32_t pos) {
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+// An unsigned that orders like t (-0 taken as +0): the usual flip of a
+// signed float's bits.  A minimum over (order_key(t), id) is the first of
+// the least t, as a strict-`<` scan in ascending id finds it.
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned b = t == 0.0f ? 0u : __float_as_uint(t);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
 // jnp.sign: -1, 0 or 1.

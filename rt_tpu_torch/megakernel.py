@@ -9,7 +9,10 @@ range, like the JAX function of the same name, through K1 where
 ``eligible`` holds and K5 where ``eligible_clustered`` holds:
 
 - on a CUDA device it launches the hand-written CUDA kernel
-  (csrc/megakernel.cu): K1 a thread a pixel, K5 a persistent grid of warps
+  (csrc/megakernel.cu): K1 a persistent grid of warps whose lanes claim
+  (pixel, sample) items as their paths finish, over the samples in chunks
+  (``chunk_schedule``), each chunk's radiance summed into the pixels in
+  sample order by a second small kernel; K5 a persistent grid of warps
   that walk their lanes' rays together and claim pixels as they finish;
 - on the CPU it runs ``render_megakernel_plain``, the same computation in
   plain PyTorch, which the tests hold against the JAX package and the
@@ -75,6 +78,11 @@ WHITE_SCALE = 1.0 / color.uncharted2_tonemap(11.2)
 # Rays per intersection chunk of the plain version: bounds its [prims, rays]
 # temporaries (a few hundred MB at the cover scene's ~480 prims).
 _PLAIN_CHUNK = 1 << 15
+
+# K1's sample chunks: the per-sample scratch f32[S, n_pixels, 3] of a chunk
+# stays within SCRATCH_CAP bytes (5,592,405 items, 41 for each of the
+# 135,168 lanes K1 keeps resident on an H100, so a chunk fills the card).
+SCRATCH_CAP = 64 << 20
 
 
 def eligible(scene: SceneData, cfg: RenderConfig) -> bool:
@@ -179,9 +187,27 @@ def kernel_params(scene: SceneData, camera: Camera, cfg: RenderConfig, spp: int)
     return pf
 
 
+def chunk_schedule(n_pixels: int, spp: int) -> list[tuple[int, int]]:
+    """K1's chunks of a launch's ``spp`` samples, as (first sample, count),
+    in order: as many samples a chunk as the scratch cap allows (always at
+    least one), then evened out, the first chunks a sample longer.  The
+    image does not depend on the schedule: each pixel sums its samples in
+    sample order whatever the chunks."""
+    per = max(1, min(spp, SCRATCH_CAP // (12 * n_pixels)))
+    n_chunks = -(-spp // per)
+    size, longer = divmod(spp, n_chunks)
+    chunks, first = [], 0
+    for j in range(n_chunks):
+        count = size + (j < longer)
+        chunks.append((first, count))
+        first += count
+    return chunks
+
+
 def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) -> torch.Tensor:
-    """Wrapper of the CUDA kernel: checks its inputs, allocates the output
-    and launches on the current stream.  Raises on any failure."""
+    """Wrapper of K1: checks its inputs, allocates the output, the chunk
+    scratch and the claim counters, and launches each chunk on the current
+    stream (one count of LAUNCHES for the call).  Raises on any failure."""
     global LAUNCHES
     n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
     device = scene.device
@@ -199,18 +225,22 @@ def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) 
     pf = kernel_params(scene, camera, cfg, spp)
     out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
     lib = _build.library()
+    chunks = chunk_schedule(n_pixels, spp)
+    flags = _flags(scene, camera, cfg)
     with torch.cuda.device(device):
+        scratch = torch.empty((chunks[0][1], n_pixels, 3), dtype=torch.float32, device=device)
+        next_item = torch.zeros((len(chunks),), dtype=torch.int32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.rt_megakernel_flat(
-            pf.ctypes.data, n_pixels, pixel_base, spp, sample_offset, seed & 0xFFFFFFFF,
-            camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
-            scene.num_spheres, scene.num_triangles, atlas.shape[0], atlas.shape[1],
-            _flags(scene, camera, cfg),
-            sph.data_ptr(), tri.data_ptr(), table.data_ptr(), atlas.data_ptr(), out.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed with CUDA error {err}")
+        for j, (first, count) in enumerate(chunks):
+            err = lib.rt_megakernel_flat(
+                pf.ctypes.data, n_pixels, pixel_base, spp, sample_offset, seed & 0xFFFFFFFF,
+                camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
+                scene.num_spheres, scene.num_triangles, atlas.shape[0], atlas.shape[1], flags,
+                sph.data_ptr(), tri.data_ptr(), table.data_ptr(), atlas.data_ptr(), first, count,
+                scratch.data_ptr(), next_item[j].data_ptr(), out.data_ptr(), stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"megakernel launch failed with CUDA error {err}")
     LAUNCHES += 1
     return out
 
@@ -581,7 +611,8 @@ def render_megakernel_plain(
     per-primitive table, or for a clustered scene K5's: the cluster walk
     and the slot-ordered table.  ``search(scene, cfg, rays)``, when given,
     replaces the search and must give the same winners.  Samples are summed
-    per pixel in sample order, as the kernel's threads sum them."""
+    per pixel in sample order, as K1's accumulation and K5's lanes sum
+    them."""
     n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
     device = scene.device
     if eligible_clustered(scene, cfg):

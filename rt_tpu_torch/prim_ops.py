@@ -20,8 +20,13 @@ miss).  Among equal t the lowest sphere id wins, a triangle wins only when
 strictly nearer, and among triangles the lowest id wins.
 
 On a CUDA tensor each wrapper launches the kernel of csrc/prim_nearest.cu,
-one kernel for both, or raises; on a CPU tensor it runs the plain PyTorch
-version (``prim_nearest_packed_plain``, ``prim_nearest_shaded_plain``),
+one kernel for both, or raises.  The kernel gives each ray a group of 8
+lanes: each lane scans a stride of the sphere rows and then of the
+triangle rows with the late-sqrt pair tests of csrc/brute_force.cuh, the
+group takes the least (order(t), id) key of its lanes, and the block writes
+its rays' results and shade columns with coalesced stores.  On a CPU
+tensor a wrapper runs the plain PyTorch version
+(``prim_nearest_packed_plain``, ``prim_nearest_shaded_plain``),
 which the tests hold against the Pallas kernels in interpret mode and
 against which the kernel is held on the card.  The megakernel's plain
 version intersects through ``prim_nearest_packed_plain`` too.

@@ -1,0 +1,225 @@
+"""The orders of the brute-force kernels K3/K3b and K1, proved on the CPU.
+
+K3/K3b (csrc/prim_nearest.cu) give each ray a group of ``G`` lanes: lane g
+tests sphere rows g, g + G, ... and then triangle rows g, g + G, ..., with
+a strict ``<`` scan from (BIG, -1), and the group's winner is the least
+packed key (order(t), id) of an xor-shuffle reduction, the winning t
+travelling with its key; a lane without a hit holds the key ~0.  A lane
+takes its sphere rows in batches of 32 (csrc/brute_force.cuh
+``sphere_batch``): the discriminants of the batch first, then the full test
+of the rows they admit, in ascending order.
+``group_nearest`` below is a plain-PyTorch model of exactly that,
+vectorized over rays, built on the per-pair tests of the plain versions.
+The tests hold it against ``prim_ops.prim_nearest_packed_plain`` (the
+sequential scan the kernel was held against before), t and ids bit for
+bit, with culling on and off, on the tie scene of tests/torch_brute_cases.py: spheres repeated
+at later ids, in the same lane and in other lanes; a sphere and a triangle
+that a ray meets at exactly equal t (the sphere at (x, y, 2) with radius 1
+and a triangle in z = 1, for a ray up the z axis from (x, y, 0): t = 1 on
+both); rays whose near root falls below t_min; and misses.
+
+K1 (csrc/megakernel.cu) renders a launch's samples in chunks
+(``megakernel.chunk_schedule``), each chunk's per-sample radiance summed
+into the pixels in sample order.  The tests check that the schedule covers
+the samples in order within the scratch cap, and that summing
+``trace_paths``' per-sample radiance chunk by chunk, as the kernels do,
+gives ``render_megakernel_plain``'s image bit for bit.
+
+The kernels themselves are held against the plain versions on the card
+(tests/test_torch_prim.py, tests/test_torch_megakernel.py, chip_smoke.py),
+on this tie scene too.  Serial CPU time of this file: ~13 s.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rt_tpu_torch import megakernel, prim_ops
+from rt_tpu_torch.camera import generate_rays, make_camera
+from rt_tpu_torch.config import RenderConfig
+from rt_tpu_torch.nearest_ops import BIG, sphere_nearest_packed_plain
+from rt_tpu_torch.scene import SceneBuilder
+from rt_tpu_torch.sky import frame_scalars
+from test_torch_walk_order import order_key  # the kernels' order(t), modelled
+from torch_brute_cases import SPOTS, admitted, tie_rays, tie_scene  # tests/torch_brute_cases.py
+
+torch.set_num_threads(2)
+
+G = 8  # lanes a ray (csrc/prim_nearest.cu kGroup)
+NO_KEY = (1 << 63) - 1  # the key ~0 of a lane without a hit, shifted into int64
+T_MIN = 1e-3
+
+
+# -- the model ------------------------------------------------------------------
+
+
+def packed_key(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """(order(t) << 32) | id as int64, less 1 << 63 so that it orders as the
+    kernel's unsigned 64-bit key does."""
+    return (order_key(t) - (1 << 31)) * (1 << 32) + i.to(torch.int64)
+
+
+def pair_hits(rays, sph, tri, t_min, t_max, cull):
+    """Every (row, ray) pair's t f32[R, N] and whether it is a hit, spheres
+    then triangles, from the plain versions' own pair tests."""
+    ts, hits = [], []
+    for j in range(sph.shape[0]):
+        t, i = sphere_nearest_packed_plain(rays, sph[j : j + 1], t_min, t_max)
+        ts.append(t)
+        hits.append(i >= 0)
+    for j in range(tri.shape[0]):
+        t, i = prim_ops._triangle_nearest_plain(rays, tri[j : j + 1], t_min, t_max, cull)
+        ts.append(t)
+        hits.append(i >= 0)
+    return torch.stack(ts), torch.stack(hits)
+
+
+def group_nearest(rays, sph, tri, n_spheres: int, t_min: float, t_max: float, cull: bool,
+                  stats: dict | None = None):
+    """K3b's order for every ray of ``rays`` f32[>=6, N] over the packed
+    tables: (t f32[N], id int32[N]).  ``stats`` counts the equal-t
+    decisions it makes ("lane_ties": rays whose least t two lanes hold;
+    "kind_ties": rays whose nearest sphere and nearest triangle are at
+    equal t)."""
+    stats = {} if stats is None else stats
+    t_all, hit_all = pair_hits(rays, sph, tri, t_min, t_max, cull)
+    s_rows = sph.shape[0]
+    # The second pass visits only the rows the first admits: no other row
+    # is a hit, so a lane's scan over them is its scan over all its rows.
+    marked = torch.cat([admitted(rays, sph), torch.ones_like(hit_all[s_rows:])])
+    assert not (hit_all & ~marked).any()
+    stats["admitted"] = stats.get("admitted", 0) + int(marked[:s_rows].sum())
+    ids = torch.cat([torch.arange(s_rows), n_spheres + torch.arange(tri.shape[0])])
+    rows = torch.cat([torch.arange(s_rows), torch.arange(tri.shape[0])])
+    n = rays.shape[1]
+    lane_t = torch.full((G, n), BIG)
+    lane_i = torch.full((G, n), -1, dtype=torch.int32)
+    for g in range(G):
+        for r in torch.nonzero(rows % G == g)[:, 0].tolist():  # spheres, then triangles
+            take = marked[r] & hit_all[r] & (t_all[r] < lane_t[g])
+            lane_t[g] = torch.where(take, t_all[r], lane_t[g])
+            lane_i[g] = torch.where(take, ids[r].to(torch.int32), lane_i[g])
+    keys = torch.where(lane_i >= 0, packed_key(lane_t, lane_i), NO_KEY)
+    least = keys.min(dim=0).values
+    held = (lane_i >= 0) & (lane_t == torch.gather(lane_t, 0, keys.argmin(dim=0)[None]))
+    stats["lane_ties"] = stats.get("lane_ties", 0) + int((held.sum(dim=0) > 1).sum())
+    s_best = torch.where(hit_all[:s_rows], t_all[:s_rows], BIG).min(dim=0).values
+    t_best = torch.where(hit_all[s_rows:], t_all[s_rows:], BIG).min(dim=0).values
+    stats["kind_ties"] = stats.get("kind_ties", 0) + int(((s_best == t_best) & (s_best < BIG)).sum())
+    # The xor butterfly of the group, lane g taking lane g ^ off's key when less.
+    t, i = lane_t.clone(), lane_i.clone()
+    for off in (G // 2, G // 4, 1):
+        other = torch.arange(G) ^ off
+        take = keys[other] < keys
+        keys = torch.where(take, keys[other], keys)
+        t = torch.where(take, t[other], t)
+        i = torch.where(take, i[other], i)
+    assert torch.equal(keys[0], least) and bool((keys == keys[0]).all())
+    found = keys[0] != NO_KEY
+    return torch.where(found, t[0], BIG), torch.where(found, i[0], -1)
+
+
+# -- the tests ------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t_max", [1e9, 3.0e38, float("inf")])
+@pytest.mark.parametrize("cull", [True, False])
+def test_group_order_matches_sequential_scan(cull, t_max):
+    scene, rays = tie_scene(), tie_rays()
+    stats = {}
+    args = (rays, scene.sph_packed, scene.tri_packed, scene.num_spheres, T_MIN, t_max, cull)
+    got = group_nearest(*args, stats)
+    ref = prim_ops.prim_nearest_packed_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    # The data holds the cases the proof is about.
+    i = ref[1]
+    assert (i == -1).sum() > 64 and (i >= scene.num_spheres).sum() > 20
+    assert stats["lane_ties"] >= 30 and stats["kind_ties"] >= 30, stats
+    # Many admitted pairs are no hit (behind the origin, beyond t_max, ...).
+    assert stats["admitted"] > 2 * int((i >= 0).sum()), stats
+
+
+def test_tie_scene_winners_are_the_first_copies():
+    """Ties go to the lowest id: the spot spheres' second copies never win,
+    nor the repeated random sphere, nor the repeated triangles; a ray up a
+    spot's axis takes the sphere over the triangle at equal t."""
+    scene, rays = tie_scene(), tie_rays()
+    t, i = prim_ops.prim_nearest_packed_plain(rays, scene.sph_packed, scene.tri_packed,
+                                              scene.num_spheres, T_MIN, 3.0e38, True)
+    k, ns = len(SPOTS), scene.num_spheres
+    won = i.to(torch.int64)
+    assert not (((won >= k + 40) & (won < ns)) | (won == k + 8) | (won >= ns + k)).any()
+    assert (won == k).any()  # the repeated random sphere's first copy is hit
+    assert torch.equal(won[:k], torch.arange(k)) and bool((t[:k] == 1.0).all())
+    assert torch.equal(won[k : 2 * k], torch.arange(k)) and bool((t[k : 2 * k] == 0.5).all())
+    assert bool((t[2 * k : 3 * k] == 2.0).all())  # the far root from the bottom point
+
+
+def test_order_key_packs_ties_by_id():
+    t = torch.tensor([1.0, 1.0, 0.5, -0.0, 0.0, 2.0])
+    i = torch.tensor([7, 3, 9, 5, 4, 0])
+    keys = packed_key(t, i)
+    assert int(keys.argmin()) == 4 and keys[3] > keys[4]  # -0 ties +0, the lower id first
+    assert keys[1] < keys[0] < keys[5] and int(keys.max()) < NO_KEY
+
+
+def _chunk_case():
+    b = SceneBuilder()
+    b.add_sphere((0, 0, -1000), 1000, b.lambertian(b.solid_color((0.5, 0.5, 0.5))))
+    b.add_sphere((0, 0, 1), 1, b.dielectric(1.5))
+    b.add_sphere((1.5, 1.0, 0.6), 0.6, b.metal(b.solid_color((0.8, 0.7, 0.6)), 0.2))
+    b.add_triangle((-1, -1, 0.5), (2, -1, 0.5), (0, 1, 2.5), b.lambertian(b.solid_color((0.2, 0.4, 0.8))))
+    camera = make_camera((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=0.6,
+                         image_width=32, image_height=24, vertical_fov=30.0)
+    cfg = RenderConfig(width=32, height=24, samples_per_pixel=2, max_depth=8)
+    return b.build(), camera, cfg
+
+
+@pytest.mark.parametrize("cap_samples", [1, 5, 1 << 20])
+@pytest.mark.parametrize("spp", [1, 3, 17])
+def test_chunked_sum_is_the_plain_image(spp, cap_samples, monkeypatch):
+    """K1's chunks, summed as its accumulation kernel sums them, give the
+    plain version's image bit for bit (a pixel range, defocus, sample
+    offset 2), with the scratch cap lowered to ``cap_samples`` samples of
+    the range."""
+    scene, camera, cfg = _chunk_case()
+    base, n, offset, seed = 100, 300, 2, 5
+    monkeypatch.setattr(megakernel, "SCRATCH_CAP", 12 * n * cap_samples)
+    chunks = megakernel.chunk_schedule(n, spp)
+    assert [f for f, _ in chunks] == list(np.cumsum([0] + [c for _, c in chunks])[:-1])
+    assert sum(c for _, c in chunks) == spp and all(1 <= c <= cap_samples for _, c in chunks)
+    assert len(chunks) == -(-spp // cap_samples)  # the cap does cut the samples
+    sky_k = frame_scalars(scene.sky)
+    pix = torch.arange(base, base + n)
+    inv_spp = float(np.float32(1.0 / spp))
+    acc = None
+    for first, count in chunks:
+        scratch = []
+        for s_local in range(count):
+            sample = torch.full_like(pix, offset + first + s_local)
+            org, dirn, gwork = generate_rays(camera, pix, sample, seed, cfg.compat)
+            scratch.append(megakernel.trace_paths(scene, cfg, seed, sky_k, org, dirn, gwork))
+        acc = torch.zeros((n, 3)) if first == 0 else acc
+        for c in scratch:
+            acc = acc + c
+    got = acc * inv_spp
+    ref = megakernel.render_megakernel_plain(scene, camera, cfg, spp, offset, seed,
+                                             pixel_base=base, n_pixels=n)
+    assert torch.equal(got, ref) and ref.abs().max() > 0.05
+
+
+@pytest.mark.parametrize("n_pixels, spp", [(90_000, 640), (1_440_000, 10), (768, 7_000),
+                                           (5_000_000, 64), (8_294_400, 3)])
+def test_chunk_schedule_bounds_scratch(n_pixels, spp):
+    """Chunks cover [0, spp) in order, evenly, as few as the cap allows,
+    and their scratch f32[S, n_pixels, 3] stays under the cap, or is one
+    sample's where a sample alone passes it (above 5,592,405 pixels)."""
+    chunks = megakernel.chunk_schedule(n_pixels, spp)
+    firsts = [f for f, _ in chunks]
+    counts = [c for _, c in chunks]
+    assert firsts == sorted(firsts) and firsts[0] == 0 and sum(counts) == spp
+    assert all(f + c == g for (f, c), g in zip(chunks, firsts[1:] + [spp]))
+    assert max(counts) - min(counts) <= 1
+    assert max(counts) * n_pixels * 12 <= max(megakernel.SCRATCH_CAP, 12 * n_pixels)
+    per_cap = max(1, megakernel.SCRATCH_CAP // (12 * n_pixels))
+    assert (len(chunks) - 1) * per_cap < spp  # one chunk fewer could not hold the samples

@@ -95,17 +95,37 @@ def test_plain_megakernel_matches_generic(name):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
+def test_cuda_kernel_matches_plain_version(monkeypatch):
     """Hand-written CUDA kernel against its plain version on the card, on
-    every case above plus offsets: every value within atol/rtol 1e-3."""
+    every case above (defocus among them), the whole frame and a pixel range
+    with a sample offset, bit for bit, at spp values whose samples the
+    launch cuts into several chunks: the scratch cap is lowered to two
+    samples of the whole frame."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    monkeypatch.setattr(megakernel, "SCRATCH_CAP", 12 * W * H * 2)
     for name in CASES:
         scene, camera, cfg = _port_case(name)
         scene.to("cuda")
-        for off, base, n in ((0, 0, None), (3, W * H // 2, W * H // 2)):
+        for spp, off, base, n in ((2, 0, 0, None), (5, 0, 0, None), (3, 3, W * H // 2, W * H // 2),
+                                  (9, 3, W * H // 2, W * H // 2)):
             before = megakernel.LAUNCHES
-            got = megakernel.render_megakernel(scene, camera, cfg, 2, off, 0, pixel_base=base, n_pixels=n)
+            got = megakernel.render_megakernel(scene, camera, cfg, spp, off, 0, pixel_base=base,
+                                               n_pixels=n)
             assert megakernel.LAUNCHES == before + 1
-            ref = megakernel.render_megakernel_plain(scene, camera, cfg, 2, off, 0, pixel_base=base, n_pixels=n)
-            torch.testing.assert_close(got, ref, **TOL)
+            ref = megakernel.render_megakernel_plain(scene, camera, cfg, spp, off, 0,
+                                                     pixel_base=base, n_pixels=n)
+            assert torch.equal(got, ref), (name, spp, off, base)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeats_bit_identical():
+    """Two K1 launches of the same frame give the same image bit for bit,
+    whichever lanes claim which (pixel, sample) items."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    scene, camera, cfg = _port_case("dielectric")
+    scene.to("cuda")
+    a = megakernel.render_megakernel(scene, camera, cfg, 16, 0, 0)
+    b = megakernel.render_megakernel(scene, camera, cfg, 16, 0, 0)
+    assert torch.equal(a, b) and a.abs().max() > 0.05

@@ -200,21 +200,28 @@ def test_wrappers_check_shapes():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """K3 and K3b on the card against the plain version on the card: equal
-    winners, t and params, bit for bit, with culling on and off."""
+    winners, t and params, bit for bit, with culling on and off, on this
+    file's scene and on the tie scene of tests/torch_brute_cases.py
+    (repeated spheres and triangles, a sphere and a triangle at equal t,
+    near roots below t_min, misses)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    ts = _build(SceneBuilder).to("cuda")
+    from torch_brute_cases import tie_rays, tie_scene
+
     rays = torch.from_numpy(_rays(n=4096, n_pad=256, seed=14)).cuda()
-    for cull in (True, False):
-        args = (rays, ts.sph_packed, ts.tri_packed)
-        before = dict(prim_ops.LAUNCHES)
-        got = prim_ops.prim_nearest_shaded(*args, ts.shade_table, ts.num_spheres, T_MIN, T_MAX, cull)
-        got_b = prim_ops.prim_nearest_packed(*args, ts.num_spheres, T_MIN, T_MAX, cull)
-        assert prim_ops.LAUNCHES["prim_nearest_shaded"] == before["prim_nearest_shaded"] + 1
-        assert prim_ops.LAUNCHES["prim_nearest_packed"] == before["prim_nearest_packed"] + 1
-        ref = prim_ops.prim_nearest_shaded_plain(*args, ts.shade_table, ts.num_spheres, T_MIN,
-                                                 T_MAX, cull)
-        for a, b in zip(got, ref):
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
-        for a, b in zip(got_b, ref[:2]):
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    cases = ((_build(SceneBuilder).to("cuda"), rays), (tie_scene().to("cuda"), tie_rays().cuda()))
+    for ts, rays in cases:
+        for cull in (True, False):
+            args = (rays, ts.sph_packed, ts.tri_packed)
+            before = dict(prim_ops.LAUNCHES)
+            got = prim_ops.prim_nearest_shaded(*args, ts.shade_table, ts.num_spheres, T_MIN, T_MAX,
+                                               cull)
+            got_b = prim_ops.prim_nearest_packed(*args, ts.num_spheres, T_MIN, T_MAX, cull)
+            assert prim_ops.LAUNCHES["prim_nearest_shaded"] == before["prim_nearest_shaded"] + 1
+            assert prim_ops.LAUNCHES["prim_nearest_packed"] == before["prim_nearest_packed"] + 1
+            ref = prim_ops.prim_nearest_shaded_plain(*args, ts.shade_table, ts.num_spheres, T_MIN,
+                                                     T_MAX, cull)
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+            for a, b in zip(got_b, ref[:2]):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
