@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the brute-force kernels of two checkouts of the port in turns, on
-one NVIDIA GPU.
+"""Time the brute-force kernels and K6's scatter of two checkouts of the
+port in turns, on one NVIDIA GPU.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -14,7 +14,11 @@ this checkout's ``chip_smoke.timed_cuda``, at the bench configuration:
 - K1 (``megakernel.render_megakernel``) on the cover frame at 400x225, 10
   and 640 spp, and at 1600x900, 10 spp;
 - K3 and K3b (``prim_ops.prim_nearest_shaded`` / ``_packed``) on the
-  65,536 rays of ``chip_smoke.prim_rays``.
+  65,536 rays of ``chip_smoke.prim_rays``;
+- K2 and K2b (``nearest_ops.sphere_nearest`` / ``_packed``) on the 90,000
+  rays of ``chip_smoke.nearest_phase`` against the cover scene's spheres;
+- K6's scatter (``micro_probe.scatter``) at the probe's inputs and shape,
+  at 8 and 1,024 reps, and its time a rep between the two.
 
 It prints the card, one JSON line per run and, last, whether each output
 of the first change run equals the first parent run's bit for bit, and
@@ -43,6 +47,8 @@ def run(root: str, tag: str) -> None:
     import torch
 
     from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch import micro_probe as mp
+    from rt_tpu_torch import nearest_ops as no
     from rt_tpu_torch import prim_ops as po
     from rt_tpu_torch import scenes
     from rt_tpu_torch.config import RenderConfig
@@ -69,6 +75,19 @@ def run(root: str, tag: str) -> None:
     outs["k3"], ms["k3_ms"] = timed(
         lambda: po.prim_nearest_shaded(*args, scene.shade_table, ns, 1e-3, 3e38), 20)
     outs["k3b"], ms["k3b_ms"] = timed(lambda: po.prim_nearest_packed(*args, ns, 1e-3, 3e38), 20)
+    org, dirn = smoke.random_rays(90_000, 1, dev)
+    spheres = (scene.sph_center[:ns], scene.sph_radius[:ns])
+    packed = torch.zeros((8, 90_112), device=dev)
+    packed[0:3, :90_000], packed[3:6, :90_000], packed[3:6, 90_000:] = org.T, dirn.T, 1.0
+    outs["k2"], ms["k2_ms"] = timed(lambda: no.sphere_nearest(org, dirn, *spheres, 1e-3, 3e38), 20)
+    outs["k2b"], ms["k2b_ms"] = timed(
+        lambda: no.sphere_nearest_packed(packed, scene.sph_packed, 1e-3, 3e38), 20)
+    sc = mp.SCATTER_SHAPE
+    d = mp.inputs("scatter", dev)["scatter"]
+    for reps in (8, 1024):
+        outs[f"scatter_{reps}"], ms[f"scatter_{reps}reps_ms"] = timed(
+            lambda: mp.scatter(d["vals"], d["dst"], reps, mp.NI // sc["ch"], **sc), 5)
+    ms["scatter_ms_per_rep"] = (ms["scatter_1024reps_ms"] - ms["scatter_8reps_ms"]) / 1016
     os.makedirs(OUT, exist_ok=True)
     torch.save({k: [x.cpu() for x in v] if isinstance(v, tuple) else v.cpu()
                 for k, v in outs.items()}, os.path.join(OUT, f"{tag}.pt"))

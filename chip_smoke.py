@@ -50,6 +50,7 @@ non-zero and prints no result.  Without CUDA it fails at once.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -63,6 +64,13 @@ ATOL = RTOL = 1e-3  # the JAX package's megakernel parity tolerance
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def tests_module(name: str):
+    """A module of the repository's tests/ (shared cases), imported by path:
+    another installed package may be named "tests"."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    return importlib.import_module(name)
 
 
 def card_line() -> str:
@@ -216,9 +224,7 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 def admitted_pairs(rays, sph, chunk: int = 1 << 15) -> int:
     """The (ray, sphere) pairs of rays f32[>=6, N] and sphere rows f32[S, 4]
     whose discriminant admits a root (tests/torch_brute_cases.admitted)."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    import torch_brute_cases as brute  # by path: another package may be "tests"
-
+    brute = tests_module("torch_brute_cases")
     return sum(int(brute.admitted(rays[:, k : k + chunk], sph).sum())
                for k in range(0, rays.shape[1], chunk))
 
@@ -285,7 +291,9 @@ def random_rays(n: int, seed: int, device):
 
 def nearest_phase(dev, scene, timer):
     """K2 and K2b against their plain versions: the winner equal on every
-    ray and t equal on every hit.  Returns, for K2 and for K2b, (max |d t|
+    ray and t equal on every hit; on the tie scene of
+    tests/torch_brute_cases.py at t_max 1e9, 3e38 and inf, t and idx bit
+    for bit.  Returns, for K2 and for K2b, (max |d t|
     over its cases, kernel ms, plain ms at 90,000 rays x the scene's
     spheres), and the sphere pairs of those rays that the discriminant
     admits (the same for K2 and K2b)."""
@@ -297,6 +305,12 @@ def nearest_phase(dev, scene, timer):
     rs = np.random.default_rng(5)
     small = (torch.from_numpy(rs.uniform(-4, 4, (37, 3)).astype(np.float32)).to(dev),
              torch.from_numpy(rs.uniform(0.2, 1.5, (37,)).astype(np.float32)).to(dev))
+    big_c = rs.uniform((-8, -8, 0), (8, 8, 2), (2500, 3)).astype(np.float32)
+    big_r = rs.uniform(0.05, 0.4, (2500,)).astype(np.float32)
+    big_c[2000], big_r[2000] = big_c[7], big_r[7]  # a tie across the kernel's table tiles
+    big = (torch.from_numpy(big_c).to(dev), torch.from_numpy(big_r).to(dev))
+    big_org, big_dir = random_rays(20_000, 3, dev)
+    big_org[:500] = big[0][7]  # from inside sphere 7 and its copy: both exits at one t
     ns = scene.num_spheres
     bench = (scene.sph_center[:ns], scene.sph_radius[:ns])
     pad_case = (torch.zeros((4, 3), device=dev),
@@ -306,6 +320,7 @@ def nearest_phase(dev, scene, timer):
     cases = [
         ("bench 90000 x %d" % ns, *random_rays(90_000, 1, dev), *bench),
         ("random 1000 x 37", *random_rays(1000, 2, dev), *small),
+        ("random 20000 x 2500 (a table over shared memory's 1024 rows)", big_org, big_dir, *big),
         ("r=0 padding", *pad_case),
     ]
     worst = 0.0
@@ -319,6 +334,21 @@ def nearest_phase(dev, scene, timer):
         check(same and err == 0.0, f"K2 {name}: kernel and plain version disagree")
         worst = max(worst, err)
     check(bool((i_k == 0).all()) and bool((t_k == 1.5).all()), "K2: an r=0 sphere won")
+    brute = tests_module("torch_brute_cases")
+    tie, tie_rays = brute.tie_scene().to(dev), brute.tie_rays().to(dev)
+    tns = tie.num_spheres
+    for t_max in (1e9, 3e38, float("inf")):
+        args = (tie_rays[0:3].T, tie_rays[3:6].T, tie.sph_center[:tns], tie.sph_radius[:tns], 1e-3,
+                t_max)
+        k2 = no.sphere_nearest(*args)
+        k2b = no.sphere_nearest_packed(tie_rays, tie.sph_packed, 1e-3, t_max)
+        ref = no.sphere_nearest_plain(*args)
+        same = equal(k2, ref) and equal(k2b, no.sphere_nearest_packed_plain(
+            tie_rays, tie.sph_packed, 1e-3, t_max))
+        print(f"[K2] tie scene of tests/torch_brute_cases.py, {tie_rays.shape[1]} rays x {tns} "
+              f"spheres, t_max {t_max:g}: t and idx equal to plain {same} (K2b too), hits "
+              f"{int((ref[1] >= 0).sum())}")
+        check(same, f"K2/K2b on the tie scene at t_max {t_max:g}: kernel and plain version disagree")
 
     org, dirn = random_rays(90_000, 1, dev)
     n_pad = -(-90_000 // no.RAY_TILE) * no.RAY_TILE
@@ -563,9 +593,7 @@ def prim_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
               f"equal to plain {same} (K3b too), hits {int(hit.sum())} ({tri_hits} on triangles), "
               f"max|d t| {err:.3e}")
         check(same and err == 0.0 and tri_hits > 0, "K3/K3b: kernel and plain version disagree")
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    import torch_brute_cases as brute  # by path: another package may be "tests"
-
+    brute = tests_module("torch_brute_cases")
     tie, tie_rays = brute.tie_scene().to(dev), brute.tie_rays().to(dev)
     tie_args = (tie_rays, tie.sph_packed, tie.tri_packed)
     for cull in (True, False):
@@ -921,11 +949,8 @@ def mesh_rays(scene, camera, cfg, n: int, dev):
 
 def tie_cases():
     """The tie scene and its rays of tests/test_torch_walk_order.py (port
-    only, no JAX): equal t within a cluster and across clusters and supers.
-    By path, since another installed package may be named "tests"."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    import test_torch_walk_order as walk_order
-
+    only, no JAX): equal t within a cluster and across clusters and supers."""
+    walk_order = tests_module("test_torch_walk_order")
     return walk_order.tie_scene, walk_order.tie_rays
 
 
@@ -1028,10 +1053,7 @@ def k5_small_phase(dev):
     from rt_tpu_torch.camera import make_camera
     from rt_tpu_torch.config import RenderConfig
 
-    # The test suite's builders of these scenes (port only, no JAX); by
-    # path, since another installed package may be named "tests".
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    import torch_cluster_cases as cases
+    cases = tests_module("torch_cluster_cases")  # the test suite's scene cases (port only, no JAX)
 
     tie_scene, _ = tie_cases()
     side = make_camera((6, 0, 2), (0, 0, 1), (0, 0, 1), focus_distance=6.0, defocus_angle=0.0,
@@ -1237,14 +1259,16 @@ def micro_scatter_limits(scr, reps: int) -> tuple[float, float]:
 def micro_parity_phase(dev) -> float:
     """K6's kernels against their plain versions at reps 1-3, at a small n
     and at the probe's n (reduce's 8,192 items, gather's 1,024 visits,
-    scatter's chunks past the last column block), from the default and
-    from random initial states.  Returns the largest |d| of scatter
+    scatter's chunks past the last column block, and destinations repeated
+    across k and across s), from the default and from random initial
+    states.  Returns the largest |d| of scatter
     (reduce and gather must be exact)."""
     import numpy as np
     import torch
 
     from rt_tpu_torch import micro_probe as mp
 
+    micro_cases = tests_module("torch_micro_cases")
     data = mp.inputs("all", dev)
     rs = np.random.default_rng(1)
     ints = lambda lo, hi, shape: torch.from_numpy(rs.integers(lo, hi, shape).astype(np.int32)).to(dev)
@@ -1279,6 +1303,19 @@ def micro_parity_phase(dev) -> float:
                   f"(limit {tol_scr:.3e}, max|scr| {float(p_scr.abs().max()):.4f}), plane |d| "
                   f"{d_out:.3e} (limit {tol_out:.3e})")
             worst, scr_max = max(worst, d_scr), max(scr_max, float(p_scr.abs().max()))
+        # Destinations repeated across k and across s: each lane counts once.
+        dst = micro_cases.repeated_dst(mp.SCATTER_SHAPE["kk"], 3).to(dev)
+        (out, scr), (p_out, p_scr) = (mp.scatter(s["vals"], dst, reps, 18, scr=scr0),
+                                      mp.scatter_plain(s["vals"], dst, reps, 18, scr=scr0))
+        d_scr, d_out = float((scr - p_scr).abs().max()), float((out - p_out).abs().max())
+        tol_scr, tol_out = micro_scatter_limits(p_scr, reps)
+        check(d_scr <= tol_scr and d_out <= tol_out,
+              f"K6 scatter reps {reps}, repeated destinations: |d| {d_scr}, {d_out} over "
+              f"{tol_scr}, {tol_out}")
+        print(f"[K6] scatter reps {reps} chunks 18, destinations repeated across k and s: scr "
+              f"max|d| {d_scr:.3e} (limit {tol_scr:.3e}), plane |d| {d_out:.3e} (limit "
+              f"{tol_out:.3e})")
+        worst = max(worst, d_scr)
     print(f"[K6] reduce (n 1024 and 8192, default and random initial planes) and gather (5 modes, "
           f"256 and {mp.NV} visits, random initial rows) equal to plain at reps 1-3; scatter "
           f"max|d| {worst:.3e} within {MICRO_SCATTER_RTOL} x max|scr| ({scr_max:.4f})")

@@ -1,6 +1,7 @@
-// The pair tests of the brute-force searches: one ray against one sphere or
-// one triangle of the packed tables.  Shared by K1's search (megakernel.cu)
-// and K3/K3b (prim_nearest.cu); K2 (nearest.cu) keeps its own loop.
+// The pair tests of the brute-force searches, one ray against one sphere or
+// one triangle of the packed tables, and the minimum of a group of lanes
+// that share a ray.  Shared by K1's search (megakernel.cu), K2/K2b
+// (nearest.cu) and K3/K3b (prim_nearest.cu).
 //
 // The arithmetic is rt_tpu/pallas_ops.py `_prim_kernel`'s (hittable.rs:318-338
 // for the sphere, :411-461 for the triangle), operation for operation, as
@@ -26,6 +27,16 @@
 //
 // Neither test compares against a best t: the caller keeps the nearest hit
 // (a strict `<` scan, or a minimum over packed keys).
+//
+// K2 and K3 give a ray to a group of lanes, each lane scanning a stride of
+// the rows with a strict `<` scan from (BIG, -1); `group_nearest` then
+// takes the least packed key (order_key(t), id) over the group, the
+// winning t travelling with its key.  That is the sequential scan's
+// result: a lane's scan returns the first of its least t, and the key's
+// minimum the first of all lanes' least t.  A lane that found nothing
+// holds the key ~0, which ranks above every hit, so a miss stays (BIG,
+// -1), and a hit needs t < BIG whatever t_max is, as the scan from BIG
+// requires.
 #pragma once
 
 #include "rt_common.cuh"
@@ -90,6 +101,28 @@ __device__ __forceinline__ void sphere_batch(Row row, int m, int id0, int id_ste
       best_i = id0 + id_step * b;
     }
   }
+}
+
+// The nearest hit of a group of G adjacent lanes (G a power of two, at most
+// 32) that share a ray: every lane's (best_t, best_i) becomes the group's
+// least (order_key(t), id), or (BIG, -1) when no lane has a hit.  Every
+// lane of the warp must call it.
+template <int G>
+__device__ __forceinline__ void group_nearest(float& best_t, int& best_i) {
+  constexpr unsigned long long kMiss = ~0ull;
+  unsigned long long key =
+      best_i < 0 ? kMiss : ((unsigned long long)order_key(best_t) << 32) | (unsigned)best_i;
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(kFullMask, key, off);
+    const float other_t = __shfl_xor_sync(kFullMask, best_t, off);
+    if (other < key) {
+      key = other;
+      best_t = other_t;
+    }
+  }
+  best_t = key == kMiss ? BIG : best_t;
+  best_i = key == kMiss ? -1 : (int)(unsigned)key;
 }
 
 // Triangle row (r0, r1, r2) = (a xyz, e1.x | e1.yz, e2.xy | e2.z, live,

@@ -62,7 +62,6 @@
 // JAX package read.
 #pragma once
 
-#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -262,31 +261,6 @@ __device__ __forceinline__ void warp_walk_rays(const ClusterSet& sph, const Clus
       i_out = best_i;
     }
   }
-}
-
-// Blocks of `kernel` (`threads` a block, no dynamic shared memory) that fit
-// on the current device at once: the grid of a persistent launch.  Asked of
-// the runtime once a device; `cache` (zero-initialised, one per kernel)
-// keeps the answer, so a launch costs no query.
-constexpr int kMaxDevices = 64;
-
-template <class Kernel>
-inline cudaError_t resident_blocks(Kernel kernel, int threads, std::atomic<int> (&cache)[kMaxDevices],
-                                   int& blocks) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && (blocks = cache[dev].load(std::memory_order_relaxed)) > 0) {
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  blocks = per_sm * sms;
-  if (dev < kMaxDevices) cache[dev].store(blocks, std::memory_order_relaxed);
-  return cudaSuccess;
 }
 
 }  // namespace rt

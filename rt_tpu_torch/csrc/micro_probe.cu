@@ -21,8 +21,12 @@
 // What bounds them on this card: reduce, the shared-memory 64-bit atomics
 // of one block (one per item); gather, the latency of the dependent loads
 // item -> ray -> slot block and the warp's shuffle reduction; scatter, the
-// compares of the one-hot planes (8 planes x 128 lanes x K a column), which
-// the TPU does on its matrix unit and this kernel does one by one.
+// latency of a rep's two steps and two barriers in each block: one scan of
+// the chunk's 8 x K x 128 destinations, then each output's sum over the
+// few lanes that name its column.  The first port gave each column a
+// thread that compared all 8 x K x 128 destinations with it, the one-hot
+// planes the TPU builds for its matrix unit, one by one: ~2,000 times its
+// bound.
 #include <climits>
 #include <cstdint>
 
@@ -159,38 +163,81 @@ __global__ void gather_finish(const int* res, int reps, float* out) {
   out[threadIdx.x] = static_cast<float>(static_cast<int>(acc));
 }
 
-// scatter: one thread per output column j of a chunk; grid.y runs over the
-// column blocks of scr that some chunk writes.  Chunks past the last block
-// all write it, the last chunk last, so block cc takes chunk cc, and the
-// last block the last chunk.
-__global__ void __launch_bounds__(256)
-scatter_kernel(const float* vals, const int* dst, int reps, int n_chunks, int nvrows, int kk,
-               int ch, int zero, float* scr) {
+// scatter: a block owns kScatterCols columns of one chunk's block of scr
+// (all of them when the chunk is narrower); grid.y runs over the column
+// blocks of scr that some chunk writes.  Chunks past the last block all
+// write it, the last chunk last, so block row cc takes chunk cc, and the
+// last block row the last chunk.  The block stages vals in shared memory
+// once.  A rep has two steps.  First the block scans the chunk's 8 x kk x
+// 128 destinations once, and for each that lands in its columns sets the
+// lane's bit in the 128-bit lane mask of (s, column) with a shared-memory
+// atomicOr: the OR is idempotent, so a lane that names a column under two
+// k counts once, as the TPU's OR of one-hot planes does, and the masks do
+// not depend on the threads' order.  Then each thread sums its (row,
+// column) outputs over the set bits, in ascending lane within each s and s
+// in ascending order, and writes scr.  That is the order of f32 adds of a
+// thread that tests every (s, k, lane) for its column, so scr comes out as
+// that loop gives it.  The masks are double-buffered: the summing step
+// clears the other buffer, which the next rep's scan fills.  The next
+// rep's base depends on this rep's result through `dep`, read from shared
+// memory after the rep's barrier.
+constexpr int kScatterThreads = 256;
+constexpr int kScatterCols = 16;  // columns per block
+
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_kernel(const float* __restrict__ vals, const int* __restrict__ dst, int reps,
+               int n_chunks, int nvrows, int kk, int ch, int zero, float* __restrict__ scr) {
+  __shared__ float vals_s[kMaxRows * 8 * 128];
+  __shared__ uint4 mask[2][8 * kScatterCols];  // [buffer][s * kScatterCols + column]: lane bits
+  __shared__ int dep_s;
   const int cc = blockIdx.y;
   const int n_blocks = kNI / ch;
   const int c = cc < n_blocks - 1 ? cc : n_chunks - 1;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= ch) return;
-  int dep = 0;
+  const int col0 = blockIdx.x * kScatterCols;
+  const int cols = min(kScatterCols, ch - col0);
+  const int n_dst = 8 * kk * 128;
+  for (int w = threadIdx.x; w < 8 * nvrows * 128; w += kScatterThreads) vals_s[w] = vals[w];
+  for (int w = threadIdx.x; w < 2 * 8 * kScatterCols; w += kScatterThreads) {
+    mask[w / (8 * kScatterCols)][w % (8 * kScatterCols)] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (threadIdx.x == 0) dep_s = 0;
+  __syncthreads();
   for (int rr = 0; rr < reps; ++rr) {
-    const int base = c * ch + dep;
-    float tot[kMaxRows];
-    for (int s = 0; s < 8; ++s) {
-      float part[kMaxRows];
-      for (int r = 0; r < kMaxRows; ++r) part[r] = 0.0f;
-      for (int lane = 0; lane < 128; ++lane) {
-        bool hit = false;
-        for (int k = 0; k < kk; ++k) hit |= dst[(s * kk + k) * 128 + lane] - base == j;
-        if (hit) {
-          for (int r = 0; r < kMaxRows; ++r) {
-            if (r < nvrows) part[r] += vals[(s * nvrows + r) * 128 + lane];
-          }
-        }
+    const int cur = rr & 1;
+    // The block's first column as a destination; the differences wrap, as
+    // the TPU body's int32 compare of dst - base with the column does.
+    const unsigned first = static_cast<unsigned>(c * ch + dep_s + col0);
+    unsigned* cur_words = reinterpret_cast<unsigned*>(mask[cur]);
+    for (int e = threadIdx.x; e < n_dst; e += kScatterThreads) {
+      const unsigned j = static_cast<unsigned>(__ldg(dst + e)) - first;
+      if (j < static_cast<unsigned>(cols)) {
+        const int s = e / (kk * 128), lane = e & 127;
+        atomicOr(&cur_words[(s * kScatterCols + j) * 4 + (lane >> 5)], 1u << (lane & 31));
       }
-      for (int r = 0; r < kMaxRows; ++r) tot[r] = s == 0 ? part[r] : tot[r] + part[r];
     }
-    for (int r = 0; r < nvrows; ++r) scr[static_cast<long long>(r) * kNI + cc * ch + j] = tot[r];
-    dep = __float_as_int(tot[0]) & zero;
+    __syncthreads();
+    for (int o = threadIdx.x; o < nvrows * cols; o += kScatterThreads) {
+      const int r = o / cols, j = o - r * cols;
+      float tot = 0.0f;
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const uint4 m = mask[cur][s * kScatterCols + j];
+        const float* v = vals_s + (s * nvrows + r) * 128;
+        float part = 0.0f;
+        for (unsigned b = m.x; b; b &= b - 1u) part += v[__ffs(b) - 1];
+        for (unsigned b = m.y; b; b &= b - 1u) part += v[32 + __ffs(b) - 1];
+        for (unsigned b = m.z; b; b &= b - 1u) part += v[64 + __ffs(b) - 1];
+        for (unsigned b = m.w; b; b &= b - 1u) part += v[96 + __ffs(b) - 1];
+        tot = s == 0 ? part : tot + part;
+      }
+      scr[static_cast<long long>(r) * kNI + cc * ch + col0 + j] = tot;
+      if (o == 0) dep_s = __float_as_int(tot) & zero;
+    }
+    uint4* other = mask[cur ^ 1];
+    for (int w = threadIdx.x; w < 8 * kScatterCols; w += kScatterThreads) {
+      other[w] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
   }
 }
 
@@ -250,8 +297,9 @@ extern "C" int rt_micro_scatter(const float* vals, const int* dst, int reps, int
                                 cudaStream_t stream) {
   const int written = min(n_chunks, kNI / ch);
   if (reps > 0 && written > 0) {
-    const dim3 grid((ch + 255) / 256, written);
-    scatter_kernel<<<grid, 256, 0, stream>>>(vals, dst, reps, n_chunks, nvrows, kk, ch, 0, scr);
+    const dim3 grid((ch + kScatterCols - 1) / kScatterCols, written);
+    scatter_kernel<<<grid, kScatterThreads, 0, stream>>>(vals, dst, reps, n_chunks, nvrows, kk,
+                                                         ch, 0, scr);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

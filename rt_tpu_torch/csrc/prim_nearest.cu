@@ -28,13 +28,10 @@
 // rows at a time; lane g of a group tests rows g, g + kGroup, ... of each
 // tile (32 rows, one `sphere_batch` of the shared late-sqrt test), keeping
 // its own best with a strict `<` scan from (BIG, -1).  The group's winner
-// is the least packed key (order_key(t), id) of a shuffle reduction, the
-// winning t travelling with its key.  That is the sequential scan's result: a lane's scan returns
-// the first of its least t, the key's minimum the first of all lanes' least
-// t; spheres have the lower ids, so a triangle wins only when strictly
-// nearer.  A lane that found nothing holds the key ~0, which ranks above
-// every hit, so a miss stays (BIG, -1); a hit needs t < BIG whatever
-// t_max is, as the scan from BIG requires.  Last, the block writes its
+// is the least packed key (order_key(t), id) of a shuffle reduction
+// (brute_force.cuh `group_nearest`, shared with K2), which is the
+// sequential scan's result; spheres have the lower ids, so a triangle wins
+// only when strictly nearer.  Last, the block writes its
 // kRays rays' t and id, and K3's 40 shade columns f-major, with coalesced
 // stores: kRays consecutive floats of each column row.  The TPU's one-hot
 // product, which exists to feed its matrix unit, and its (8, 128) tiling
@@ -52,7 +49,6 @@ using rt::BIG;
 constexpr int kThreads = 256;               // threads per block and table rows per tile
 constexpr int kGroup = 8;                   // lanes per ray
 constexpr int kRays = kThreads / kGroup;    // rays per block
-constexpr unsigned long long kNoKey = ~0ull;
 
 template <bool kFetch>
 __global__ void __launch_bounds__(kThreads)
@@ -113,22 +109,10 @@ prim_nearest_kernel(const float* __restrict__ rays, int n,
     __syncthreads();
   }
 
-  // The group's winner: the least (order_key(t), id), t carried along.
-  unsigned long long key =
-      best_i < 0 ? kNoKey
-                 : ((unsigned long long)rt::order_key(best_t) << 32) | (unsigned)best_i;
-#pragma unroll
-  for (int off = kGroup / 2; off > 0; off >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(rt::kFullMask, key, off);
-    const float other_t = __shfl_xor_sync(rt::kFullMask, best_t, off);
-    if (other < key) {
-      key = other;
-      best_t = other_t;
-    }
-  }
+  rt::group_nearest<kGroup>(best_t, best_i);
   if (g == 0) {
-    win_t[slot] = key == kNoKey ? BIG : best_t;
-    win_i[slot] = key == kNoKey ? -1 : (int)(unsigned)key;
+    win_t[slot] = best_t;
+    win_i[slot] = best_i;
   }
   __syncthreads();
 

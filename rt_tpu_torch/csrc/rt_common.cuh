@@ -1,15 +1,18 @@
-// Shared device code of the port's CUDA kernels: the per-frame parameter
-// block, the counter-hash RNG, the Halton sequence and the order key of a
-// distance.
+// Shared code of the port's CUDA kernels: the per-frame parameter block,
+// the counter-hash RNG, the Halton sequence, the order key of a distance,
+// and the grid of a persistent launch.
 //
-// Every function here reproduces the JAX package bit for bit (rng.py,
-// sampling.py): the hash and Halton values feed branch decisions (Russian
+// The hash and Halton functions reproduce the JAX package bit for bit
+// (rng.py, sampling.py): their values feed branch decisions (Russian
 // roulette, Fresnel, jitter), so an ulp of drift would fork whole paths.
 // Build with -fmad=false and without --use_fast_math so that a*b+c stays
 // two rounded operations, as in the plain PyTorch version.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
+
+#include <cuda_runtime.h>
 
 namespace rt {
 
@@ -117,6 +120,31 @@ __device__ __forceinline__ unsigned order_key(float t) {
 // jnp.sign: -1, 0 or 1.
 __device__ __forceinline__ float signf(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// Blocks of `kernel` (`threads` a block, no dynamic shared memory) that fit
+// on the current device at once: the grid of a persistent launch.  Asked of
+// the runtime once a device; `cache` (zero-initialised, one per kernel)
+// keeps the answer, so a launch costs no query.
+constexpr int kMaxDevices = 64;
+
+template <class Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int threads, std::atomic<int> (&cache)[kMaxDevices],
+                                   int& blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (blocks = cache[dev].load(std::memory_order_relaxed)) > 0) {
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  blocks = per_sm * sms;
+  if (dev < kMaxDevices) cache[dev].store(blocks, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 }  // namespace rt

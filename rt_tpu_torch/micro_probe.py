@@ -292,7 +292,10 @@ def scatter(vals, dst, reps: int, n_chunks: int, *, nvrows: int = 8, kk: int = 4
             scr=None):
     """K6 scatter (tools/micro_probe.py:131): vals f32[8*nvrows, 128], dst
     int32[8*kk, 128]; returns (out, scr) as ``scatter_plain``.  The kernel
-    sums in f32 in its own order, with no matrix-product library call."""
+    marks, with one scan of the destinations, the lanes that name each
+    column, then sums in f32 over the marked lanes in ascending lane within
+    each s and s in ascending order (the models of
+    tests/torch_micro_cases.py); it calls no matrix-product library."""
     _check_scatter(nvrows, ch)
     if vals.shape != (8 * nvrows, 128) or dst.shape != (8 * kk, 128):
         raise ValueError(f"scatter: need vals [{8 * nvrows}, 128] and dst [{8 * kk}, 128], got "

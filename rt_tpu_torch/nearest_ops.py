@@ -13,7 +13,10 @@ is launched by two wrappers:
 Both return t f32[N] (``BIG`` on a miss) and idx int32[N] (-1 on a miss),
 the lowest index winning among equal t.  On a CUDA tensor each wrapper
 launches the CUDA kernel of csrc/nearest.cu, one kernel for both layouts,
-or raises; on a CPU tensor it runs the plain PyTorch version
+or raises: a persistent grid whose blocks stage the sphere table in shared
+memory once and give each ray a group of lanes, each lane a stride of the
+rows, the group's winner the least (t, id) key.  On a CPU tensor it runs
+the plain PyTorch version
 (``sphere_nearest_plain``, ``sphere_nearest_packed_plain``), which the
 tests hold against the Pallas kernel in interpret mode and against which
 the kernel is held on the card.  There is no backward: the callers search

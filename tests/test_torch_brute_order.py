@@ -18,6 +18,15 @@ that a ray meets at exactly equal t (the sphere at (x, y, 2) with radius 1
 and a triangle in z = 1, for a ray up the z axis from (x, y, 0): t = 1 on
 both); rays whose near root falls below t_min; and misses.
 
+K2/K2b (csrc/nearest.cu) search the spheres alone in the same order, with
+``K2_G`` lanes a ray, and read ray i's component k at base[i * ray_step +
+k * comp_step] of each of the origins and directions, with the steps the
+wrapper hands the kernel (``stride(0)``, ``stride(1)`` of K2's [N,3] views,
+and of K2b's rows [0:3] and [3:6] of [8,N] transposed).  The tests read
+the tie scene's rays that way and hold ``group_nearest`` with an empty
+triangle table against ``sphere_nearest_plain`` and
+``sphere_nearest_packed_plain``, bit for bit.
+
 K1 (csrc/megakernel.cu) renders a launch's samples in chunks
 (``megakernel.chunk_schedule``), each chunk's per-sample radiance summed
 into the pixels in sample order.  The tests check that the schedule covers
@@ -27,7 +36,7 @@ gives ``render_megakernel_plain``'s image bit for bit.
 
 The kernels themselves are held against the plain versions on the card
 (tests/test_torch_prim.py, tests/test_torch_megakernel.py, chip_smoke.py),
-on this tie scene too.  Serial CPU time of this file: ~13 s.
+on this tie scene too.  Serial CPU time of this file: ~12 s.
 """
 
 import numpy as np
@@ -37,7 +46,8 @@ import torch
 from rt_tpu_torch import megakernel, prim_ops
 from rt_tpu_torch.camera import generate_rays, make_camera
 from rt_tpu_torch.config import RenderConfig
-from rt_tpu_torch.nearest_ops import BIG, sphere_nearest_packed_plain
+from rt_tpu_torch.nearest_ops import (BIG, sphere_nearest_packed_plain, sphere_nearest_plain,
+                                      _pack_spheres)
 from rt_tpu_torch.scene import SceneBuilder
 from rt_tpu_torch.sky import frame_scalars
 from test_torch_walk_order import order_key  # the kernels' order(t), modelled
@@ -46,6 +56,7 @@ from torch_brute_cases import SPOTS, admitted, tie_rays, tie_scene  # tests/torc
 torch.set_num_threads(2)
 
 G = 8  # lanes a ray (csrc/prim_nearest.cu kGroup)
+K2_G = 8  # lanes a ray of K2/K2b (csrc/nearest.cu kGroup)
 NO_KEY = (1 << 63) - 1  # the key ~0 of a lane without a hit, shifted into int64
 T_MIN = 1e-3
 
@@ -75,12 +86,13 @@ def pair_hits(rays, sph, tri, t_min, t_max, cull):
 
 
 def group_nearest(rays, sph, tri, n_spheres: int, t_min: float, t_max: float, cull: bool,
-                  stats: dict | None = None):
-    """K3b's order for every ray of ``rays`` f32[>=6, N] over the packed
-    tables: (t f32[N], id int32[N]).  ``stats`` counts the equal-t
-    decisions it makes ("lane_ties": rays whose least t two lanes hold;
-    "kind_ties": rays whose nearest sphere and nearest triangle are at
-    equal t)."""
+                  stats: dict | None = None, g_lanes: int = G):
+    """K3b's order, with ``g_lanes`` lanes a ray, for every ray of ``rays``
+    f32[>=6, N] over the packed tables: (t f32[N], id int32[N]); with an
+    empty triangle table and K2's lanes, K2's order.  ``stats`` counts the
+    equal-t decisions it makes ("lane_ties": rays whose least t two lanes
+    hold; "kind_ties": rays whose nearest sphere and nearest triangle are
+    at equal t)."""
     stats = {} if stats is None else stats
     t_all, hit_all = pair_hits(rays, sph, tri, t_min, t_max, cull)
     s_rows = sph.shape[0]
@@ -92,10 +104,10 @@ def group_nearest(rays, sph, tri, n_spheres: int, t_min: float, t_max: float, cu
     ids = torch.cat([torch.arange(s_rows), n_spheres + torch.arange(tri.shape[0])])
     rows = torch.cat([torch.arange(s_rows), torch.arange(tri.shape[0])])
     n = rays.shape[1]
-    lane_t = torch.full((G, n), BIG)
-    lane_i = torch.full((G, n), -1, dtype=torch.int32)
-    for g in range(G):
-        for r in torch.nonzero(rows % G == g)[:, 0].tolist():  # spheres, then triangles
+    lane_t = torch.full((g_lanes, n), BIG)
+    lane_i = torch.full((g_lanes, n), -1, dtype=torch.int32)
+    for g in range(g_lanes):
+        for r in torch.nonzero(rows % g_lanes == g)[:, 0].tolist():  # spheres, then triangles
             take = marked[r] & hit_all[r] & (t_all[r] < lane_t[g])
             lane_t[g] = torch.where(take, t_all[r], lane_t[g])
             lane_i[g] = torch.where(take, ids[r].to(torch.int32), lane_i[g])
@@ -103,13 +115,15 @@ def group_nearest(rays, sph, tri, n_spheres: int, t_min: float, t_max: float, cu
     least = keys.min(dim=0).values
     held = (lane_i >= 0) & (lane_t == torch.gather(lane_t, 0, keys.argmin(dim=0)[None]))
     stats["lane_ties"] = stats.get("lane_ties", 0) + int((held.sum(dim=0) > 1).sum())
-    s_best = torch.where(hit_all[:s_rows], t_all[:s_rows], BIG).min(dim=0).values
-    t_best = torch.where(hit_all[s_rows:], t_all[s_rows:], BIG).min(dim=0).values
-    stats["kind_ties"] = stats.get("kind_ties", 0) + int(((s_best == t_best) & (s_best < BIG)).sum())
+    if tri.shape[0]:
+        s_best = torch.where(hit_all[:s_rows], t_all[:s_rows], BIG).min(dim=0).values
+        t_best = torch.where(hit_all[s_rows:], t_all[s_rows:], BIG).min(dim=0).values
+        ties = int(((s_best == t_best) & (s_best < BIG)).sum())
+        stats["kind_ties"] = stats.get("kind_ties", 0) + ties
     # The xor butterfly of the group, lane g taking lane g ^ off's key when less.
     t, i = lane_t.clone(), lane_i.clone()
-    for off in (G // 2, G // 4, 1):
-        other = torch.arange(G) ^ off
+    for off in [g_lanes >> k for k in range(1, g_lanes.bit_length())]:
+        other = torch.arange(g_lanes) ^ off
         take = keys[other] < keys
         keys = torch.where(take, keys[other], keys)
         t = torch.where(take, t[other], t)
@@ -136,6 +150,53 @@ def test_group_order_matches_sequential_scan(cull, t_max):
     assert (i == -1).sum() > 64 and (i >= scene.num_spheres).sum() > 20
     assert stats["lane_ties"] >= 30 and stats["kind_ties"] >= 30, stats
     # Many admitted pairs are no hit (behind the origin, beyond t_max, ...).
+    assert stats["admitted"] > 2 * int((i >= 0).sum()), stats
+
+
+def kernel_reads(org: torch.Tensor, dirn: torch.Tensor) -> torch.Tensor:
+    """Rays f32[6, N] as K2's kernel reads them: ray i's component k at
+    storage[offset + i * stride(0) + k * stride(1)] of each tensor."""
+    rows = []
+    for x in (org, dirn):
+        flat = torch.empty(0, dtype=x.dtype).set_(x.untyped_storage())
+        i, k = torch.arange(x.shape[0])[None, :], torch.arange(3)[:, None]
+        rows.append(flat[x.storage_offset() + i * x.stride(0) + k * x.stride(1)])
+    return torch.cat(rows)
+
+
+@pytest.mark.parametrize("t_max", [1e9, 3.0e38, float("inf")])
+@pytest.mark.parametrize("entry", ["K2", "K2 strided views", "K2b"])
+def test_k2_group_order_matches_plain(entry, t_max):
+    """K2's lane split and key minimum over the tie scene's spheres, the
+    rays read through the strides each entry hands the kernel, equal bit
+    for bit to the plain versions (ties across lanes and in one lane, near
+    roots below t_min, misses, radius-0 pad rows)."""
+    scene, rays = tie_scene(), tie_rays()
+    ns, n = scene.num_spheres, rays.shape[1]
+    if entry == "K2b":
+        org, dirn, sph = rays[0:3].T, rays[3:6].T, scene.sph_packed  # sphere_nearest_packed's views
+        ref = sphere_nearest_packed_plain(rays, sph, T_MIN, t_max)
+        assert sph.shape[0] > ns and bool((sph[ns:, 3] == 0).all())
+    else:
+        centers, radius = scene.sph_center[:ns], scene.sph_radius[:ns]
+        org, dirn = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
+        if entry == "K2 strided views":
+            wide = torch.zeros((n, 11))
+            wide[:, 2:5] = org
+            org = wide[:, 2:5]  # ray step 11
+            dirn = rays[3:6].clone().T  # ray step 1, component step n
+            assert org.stride() == (11, 1) and dirn.stride() == (1, n)
+        sph = _pack_spheres(centers, radius)
+        ref = sphere_nearest_plain(org, dirn, centers, radius, T_MIN, t_max)
+    read = kernel_reads(org, dirn)
+    assert torch.equal(read, rays[0:6])
+    stats = {}
+    got = group_nearest(read, sph, scene.tri_packed[:0], sph.shape[0], T_MIN, t_max, True, stats,
+                        g_lanes=K2_G)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    i = ref[1]
+    assert (i == -1).sum() > 64 and stats["lane_ties"] >= 30, stats
+    assert not ((i >= len(SPOTS) + 40) | (i == len(SPOTS) + 8)).any()  # later copies never win
     assert stats["admitted"] > 2 * int((i >= 0).sum()), stats
 
 

@@ -18,6 +18,15 @@ Inputs come from numpy generators with fixed seeds.  Tolerances:
   order than the interpret-mode dot's).
 test_torch_walk_probe_cuda.py holds the kernels against the plain versions
 on the card.
+
+The scatter kernel's order of f32 adds is proved here on the CPU with the
+two models of tests/torch_micro_cases.py: the kernel's masks, filled by
+one scan of the destinations, then ordered sums, equal bit for bit the
+parent loop that tests every destination against each column, on
+destinations repeated across k and across s, chunks past the last column
+block, nvrows 1, 2 and 8 and ch 512 and 2048; and within the card's limits
+(1e-5 of max|scr|, and of the |scr| terms of the plane) of
+``scatter_plain``'s matrix products.  Serial CPU time of this file: ~17 s.
 """
 
 import functools
@@ -32,6 +41,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rt_tpu_torch import micro_probe as mp
 from tools import micro_probe as tmp
+from torch_micro_cases import repeated_dst, scatter_masked, scatter_sequential
 
 torch.set_num_threads(2)
 MODES = mp.MODES
@@ -217,6 +227,49 @@ def test_scatter_past_the_last_block_keeps_the_last_chunk():
     _, scr = mp.scatter(vals, dst, 1, 5, nvrows=2, kk=1, ch=2048)
     _, last = mp.scatter_plain(vals, dst - 2048, 1, 4, nvrows=2, kk=1, ch=2048)
     torch.testing.assert_close(scr[:, 6144:], last[:, 6144:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("nvrows, kk, ch, n_chunks", [(8, 4, 512, 16), (8, 4, 512, 18),
+                                                   (2, 2, 2048, 4), (2, 1, 2048, 5),
+                                                   (1, 3, 512, 20)])
+def test_scatter_masks_keep_the_column_loop_order(nvrows, kk, ch, n_chunks):
+    """The kernel's masks-then-ordered-sums equal the loop over every
+    destination per column bit for bit (scr and the plane), from a random
+    initial scr, and stay within the card's limits of the plain version."""
+    rs = np.random.default_rng(20 + nvrows + kk)
+    vals = torch.from_numpy(rs.standard_normal((8 * nvrows, 128)).astype(np.float32))
+    dst = repeated_dst(kk, 30 + kk, high=mp.NI + 512)  # some land past every column
+    scr0 = torch.from_numpy(rs.standard_normal((nvrows, mp.NI)).astype(np.float32))
+    args = (vals, dst, 3, n_chunks)
+    kw = dict(nvrows=nvrows, kk=kk, ch=ch, scr=scr0)
+    got, seq = scatter_masked(*args, **kw), scatter_sequential(*args, **kw)
+    assert torch.equal(got[1], seq[1]) and torch.equal(got[0], seq[0])
+    out, scr = got
+    p_out, p_scr = mp.scatter_plain(*args, **kw)
+    rows = p_scr[0, :1024].abs().reshape(8, 128).sum(dim=1)
+    terms = sum(float(rows[rr & 7]) for rr in range(3))
+    assert float((scr - p_scr).abs().max()) <= 1e-5 * float(p_scr.abs().max())
+    assert float((out - p_out).abs().max()) <= 1e-5 * terms
+    written = min(n_chunks, mp.NI // ch) * ch
+    assert not torch.equal(scr[:, :written], scr0[:, :written])
+    assert torch.equal(scr[:, written:], scr0[:, written:])
+    if n_chunks > mp.NI // ch:  # the last block holds the last chunk
+        last = scatter_sequential(vals, dst - (n_chunks - mp.NI // ch) * ch, 3, mp.NI // ch,
+                                  nvrows=nvrows, kk=kk, ch=ch, scr=scr0)[1]
+        assert torch.equal(scr[:, mp.NI - ch :], last[:, mp.NI - ch :])
+
+
+def test_repeated_destinations_count_once():
+    """A lane that names a column under several k, or in several lanes
+    of one s, adds each lane's value once."""
+    vals = torch.ones((8, 128))
+    dst = repeated_dst(4, 7)
+    col = int(dst[3 * 4, 40])
+    _, scr = scatter_masked(vals, dst, 1, mp.NI // 512, nvrows=1, kk=4, ch=512)
+    named = {(s, lane) for s in range(8) for k in range(4) for lane in range(128)
+             if int(dst[s * 4 + k, lane]) == col}
+    assert {(3, lane) for lane in range(40, 48)} <= named
+    assert float(scr[0, col]) == len(named)
 
 
 # -- checks -------------------------------------------------------------------------

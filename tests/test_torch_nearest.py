@@ -14,7 +14,7 @@ The CUDA kernel is held against the plain version by the ``cuda`` test at
 the end, which runs only where a card is present: built without fused
 multiply-adds, it must agree bit for bit.  ``rt_tpu`` is imported inside
 the CPU tests, so that the ``cuda`` test also runs on a machine without
-the JAX package's dependencies.
+the JAX package's dependencies.  Serial CPU time of this file: ~6 s.
 """
 
 import jax.numpy as jnp
@@ -107,9 +107,16 @@ def test_packed_entry_matches_pallas_interpret():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """Both entries of the CUDA kernel against the plain version on the
-    card: winners equal on every ray, t equal on every hit."""
+    card, t and idx bit for bit: random rays and spheres, the tie scene of
+    tests/torch_brute_cases.py at t_max 1e9, 3e38 and inf, 90,000 rays
+    against the bench scene's 447 spheres, and 2,500 spheres (a table the
+    kernel stages in tiles)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from torch_brute_cases import tie_rays, tie_scene
+
+    from rt_tpu_torch.scenes import bench_cover_config
+
     org, dirn, centers, radius = (torch.from_numpy(x).cuda() for x in _rays_and_spheres(1000, 37, 23))
     before = nearest_ops.LAUNCHES["sphere_nearest"]
     got = nearest_ops.sphere_nearest(org, dirn, centers, radius, T_MIN, T_MAX)
@@ -125,3 +132,30 @@ def test_cuda_kernel_matches_plain_version():
     ref = nearest_ops.sphere_nearest_packed_plain(rays, sph, T_MIN, T_MAX)
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+    scene, rays = tie_scene().to("cuda"), tie_rays().cuda()
+    ns = scene.num_spheres
+    for t_max in (1e9, 3.0e38, float("inf")):
+        args = (rays[0:3].T, rays[3:6].T, scene.sph_center[:ns], scene.sph_radius[:ns], T_MIN, t_max)
+        for got, ref in ((nearest_ops.sphere_nearest(*args), nearest_ops.sphere_nearest_plain(*args)),
+                         (nearest_ops.sphere_nearest_packed(rays, scene.sph_packed, T_MIN, t_max),
+                          nearest_ops.sphere_nearest_packed_plain(rays, scene.sph_packed, T_MIN,
+                                                                  t_max))):
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), t_max
+    bench = bench_cover_config()[0].to("cuda")
+    ns = bench.num_spheres
+    rs = np.random.default_rng(24)
+    org = torch.from_numpy(rs.uniform((-8, -8, 0), (8, 8, 2), (90_000, 3)).astype(np.float32)).cuda()
+    dirn = torch.from_numpy(rs.normal(size=(90_000, 3)).astype(np.float32)).cuda()
+    args = (org, dirn, bench.sph_center[:ns], bench.sph_radius[:ns], T_MIN, 3.0e38)
+    got, ref = nearest_ops.sphere_nearest(*args), nearest_ops.sphere_nearest_plain(*args)
+    assert ns == 447 and torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert 0 < int((ref[1] >= 0).sum()) < 90_000
+    # A table over the kernel's 1,024 shared-memory rows, with a tie across its tiles.
+    org, dirn, centers, radius = _rays_and_spheres(5000, 2500, 25)
+    radius *= 0.1
+    centers[2000], radius[2000] = centers[7], radius[7]
+    org[:500] = centers[7]  # from inside sphere 7 and its copy: both exits at one t
+    args = (*(torch.from_numpy(x).cuda() for x in (org, dirn, centers, radius)), T_MIN, T_MAX)
+    got, ref = nearest_ops.sphere_nearest(*args), nearest_ops.sphere_nearest_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert int((ref[1] == 7).sum()) >= 500 and int((ref[1] >= 1024).sum()) > 500

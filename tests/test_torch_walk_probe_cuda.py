@@ -10,7 +10,10 @@ does the same arithmetic in the same order; reduce and gather bit for bit
 in every mode, at 256 visits and at the probe's 1,024; scatter (f32 sums
 in another order than the plain version's matrix product) each scr
 element within 1e-5 of max|scr|, the plane within 1e-5 of the sum of the
-|scr| terms it adds up.
+|scr| terms it adds up, and bit for bit equal to the sequential model of
+tests/torch_micro_cases.py (the loop over every destination per column),
+on the probe's destinations and on destinations repeated across k and s.
+Serial CPU time of this file: ~3 s (every test skips there).
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ from rt_tpu_torch import scenes as tscenes
 from rt_tpu_torch.bvh import traverse
 from rt_tpu_torch.config import CompatConfig
 from rt_tpu_torch.scene import SceneBuilder
+from torch_micro_cases import repeated_dst, scatter_sequential
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +139,7 @@ def test_cuda_micro_kernels_match_plain_versions(mode):
         terms = sum(float(rows[rr & 7]) for rr in range(reps))
         assert float((scr - p_scr).abs().max()) <= 1e-5 * float(p_scr.abs().max())
         assert float((out - p_out).abs().max()) <= 1e-5 * terms
+        for dst, n_chunks in ((s["dst"], 6), (repeated_dst(4, 3).cuda(), 18)):
+            got = mp.scatter(s["vals"], dst, reps, n_chunks)
+            want = scatter_sequential(s["vals"].cpu(), dst.cpu(), reps, n_chunks)
+            assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
