@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the brute-force kernels and K6's scatter of two checkouts of the
+"""Time the brute-force kernels and K6's kernels of two checkouts of the
 port in turns, on one NVIDIA GPU.
 
     python3 chip_ab.py PARENT_DIR
@@ -17,8 +17,10 @@ this checkout's ``chip_smoke.timed_cuda``, at the bench configuration:
   65,536 rays of ``chip_smoke.prim_rays``;
 - K2 and K2b (``nearest_ops.sphere_nearest`` / ``_packed``) on the 90,000
   rays of ``chip_smoke.nearest_phase`` against the cover scene's spheres;
-- K6's scatter (``micro_probe.scatter``) at the probe's inputs and shape,
-  at 8 and 1,024 reps, and its time a rep between the two.
+- K6's scatter, reduce and gather ("full" and "unaligned")
+  (``micro_probe.scatter``, ``reduce``, ``gather``) at the probe's inputs
+  and shapes, at 8 and 1,024 reps, and each one's time a rep between the
+  two.
 
 It prints the card, one JSON line per run and, last, whether each output
 of the first change run equals the first parent run's bit for bit, and
@@ -83,11 +85,17 @@ def run(root: str, tag: str) -> None:
     outs["k2b"], ms["k2b_ms"] = timed(
         lambda: no.sphere_nearest_packed(packed, scene.sph_packed, 1e-3, 3e38), 20)
     sc = mp.SCATTER_SHAPE
-    d = mp.inputs("scatter", dev)["scatter"]
-    for reps in (8, 1024):
-        outs[f"scatter_{reps}"], ms[f"scatter_{reps}reps_ms"] = timed(
-            lambda: mp.scatter(d["vals"], d["dst"], reps, mp.NI // sc["ch"], **sc), 5)
-    ms["scatter_ms_per_rep"] = (ms["scatter_1024reps_ms"] - ms["scatter_8reps_ms"]) / 1016
+    data = mp.inputs("all", dev)
+    d, red, g = data["scatter"], data["reduce"], data["gather"]
+    gather_args = (g["rays_t"], g["slots"], g["item"], g["vcl"])
+    k6 = {"scatter": lambda reps: mp.scatter(d["vals"], d["dst"], reps, mp.NI // sc["ch"], **sc),
+          "reduce": lambda reps: mp.reduce(red["rid"], red["key"], reps, mp.NI),
+          "gather": lambda reps: mp.gather(*gather_args, reps, mp.NV),
+          "gather_unaligned": lambda reps: mp.gather(*gather_args, reps, mp.NV, mode="unaligned")}
+    for body, fn in k6.items():
+        for reps in (8, 1024):
+            outs[f"{body}_{reps}"], ms[f"{body}_{reps}reps_ms"] = timed(lambda: fn(reps), 5)
+        ms[f"{body}_ms_per_rep"] = (ms[f"{body}_1024reps_ms"] - ms[f"{body}_8reps_ms"]) / 1016
     os.makedirs(OUT, exist_ok=True)
     torch.save({k: [x.cpu() for x in v] if isinstance(v, tuple) else v.cpu()
                 for k, v in outs.items()}, os.path.join(OUT, f"{tag}.pt"))

@@ -156,10 +156,13 @@ def k1_chunk_phase(dev, spps=(5, 9)):
         mk.SCRATCH_CAP = cap
 
 
-def k1_wide_phase(dev, card: str, spp: int = 10, block: int = 256) -> float:
+def k1_wide_phase(dev, card: str, spp: int = 10, block: int = 256):
     """The cover scene at 1600x900, 10 spp, depth 50 through K1, timed;
     three 256-pixel runs of the frame (its middle row and corners) equal to
-    the plain version bit for bit.  Returns the kernel's ms per frame."""
+    the plain version bit for bit.  Returns (the kernel's ms per frame, its
+    least time): the ray segments and admitted sphere pairs that the plain
+    runs searched, scaled from their 768 pixels to the frame, as K5's bound
+    scales its 144 pixels."""
     import torch
 
     from rt_tpu_torch import megakernel as mk
@@ -178,13 +181,21 @@ def k1_wide_phase(dev, card: str, spp: int = 10, block: int = 256) -> float:
     check(img.shape == (w * h, 3) and bool(torch.isfinite(img).all()), "1600x900: non-finite image")
     mean = float(img.mean())
     check(0.05 < mean < 2.0, f"1600x900: implausible image mean {mean}")
-    for base in (0, (h // 2) * w + w // 2 - block // 2, w * h - block):
+    work = {"segments": 0, "admitted": 0}
+    bases = (0, (h // 2) * w + w // 2 - block // 2, w * h - block)
+    for base in bases:
         ref = mk.render_megakernel_plain(scene, camera, cfg, spp, 0, cfg.seed, pixel_base=base,
-                                         n_pixels=block)
+                                         n_pixels=block, search=counting_search(work))
         check(bool(torch.equal(img[base : base + block], ref)),
               f"1600x900: pixels [{base}, {base + block}) differ from the plain version")
-    print(f"[parity] 1600x900: image mean {mean:.4f}; three {block}-pixel runs equal to plain")
-    return ms
+    scale = w * h / (len(bases) * block)
+    wide_bound = bound(brute_flops(round(work["segments"] * scale), scene.num_spheres,
+                                   scene.num_triangles, round(work["admitted"] * scale)),
+                       w * h * 12)
+    print(f"[parity] 1600x900: image mean {mean:.4f}; three {block}-pixel runs equal to plain; "
+          f"they searched {work['segments']} ray segments with {work['admitted']} admitted sphere "
+          f"pairs; x {scale:.1f} for the frame: bound {wide_bound[0]:.4f} ms by {wide_bound[1]}")
+    return ms, wide_bound
 
 
 # Gradient path against the same path on K2's plain version: the loss at
@@ -1256,13 +1267,16 @@ def micro_scatter_limits(scr, reps: int) -> tuple[float, float]:
     return MICRO_SCATTER_RTOL * float(scr.abs().max()), MICRO_SCATTER_RTOL * terms
 
 
-def micro_parity_phase(dev) -> float:
-    """K6's kernels against their plain versions at reps 1-3, at a small n
-    and at the probe's n (reduce's 8,192 items, gather's 1,024 visits,
-    scatter's chunks past the last column block, and destinations repeated
-    across k and across s), from the default and from random initial
-    states.  Returns the largest |d| of scatter
-    (reduce and gather must be exact)."""
+def micro_exact_cases(dev) -> list:
+    """K6's reduce and gather cases whose kernel outputs must equal their
+    plain versions' bit for bit, each (label, kernel call, plain call): reps
+    1-3; reduce at n 1,024 (default planes) and 8,192 (random planes), and
+    on the tie inputs of tests/torch_micro_cases.py (keys 0-39, rays outside
+    the plane, initial planes that tie); gather in every mode at 256 and
+    1,024 visits from random rows, on the probe's inputs and on the slot
+    blocks of tests/torch_micro_cases.gather_hard_inputs."""
+    import functools
+
     import numpy as np
     import torch
 
@@ -1270,26 +1284,53 @@ def micro_parity_phase(dev) -> float:
 
     micro_cases = tests_module("torch_micro_cases")
     data = mp.inputs("all", dev)
+    r, g = data["reduce"], data["gather"]
+    ties = [x.to(dev) for x in micro_cases.tie_reduce_inputs(1)]
+    hard = [x.to(dev) for x in micro_cases.gather_hard_inputs(3)]
     rs = np.random.default_rng(1)
     ints = lambda lo, hi, shape: torch.from_numpy(rs.integers(lo, hi, shape).astype(np.int32)).to(dev)
+    cases = []
+    for reps in (1, 2, 3):
+        init = dict(best=ints(0, 1 << 29, (8, 128)), bi=ints(-3, 3, (8, 128)))
+        for label, args, kw in (("n 1024", (r["rid"], r["key"], reps, 1024), {}),
+                                (f"n {mp.NI}", (r["rid"], r["key"], reps, mp.NI), init),
+                                (f"ties n {mp.NI}", (*ties[:2], reps, mp.NI),
+                                 dict(best=ties[2], bi=ties[3]))):
+            cases.append((f"reduce reps {reps} {label}", functools.partial(mp.reduce, *args, **kw),
+                          functools.partial(mp.reduce_plain, *args, **kw)))
+        res0 = ints(-9, 9, (mp.NI,))
+        for name, (rays_t, slots, item, vcl) in (("", (g["rays_t"], g["slots"], g["item"], g["vcl"])),
+                                                 (" hard slots", hard[:4])):
+            for mode in mp.MODES:
+                for nv in (256, mp.NV):
+                    args = (rays_t, slots, item, vcl, reps, nv)
+                    kw = dict(mode=mode, res=res0)
+                    cases.append((f"gather[{mode}]{name} reps {reps} visits {nv}",
+                                  functools.partial(mp.gather, *args, **kw),
+                                  functools.partial(mp.gather_plain, *args, **kw)))
+    return cases
+
+
+def micro_parity_phase(dev) -> float:
+    """K6's kernels against their plain versions at reps 1-3, at a small n
+    and at the probe's n: reduce and gather bit for bit in the cases of
+    ``micro_exact_cases``; scatter at 6 chunks and at 18 (past the last
+    column block), on destinations repeated across k and across s, from the
+    default and from random initial states.  Returns the largest |d| of
+    scatter (reduce and gather must be exact)."""
+    import numpy as np
+    import torch
+
+    from rt_tpu_torch import micro_probe as mp
+
+    cases = micro_exact_cases(dev)
+    for label, kernel, plain in cases:
+        check(equal(kernel(), plain()), f"K6 {label}: kernel and plain version differ")
+    micro_cases = tests_module("torch_micro_cases")
+    s = mp.inputs("scatter", dev)["scatter"]
+    rs = np.random.default_rng(1)
     worst, scr_max = 0.0, 0.0
     for reps in (1, 2, 3):
-        r, g, s = data["reduce"], data["gather"], data["scatter"]
-        init = dict(best=ints(0, 1 << 29, (8, 128)), bi=ints(-3, 3, (8, 128)))
-        for n, kw in ((1024, {}), (mp.NI, init)):
-            same = all(bool(torch.equal(a, b)) for a, b in zip(
-                mp.reduce(r["rid"], r["key"], reps, n, **kw),
-                mp.reduce_plain(r["rid"], r["key"], reps, n, **kw)))
-            check(same, f"K6 reduce reps {reps} n {n}: kernel and plain version differ")
-        res0 = ints(-9, 9, (mp.NI,))
-        for mode in mp.MODES:
-            for nv in (256, mp.NV):
-                args = (g["rays_t"], g["slots"], g["item"], g["vcl"], reps, nv)
-                same = all(bool(torch.equal(a, b)) for a, b in zip(
-                    mp.gather(*args, mode=mode, res=res0),
-                    mp.gather_plain(*args, mode=mode, res=res0)))
-                check(same, f"K6 gather[{mode}] reps {reps} visits {nv}: kernel and plain "
-                      "version differ")
         scr0 = torch.from_numpy(rs.standard_normal((8, mp.NI)).astype(np.float32)).to(dev)
         for n_chunks, kw in ((6, {}), (18, dict(scr=scr0))):  # 18: past the last column block
             (out, scr), (p_out, p_scr) = (mp.scatter(s["vals"], s["dst"], reps, n_chunks, **kw),
@@ -1316,9 +1357,10 @@ def micro_parity_phase(dev) -> float:
               f"max|d| {d_scr:.3e} (limit {tol_scr:.3e}), plane |d| {d_out:.3e} (limit "
               f"{tol_out:.3e})")
         worst = max(worst, d_scr)
-    print(f"[K6] reduce (n 1024 and 8192, default and random initial planes) and gather (5 modes, "
-          f"256 and {mp.NV} visits, random initial rows) equal to plain at reps 1-3; scatter "
-          f"max|d| {worst:.3e} within {MICRO_SCATTER_RTOL} x max|scr| ({scr_max:.4f})")
+    print(f"[K6] reduce and gather equal to plain in {len(cases)} cases (reps 1-3; reduce n 1024 "
+          f"and 8192, default, random and tying initial planes; gather 5 modes, 256 and {mp.NV} "
+          f"visits, two slot tables, random initial rows); scatter max|d| {worst:.3e} within "
+          f"{MICRO_SCATTER_RTOL} x max|scr| ({scr_max:.4f})")
     return worst
 
 
@@ -1326,8 +1368,9 @@ def micro_probe_phase(dev):
     """The probe at its defaults through its command line
     (``python -m rt_tpu_torch.micro_probe all --mode sweep``, then the
     unaligned gather), with the launch counts set to 0 just before; then
-    each body at half its n, and its plain version's time at 1 rep.
-    Returns (results by name, launches, plain ms by body)."""
+    each body at 8 and 1,024 reps, also at n/2 and n/8, and its plain
+    version's time at 1 rep.  Returns (the CLI's results by name, launches,
+    plain ms by body, the 8-to-1,024-rep results by name)."""
     import torch
 
     from rt_tpu_torch import micro_probe as mp
@@ -1356,24 +1399,28 @@ def micro_probe_phase(dev):
         check(long[name]["t_r2_ms"] > long[name]["t_r1_ms"],
               f"K6 {name}: t(1024 reps) is not above t(8 reps): the reps loop did no work")
     # The time per rep must follow n.  It is taken between 8 and 1,024 reps:
-    # between 8 and 32, reduce's 24 reps of ~3 us are within the timer's noise.
-    halves = {
-        "reduce": (lambda reps: mp.reduce(r["rid"], r["key"], reps, mp.NI // 2), mp.NI // 2),
-        "gather[full]": (lambda reps: mp.gather(g["rays_t"], g["slots"], g["item"], g["vcl"],
-                                                reps, mp.NV // 2), mp.NV // 2),
-        "scatter": (lambda reps: mp.scatter(s["vals"], s["dst"], reps, mp.NI // sc["ch"] // 2, **sc),
-                    mp.NI // sc["ch"] // 2),
+    # between 8 and 32, reduce's 24 reps of ~2 us are within the timer's noise.
+    # It is held between n and n/8: reduce's one block is latency-bound at
+    # n/2 (its ratio there is printed, ~1.25), and the ratio between n and
+    # n/8 proves the same thing, that the rep loop does work that grows with n.
+    cuts = {
+        "reduce": lambda n: (lambda reps: mp.reduce(r["rid"], r["key"], reps, n)),
+        "gather[full]": lambda n: (lambda reps: mp.gather(g["rays_t"], g["slots"], g["item"],
+                                                          g["vcl"], reps, n)),
+        "scatter": lambda n: (lambda reps: mp.scatter(s["vals"], s["dst"], reps, n, **sc)),
     }
     ratios = {}
-    for name, (fn, n) in halves.items():
+    for name, fn in cuts.items():
         full = long[name]
-        half = mp.run(f"{name} at n/2, 8 and 1024 reps", fn, 8, 1024, n, dev)
-        slope = lambda x: (x["t_r2_ms"] - x["t_r1_ms"]) / (x["r2"] - x["r1"])
-        ratios[name] = slope(full) / max(slope(half), 1e-12)
-        print(f"[K6] {name}: ms per rep at n {full['n']} / at n {n}: {ratios[name]:.3f}")
+        for div in (2, 8):
+            n = full["n"] // div
+            part = mp.run(f"{name} at n/{div}, 8 and 1024 reps", fn(n), 8, 1024, n, dev)
+            slope = lambda x: (x["t_r2_ms"] - x["t_r1_ms"]) / (x["r2"] - x["r1"])
+            ratios[name, div] = slope(full) / max(slope(part), 1e-12)
+            print(f"[K6] {name}: ms per rep at n {full['n']} / at n {n}: {ratios[name, div]:.3f}")
     # Scatter's chunks run side by side on the card (one block row each),
     # so its time per rep does not follow n up to the 16 chunks.
-    check(ratios["reduce"] > 1.3 and ratios["gather[full]"] > 1.3,
+    check(ratios["reduce", 8] > 1.3 and ratios["gather[full]", 8] > 1.3,
           "K6 reduce or gather: the time per rep does not grow with n")
     plain = {
         "reduce": lambda: mp.reduce_plain(r["rid"], r["key"], 1, mp.NI),
@@ -1382,7 +1429,7 @@ def micro_probe_phase(dev):
     }
     plain_ms = {name: timed_cuda(fn, 5)[1] for name, fn in plain.items()}
     torch.cuda.synchronize()
-    return results, launches, plain_ms
+    return results, launches, plain_ms, long
 
 
 def micro_reduce_library(dev) -> float:
@@ -1422,9 +1469,11 @@ def micro_reduce_library(dev) -> float:
 def micro_bounds(dev) -> dict:
     """Least time of one rep of each K6 body at the probe's inputs: each
     input read once and each output written once, and the operations that
-    these inputs need (gather: the sphere pair test of every (item, lane),
-    FLOPS_SPHERE_PAIR; reduce: a compare per item; scatter: an add per
-    (destination, value row) that lands in a written column block)."""
+    these inputs need (gather: FLOPS_SPHERE_TEST for every (item, lane)
+    pair and FLOPS_SPHERE_ROOT for each pair with disc >= 0 and rad > 0,
+    counted on the probe's inputs, as K1-K3 are counted; reduce: a compare
+    per item; scatter: an add per (destination, value row) that lands in a
+    written column block)."""
     from rt_tpu_torch import micro_probe as mp
 
     data = mp.inputs("all", dev)
@@ -1433,8 +1482,13 @@ def micro_bounds(dev) -> dict:
     reduce_b = bound(mp.NI, 8 * mp.NI)  # a rep reads rid and key; the planes move once a launch
     clusters = int(g["vcl"].reshape(-1)[: mp.NV].unique().numel())
     rays = int(g["item"].reshape(-1)[: mp.NI].unique().numel())
-    gather_b = bound(mp.NV * 8 * 128 * FLOPS_SPHERE_PAIR,
+    pairs = mp.NV * 8 * 128
+    _, disc, _, rad = tests_module("torch_micro_cases").gather_pairs(
+        g["rays_t"], g["slots"], g["item"], g["vcl"], mp.NV)
+    admitted = int(((disc >= 0.0) & (rad > 0.0)).sum())
+    gather_b = bound(pairs * FLOPS_SPHERE_TEST + admitted * FLOPS_SPHERE_ROOT,
                      rays * 32 + clusters * 4 * 128 * 4 + 4 * (mp.NI + mp.NV) + 4 * mp.NI)
+    print(f"[K6] gather: {admitted} of its {pairs} pairs a rep admitted (disc >= 0, rad > 0)")
     in_range = int((s["dst"] < mp.NI).sum())  # 16 chunks of 512 cover [0, 8192)
     scatter_b = bound(in_range * sc["nvrows"],
                       4 * s["vals"].numel() + 4 * s["dst"].numel() + 4 * sc["nvrows"] * mp.NI)
@@ -1676,7 +1730,7 @@ def main() -> int:
     print(f"[time] K1 bench frame 640 spp (one render_megakernel call, {len(chunks)} chunks) on "
           f"{card}: kernel {k1_640_ms:.3f} ms, {640 * 400 * 225 / k1_640_ms / 1e3:.2f} Mray/s "
           f"(CUDA events, mean of 2 after a warm-up)")
-    k1_wide_ms = k1_wide_phase(dev, card)
+    k1_wide_ms, k1_wide_bound = k1_wide_phase(dev, card)
 
     # -- 4. the main path through render_image ----------------------------------
     mk.LAUNCHES = 0
@@ -1831,19 +1885,22 @@ def main() -> int:
 
     # -- 22. K6 kernels vs plain, then the probe at its defaults ---------------------------
     k6_scatter_err = micro_parity_phase(dev)
-    k6, k6_launches, k6_plain_ms = micro_probe_phase(dev)
+    k6, k6_launches, k6_plain_ms, k6_long = micro_probe_phase(dev)
     k6_bound = micro_bounds(dev)
     k6_reduce_library_ms = micro_reduce_library(dev)
+    # A rep's time: the slope between 8 and 1,024 reps (between 8 and 32,
+    # the CLI's, a rep of ~2 us is within the timer's noise).
     per_rep = lambda r: (r["t_r2_ms"] - r["t_r1_ms"]) / (r["r2"] - r["r1"])
-    k6_ms = {"reduce": per_rep(k6["reduce"]), "gather": per_rep(k6["gather[full]"]),
-             "scatter": per_rep(k6["scatter"])}
+    k6_ms = {"reduce": per_rep(k6_long["reduce"]), "gather": per_rep(k6_long["gather[full]"]),
+             "scatter": per_rep(k6_long["scatter"])}
     for name, r in k6.items():
         print(f"[time] K6 {name} on {card}: {r['ns_per_unit']:.4f} ns/unit over n={r['n']} "
               f"(r{r['r1']} {r['t_r1_ms']:.4f} ms, r{r['r2']} {r['t_r2_ms']:.4f} ms; CUDA events, "
               f"best of 3)")
     for name in ("reduce", "gather", "scatter"):
-        print(f"[time] K6 {name}: {k6_ms[name]:.5f} ms per rep, plain {k6_plain_ms[name]:.4f} ms "
-              f"(1 rep), bound {k6_bound[name][0]:.5f} ms by {k6_bound[name][1]}")
+        print(f"[time] K6 {name}: {k6_ms[name]:.5f} ms per rep (8 to 1,024 reps), plain "
+              f"{k6_plain_ms[name]:.4f} ms (1 rep), bound {k6_bound[name][0]:.5f} ms by "
+              f"{k6_bound[name][1]}")
 
     # -- 23. the BVH walk kernel vs the plain walk on the blob's rays ----------------------
     walk_ms, walk_plain_ms, walk_hits = bvh_walk_phase(dev, blob, mesh_camera, mesh_cfg, timed_cuda)
@@ -1859,7 +1916,8 @@ def main() -> int:
     defocus_phase(dev, card)
 
     # -- 26. result -------------------------------------------------------------------
-    check(all(math.isfinite(v) for v in (bench_err, kernel_ms, k1_640_ms, k1_wide_ms, plain_ms,
+    check(all(math.isfinite(v) for v in (bench_err, kernel_ms, k1_640_ms, k1_wide_ms,
+                                          k1_wide_bound[0], plain_ms,
                                           k2_ms, k2_plain_ms,
                                           k2b_ms, k2b_plain_ms, *k3[:4], *k3b[:4], wf_s,
                                           *k4[:4], *k4b[:4], *k5[:4], *k5_hf[:4], mesh_wf_s,
@@ -1882,7 +1940,8 @@ def main() -> int:
           f"{PEAK_BYTES / 1e12:.2f} TB/s; {FLOPS_SPHERE_TEST} FLOP a sphere pair, "
           f"{FLOPS_SPHERE_ROOT} more for each admitted one): K1 {k1_bound[0]:.4f} ms ({seg} ray "
           f"segments, {k1_work['admitted']} admitted sphere pairs), {64 * k1_bound[0]:.4f} ms at "
-          f"640 spp (64 x the 10-spp frame's; kernel {k1_640_ms:.3f} ms), "
+          f"640 spp (64 x the 10-spp frame's; kernel {k1_640_ms:.3f} ms), {k1_wide_bound[0]:.4f} "
+          f"ms at 1600x900 (kernel {k1_wide_ms:.3f} ms), "
           f"K2 {k2_bound[0]:.4f} ms, K2b {k2b_bound[0]:.4f} ms ({k2_admitted} admitted), "
           f"K3 {k3[3]:.4f} ms, K3b {k3b[3]:.4f} ms")
     print(f"[kernels] K4 {k4[3]:.4f} ms and K4b {k4b[3]:.4f} ms from the walk's counted slab and "
@@ -1901,8 +1960,10 @@ def main() -> int:
 
     print(card_line())
     print(json.dumps({"kernels": [
-        entry("megakernel_flat", "rt_tpu_torch/csrc/megakernel.cu", "rt_tpu/megakernel.py:288",
-              launches, bench_err, kernel_ms, plain_ms, k1_bound),
+        dict(entry("megakernel_flat", "rt_tpu_torch/csrc/megakernel.cu",
+                   "rt_tpu/megakernel.py:288", launches, bench_err, kernel_ms, plain_ms, k1_bound),
+             ms_1600x900=k1_wide_ms, bound_ms_1600x900=k1_wide_bound[0],
+             bound_by_1600x900=k1_wide_bound[1]),
         entry("sphere_nearest", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:123",
               grad_launches["sphere_nearest"], k2_err, k2_ms, k2_plain_ms, k2_bound),
         entry("sphere_nearest_packed", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:313",

@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Time variants of the compile-time shapes of K2 and K6's scatter in turns,
-on one NVIDIA GPU.
+"""Time variants of the compile-time shapes of K2 and K6's reduce, gather
+and scatter in turns, on one NVIDIA GPU.
 
     python3 chip_variants.py [PARENT_DIR]
 
 Each variant is a copy of ``rt_tpu_torch/csrc`` under ``build/chip_variants/``
-with K2's lanes a ray (``kGroup`` in csrc/nearest.cu) and the scatter's
-threads and columns a block (``kScatterThreads``, ``kScatterCols`` in
-csrc/micro_probe.cu) set to other values; the first is the checkout's own.
+with K2's lanes a ray (``kGroup`` in csrc/nearest.cu), the scatter's
+threads and columns a block (``kScatterThreads``, ``kScatterCols``),
+reduce's blocks (a thread block cluster when more than one,
+``kReduceCluster``) and the gather's slot lanes a thread and visits a block
+(``kGatherLanes``, ``kGatherVisits``, all in csrc/micro_probe.cu) set to
+other values; the first is the checkout's own.
 PARENT_DIR, the root of another checkout (for example the parent commit,
 unpacked with ``git archive``), adds that checkout's kernels.  Every
 library is built with the package's own flags, checked against the plain
 versions (K2 and K2b bit for bit on 90,000 rays x the cover scene's 447
 spheres, on a 2,500-sphere table and on the tie scene at t_max 1e9, 3e38
 and inf; the scatter bit for bit against the sequential model of
-tests/torch_micro_cases.py), then timed three rounds in turns with
-``chip_smoke.timed_cuda``: K2 and K2b, and the scatter at 8 and 1,024 reps
-(the time a rep is the slope between them).  It prints one line per
+tests/torch_micro_cases.py; reduce and gather bit for bit against their
+plain versions in the cases of ``chip_smoke.micro_exact_cases``), then
+timed three rounds in turns with ``chip_smoke.timed_cuda``: K2 and K2b,
+and at 8 and 1,024 reps (the time a rep is the slope between them) the
+scatter, reduce at n 8,192 and 1,024 and the gather ("full" at 1,024 and
+128 visits, "unaligned" at 1,024).  It prints one line per
 library and round, and the card last; it exits non-zero if a check fails.
 """
 
@@ -30,17 +36,22 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 OUT = HERE / "build" / "chip_variants"
-# (K2 lanes a ray, scatter threads a block, scatter columns a block); the
-# first row is the checkout's own values.
-VARIANTS = [(4, 256, 16), (1, 256, 32), (2, 128, 32), (8, 512, 32), (16, 256, 8)]
+# (K2 lanes a ray, scatter threads a block, scatter columns a block, reduce
+# blocks, gather lanes a thread, gather visits a block); the first row is
+# the checkout's own values.  The kernels are independent, so each row
+# varies several of them at once.
+VARIANTS = [(4, 256, 16, 1, 1, 4), (1, 256, 32, 8, 1, 1), (2, 128, 32, 4, 2, 2),
+            (8, 512, 32, 2, 1, 8), (16, 256, 8, 8, 4, 2), (4, 256, 16, 1, 2, 1),
+            (4, 256, 16, 2, 1, 2)]
 CONSTANTS = (("nearest.cu", "kGroup"), ("micro_probe.cu", "kScatterThreads"),
-             ("micro_probe.cu", "kScatterCols"))
+             ("micro_probe.cu", "kScatterCols"), ("micro_probe.cu", "kReduceCluster"),
+             ("micro_probe.cu", "kGatherLanes"), ("micro_probe.cu", "kGatherVisits"))
 
 
 def variant_csrc(values: tuple) -> tuple[str, Path]:
     """(name, a copy of csrc with the constants set to ``values``); raises
     if a constant is not found with the checkout's value."""
-    name = "g{}_t{}_c{}".format(*values)
+    name = "g{}_t{}_c{}_r{}_l{}v{}".format(*values)
     dst = OUT / name / "csrc"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(HERE / "rt_tpu_torch" / "csrc", dst)
@@ -85,9 +96,9 @@ def main() -> int:
         use(name)
         log = _build.build_info["log"].splitlines()
         for i, line in enumerate(log):
-            if "Compiling entry function" in line and ("sphere_nearest" in line
-                                                       or "scatter_kernel" in line):
-                kernel = "K2" if "sphere_nearest" in line else "scatter"
+            kernel = next((k for k in ("sphere_nearest", "scatter_kernel", "reduce_kernel",
+                                       "gather_kernel") if k in line), None)
+            if "Compiling entry function" in line and kernel:
                 for x in log[i + 1 : i + 4]:
                     if "spill" in x or "registers" in x:
                         print(f"[build] {name} {kernel}: {x.strip()}")
@@ -126,6 +137,18 @@ def main() -> int:
     scatter_refs = [micro.scatter_sequential(s["vals"].cpu(), d.cpu(), reps, nch,
                                              scr=None if s0 is None else s0.cpu())
                     for d, reps, nch, s0 in scatter_cases]
+    micro_cases = smoke.micro_exact_cases(dev)
+    micro_refs = [plain() for _, _, plain in micro_cases]
+    probe = mp.inputs("all", dev)  # the probe's own inputs, as chip_smoke.py times them
+    red, g = probe["reduce"], probe["gather"]
+    gather_args = (g["rays_t"], g["slots"], g["item"], g["vcl"])
+    per_rep = {"scatter": lambda reps: mp.scatter(s["vals"], s["dst"], reps, mp.NI // sc["ch"], **sc),
+               "reduce": lambda reps: mp.reduce(red["rid"], red["key"], reps, mp.NI),
+               "reduce_n1024": lambda reps: mp.reduce(red["rid"], red["key"], reps, mp.NI // 8),
+               "gather": lambda reps: mp.gather(*gather_args, reps, mp.NV),
+               "gather_nv128": lambda reps: mp.gather(*gather_args, reps, mp.NV // 8),
+               "gather_unaligned": lambda reps: mp.gather(*gather_args, reps, mp.NV,
+                                                          mode="unaligned")}
     ok = True
     for name in libs:
         use(name)
@@ -135,7 +158,9 @@ def main() -> int:
                            for c, r in zip(k2b_cases, k2b_refs)),
                 "scatter": all(smoke.equal([x.cpu() for x in mp.scatter(s["vals"], d, reps, nch,
                                                                        scr=s0)], r)
-                               for (d, reps, nch, s0), r in zip(scatter_cases, scatter_refs))}
+                               for (d, reps, nch, s0), r in zip(scatter_cases, scatter_refs)),
+                "reduce_gather": [label for (label, kernel, _), ref in zip(micro_cases, micro_refs)
+                                  if not smoke.equal(kernel(), ref)] == []}
         print(f"[check] {name}: bit-equal {json.dumps(same)}", flush=True)
         ok = ok and all(same.values())
 
@@ -147,10 +172,10 @@ def main() -> int:
                      lambda: no.sphere_nearest(org, dirn, *spheres, 1e-3, 3e38), 20)[1],
                  "k2b_ms": smoke.timed_cuda(
                      lambda: no.sphere_nearest_packed(packed, scene.sph_packed, 1e-3, 3e38), 20)[1]}
-            for reps in (8, 1024):
-                t[f"scatter_{reps}reps_ms"] = smoke.timed_cuda(
-                    lambda: mp.scatter(s["vals"], s["dst"], reps, mp.NI // sc["ch"], **sc), 5)[1]
-            t["scatter_ms_per_rep"] = (t["scatter_1024reps_ms"] - t["scatter_8reps_ms"]) / 1016
+            for body, fn in per_rep.items():
+                for reps in (8, 1024):
+                    t[f"{body}_{reps}reps_ms"] = smoke.timed_cuda(lambda: fn(reps), 5)[1]
+                t[f"{body}_ms_per_rep"] = (t[f"{body}_1024reps_ms"] - t[f"{body}_8reps_ms"]) / 1016
             print(json.dumps({"variant": name, "round": rnd, **t}), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
