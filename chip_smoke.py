@@ -41,7 +41,21 @@ the launch counts set to 0 just before and read just after:
   1 spp, diff_max_depth 6 (bit-identical repeats, a pixel block equal to
   the same step on the plain walk) and the chunked 2-spp frame
   (``render_pixel_colors(wavefront=False)``); and a defocused chunked
-  frame of the cover scene.
+  frame of the cover scene;
+- the live Hosek-Wilkie sky (``SkyParams.hosek``): ``hosek_config`` and
+  ``sky_color_toward`` on the card against the CPU, and the bench cover
+  frame under it through ``render_image`` (K1), bit-equal to plain;
+- BASELINE config 4 (bench_scenes_cuda.py): the armor-class glb (54,720
+  triangles, image textures) under the live sky at 800x450, depth 16, 8
+  spp, two ``render_image`` frames through K5, bit-identical, and K5
+  against plain on runs of its pixels;
+- BASELINE config 5: the car-class glb (162,560 triangles) at 1920x1080,
+  depth 12, progressive on the "mega" engine (K5) in 4-spp sweeps, cut to
+  20 spp: a run resumed at mid-run from an earlier checkpoint by a fresh
+  renderer, bit-identical to the uninterrupted run, and K5 against plain
+  on runs of a sweep's pixels;
+- the port's bench scripts: ``bench_cuda.main`` (K1) and
+  ``bench_grad_cuda.main`` (K2) print bench.py's and bench_grad.py's lines.
 
 It prints the card, the timings, the kernel table and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -57,6 +71,9 @@ import os
 import subprocess
 import sys
 import time
+
+from bench_cuda import sync
+from bench_scenes_cuda import mesh_cam  # bench_scenes.py's config-3 camera
 
 ATOL = RTOL = 1e-3  # the JAX package's megakernel parity tolerance
 
@@ -221,8 +238,8 @@ FLOPS_SPHERE_PAIR = FLOPS_SPHERE_TEST + FLOPS_SPHERE_ROOT  # with its root: the 
 FLOPS_TRIANGLE_PAIR = 46  # 9 + 9 for the crosses, 5 det, 1 div, 3 sub, 6 u, 6 v, 6 t, 1 u+v
 FLOPS_SLAB = 20  # a box test of the cluster walk: 6 sub, 6 mul, min/max of the slabs, the pad
 
-# BASELINE config 3 (bench_scenes.py:92-141): 800x450, max depth 16; the
-# sample count is cut from 64 to 8 to fit this script's time.
+# BASELINE configs 3 and 4 (bench_scenes.py:92-170): 800x450, max depth 16;
+# the sample count is cut from 64 to 8 to fit this script's time.
 MESH_W, MESH_H, MESH_DEPTH, MESH_SPP = 800, 450, 16, 8
 
 
@@ -381,13 +398,6 @@ def nearest_phase(dev, scene, timer):
         lambda: no.sphere_nearest_packed_plain(rays, scene.sph_packed, 1e-3, 3e38), 5)
     admitted = admitted_pairs(rays, scene.sph_packed)  # the pad rows (radius 0) admit none
     return (worst, kernel_ms, plain_ms), (err, packed_ms, packed_plain_ms), admitted
-
-
-def sync(device) -> None:
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def wall(fn, reps: int, device) -> float:
@@ -854,36 +864,24 @@ def cli_progressive_phase():
     print(f"[cli] wrote {png} and {ckpt} (15 spp, 4 passes)")
 
 
-def mesh_cam(w: int, h: int, dist: float = 5.5, height: float = 2.2):
-    """bench_scenes.py's ``_mesh_cam``: the config-3 camera."""
-    from rt_tpu_torch.camera import make_camera
-
-    return make_camera((dist, -dist, height), (0.0, 0.0, 1.0), (0.0, 0.0, 1.0),
-                       focus_distance=float((2 * dist * dist + (height - 1) ** 2) ** 0.5),
-                       defocus_angle=0.0, image_width=w, image_height=h, vertical_fov=32.0)
-
-
 def mesh_setup():
     """Build the BVH library (asserting that the native builder runs) and
-    write the config-3 fixtures to build/fixtures: the closed blob (skull
-    class) and the height field, from tools/gen_fixtures.py (numpy only).
-    Returns {name: path}."""
+    write the config 3-5 fixtures to build/fixtures with
+    rt_tpu_torch.fixtures (numpy and the standard library only): the closed
+    blob (skull class), the height field, and the armor- and car-class
+    glbs.  Returns ensure_fixtures' {name: path}."""
     from rt_tpu_torch.bvh import builder, native
-    from tools.gen_fixtures import make_obj_heightfield, make_obj_mesh
+    from rt_tpu_torch.fixtures import ensure_fixtures
 
     t0 = time.perf_counter()
     ok = native.available()
     print(f"[mesh] native BVH builder built and loaded: {ok} ({time.perf_counter() - t0:.2f} s), "
           f"builder that runs: {builder.which()}")
     check(ok and builder.which() == "native", "the native BVH builder did not build or load")
-    os.makedirs(os.path.join("build", "fixtures"), exist_ok=True)
-    paths = {name: os.path.join("build", "fixtures", name + ".obj")
-             for name in ("skull_class", "heightfield")}
     t0 = time.perf_counter()
-    n_blob = make_obj_mesh(paths["skull_class"])
-    n_hf = make_obj_heightfield(paths["heightfield"])
-    print(f"[mesh] fixtures {paths['skull_class']} ({n_blob} triangles) and "
-          f"{paths['heightfield']} ({n_hf} triangles) in {time.perf_counter() - t0:.2f} s")
+    paths = ensure_fixtures(os.path.join("build", "fixtures"))
+    print(f"[mesh] fixtures in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+        f"{path} ({os.path.getsize(path) / 1e6:.1f} MB)" for path in paths.values()))
     return paths
 
 
@@ -1084,11 +1082,13 @@ def k5_small_phase(dev):
 
 
 def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
-             run_len: int = 16):
-    """K5 against its plain version, bit for bit, on a config-3 frame.
+             run_len: int = 16, last_run: bool = False):
+    """K5 against its plain version, bit for bit, on a mesh frame (``name``
+    says which).
     ``frame`` is K5's full-frame launch at ``cfg``'s spp (``frame_ms`` per
     launch); its pixels are independent, so ``runs`` runs of ``run_len``
-    pixels spread down the frame's diagonal are held against
+    pixels spread down the frame's diagonal (and, with ``last_run``, the
+    frame's last ``run_len`` pixels) are held against
     render_megakernel_plain on the same pixels at the same spp.  The plain
     walk counts
     its tests on those pixels, scaled to the frame, and the clusters and
@@ -1110,7 +1110,7 @@ def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 
         return t, slot
 
     bases = [(h * (2 * k + 1) // (2 * runs)) * w + (w - run_len) * k // (runs - 1)
-             for k in range(runs)]
+             for k in range(runs)] + ([w * h - run_len] if last_run else [])
     err, same, refs, plain_ms = 0.0, True, [], 0.0
     for base in bases:
         sync(dev)
@@ -1124,9 +1124,9 @@ def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 
         same = same and bool(torch.equal(got, ref))
         refs.append(ref)
     refs = torch.cat(refs)
-    n_sample = runs * run_len
-    print(f"[K5] config-3 {name} {w}x{h} {spp} spp depth {cfg.max_depth}: the full-frame launch "
-          f"against plain on {runs} runs of {run_len} pixels down the diagonal (first pixels "
+    n_sample = len(bases) * run_len
+    print(f"[K5] {name} {w}x{h} {spp} spp depth {cfg.max_depth}: the full-frame launch "
+          f"against plain on {len(bases)} runs of {run_len} pixels (first pixels "
           f"{bases}): equal {same}, max|d| {err:.3e}, sample mean {float(refs.mean()):.4f}; "
           f"walk work {walk_counts(work)}, {len(winners)} distinct winners")
     check(same and bool(torch.isfinite(refs).all()) and float(refs.mean()) > 0.01,
@@ -1665,6 +1665,211 @@ def defocus_phase(dev, card: str, spp: int = 2):
     return seconds
 
 
+# The live skies of the sky phase: config 4's, config 5's (bench_scenes.py's
+# skies) and one whose elevation comes from a sun off the zenith.
+LIVE_SKIES = {
+    "config4": dict(turbidity=3.0, albedo=0.3, elevation=0.8),
+    "config5": dict(turbidity=8.0, albedo=0.1, elevation=0.07, exposure=0.35),
+    "tilted_sun": dict(turbidity=2.5, albedo=0.6, sun_direction=(0.3, -0.4, 0.5), exposure=0.8),
+}
+SKY_RTOL = 1e-5  # the card's transcendentals against the CPU's (tests/test_torch_sky_hosek.py)
+SKY_ATOL = 1e-6
+
+
+def live_sky_phase(dev, card: str, timer):
+    """The live Hosek-Wilkie sky: ``hosek_config`` and ``sky_color_toward``
+    on the card against the CPU at three skies (65,536 seeded unit
+    directions), then the bench cover frame under hosek(3.0, 0.3, 0.8)
+    through ``render_image`` (K1), equal bit for bit to the plain version
+    on the same frame.  Returns (K1 launches of the render_image call, K1
+    ms per launch, plain ms)."""
+    import numpy as np
+    import torch
+
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch import sky
+    from rt_tpu_torch.render import render_image
+    from rt_tpu_torch.scenes import bench_cover_config
+    from rt_tpu_torch.sky import SkyParams
+
+    dirs = np.random.default_rng(11).normal(size=(65_536, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dirs_cpu = torch.from_numpy(dirs)
+    for name, kw in LIVE_SKIES.items():
+        params = SkyParams.hosek(**kw)
+        elevation = kw.get("elevation", float(torch.arcsin(params.sun_direction[2])))
+        point = (kw["turbidity"], kw["albedo"], elevation)
+        hw_card = sky.hosek_config(*(torch.tensor(v, device=dev) for v in point)).cpu()
+        hw_cpu = params.hw_params
+        got = sky.sky_color_toward(params, dirs_cpu.to(dev)).cpu()
+        ref = sky.sky_color_toward(params, dirs_cpu)
+        hw_ok = bool(torch.allclose(hw_card, hw_cpu, rtol=SKY_RTOL, atol=SKY_ATOL))
+        sky_ok = bool(torch.allclose(got, ref, rtol=SKY_RTOL, atol=SKY_ATOL))
+        print(f"[sky] hosek({', '.join(f'{k}={v}' for k, v in kw.items())}): hosek_config on the "
+              f"card against the CPU max|d| {float((hw_card - hw_cpu).abs().max()):.3e}; "
+              f"sky_color_toward on {dirs.shape[0]} directions max|d| "
+              f"{float((got - ref).abs().max()):.3e}, mean {float(ref.mean()):.4f}")
+        check(hw_ok and sky_ok and bool(torch.isfinite(got).all()),
+              f"the live sky {name} differs between the card and the CPU")
+    scene, camera, cfg = bench_cover_config()
+    scene.sky = SkyParams.hosek(**LIVE_SKIES["config4"])
+    mk.LAUNCHES = 0
+    img, m = render_image(scene, camera, cfg, device=dev)
+    launches = mk.LAUNCHES
+    check(launches == 1, "the live-sky cover frame did not go through K1")
+    sync(dev)
+    t0 = time.perf_counter()
+    plain = mk.render_megakernel_plain(scene, camera, cfg, cfg.samples_per_pixel, 0, cfg.seed)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    h, w = img.shape[:2]
+    same = np.array_equal(img, plain.reshape(h, w, 3).cpu().numpy())
+    _, ms = timer(lambda: mk.render_megakernel(scene, camera, cfg, cfg.samples_per_pixel, 0,
+                                               cfg.seed), 5)
+    print(f"[sky] bench cover frame {w}x{h} {cfg.samples_per_pixel} spp under hosek(3.0, 0.3, 0.8) "
+          f"on {card}: render_image {m['wall_s']:.4f} s, K1 launches {launches}, equal to plain "
+          f"{same} (image mean {float(img.mean()):.4f}); K1 {ms:.3f} ms per launch, plain "
+          f"{plain_ms:.0f} ms (wall)")
+    check(same and bool(np.isfinite(img).all()), "K1 under the live sky disagrees with plain")
+    return launches, ms, plain_ms
+
+
+def gltf_frames_phase(dev, card: str, fixtures: dict, timer, runs: int = 4):
+    """BASELINE config 4 (bench_scenes.py:144-170): the armor-class glb at
+    its full size (3 parts, 54,720 triangles, 2 ground triangles) under
+    hosek(3.0, 0.3, 0.8) at 800x450, depth 16, cut to MESH_SPP: two
+    ``render_image`` frames through K5, bit-identical, equal to K5's timed
+    launch; and K5 against plain on ``runs`` 16-pixel runs down the
+    diagonal.  Returns (K5 launches of the render_image calls, k5_phase's
+    result)."""
+    import numpy as np
+
+    import bench_scenes_cuda as bsc
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch.render import render_image
+
+    timings = {}
+    scene, camera, cfg = bsc.config4_setup(fixtures, timings=timings)
+    cfg = cfg.replace(samples_per_pixel=MESH_SPP)
+    cl = scene.clusters
+    print(f"[config4] {fixtures['glb']}: {scene.num_triangles} triangles, loaded in "
+          f"{timings['load_s']:.2f} s, tables, cluster tables and BVH built on the host in "
+          f"{timings['build_s']:.2f} s: {cl.tri_cluster.shape[0]} triangle clusters, slot table "
+          f"{tuple(cl.shade_table.shape)}, atlas {tuple(scene.atlas.shape)}")
+    check(scene.num_triangles == 54_722 and scene.has_image_textures
+          and mk.eligible_clustered(scene, cfg), "config 4's scene is not the full fixture")
+    scene.to(dev)
+    mk.LAUNCHES_CLUSTERED = 0
+    img, m = render_image(scene, camera, cfg, device=dev)
+    again, m2 = render_image(scene, camera, cfg, device=dev)
+    launches = mk.LAUNCHES_CLUSTERED
+    w, h = camera.image_width, camera.image_height
+    print(f"[config4] armor {w}x{h} {MESH_SPP} spp (the config's 64 cut to {MESH_SPP}) depth "
+          f"{cfg.max_depth} under hosek(3.0, 0.3, 0.8) on {card}: render_image {m['wall_s']:.4f} s "
+          f"({m['mray_per_s']:.3f} Mray/s), repeat {m2['wall_s']:.4f} s ({m2['mray_per_s']:.3f} "
+          f"Mray/s), image mean {float(img.mean()):.4f}; K5 launches {launches}")
+    check(launches == 2, "the config-4 frames did not go through K5")
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+          and 0.01 < float(img.mean()) < 5.0, "config 4: implausible image")
+    check(np.array_equal(img, again), "config 4: two render_image frames differ")
+    frame, ms = timer(lambda: mk.render_megakernel(scene, camera, cfg, MESH_SPP, 0, cfg.seed), 5)
+    check(np.array_equal(frame.reshape(h, w, 3).cpu().numpy(), img),
+          "config 4: K5's timed launch differs from render_image's frame")
+    print(f"[config4] K5 {ms:.3f} ms per launch (CUDA events, mean of 5 after a warm-up), "
+          f"{MESH_SPP * w * h / ms / 1e3:.3f} Mray/s in the kernel")
+    return launches, k5_phase(dev, "config-4 armor", scene, camera, cfg, frame, ms, runs=runs)
+
+
+# BASELINE config 5 cut: 1920x1080, depth 12, 20 spp in five 4-spp sweeps
+# (the config's 256 in 64); bench_scenes_cuda.config5_schedule then writes a
+# checkpoint every 2 sweeps, so the resume at the midpoint (sweep 3) starts
+# from sweep 2's checkpoint and renders sweep 3 again.
+CONFIG5_SPP = 20
+
+
+def progressive_gltf_phase(dev, card: str, fixtures: dict, timer, runs: int = 3):
+    """BASELINE config 5 (bench_scenes.py:173-259): the car-class glb at its
+    full size (5 parts, 162,560 triangles, 2 ground triangles) under the
+    low-sun sky at 1920x1080, progressive on the "mega" engine (K5): an
+    uninterrupted run of CONFIG5_SPP spp, and bench_scenes_cuda's run
+    resumed at mid-run by a fresh renderer from an earlier checkpoint, its
+    accumulator bit-identical to the uninterrupted one; then K5's 4-spp
+    sweep launch timed and held against plain on ``runs`` 16-pixel runs
+    down the diagonal and on the frame's last 16 pixels (K5's pixel claims
+    and output rows reach the end of its largest launch).
+    Returns (K5 launches of the uninterrupted run, k5_phase's result, the
+    uninterrupted run's wall s)."""
+    import numpy as np
+
+    import bench_scenes_cuda as bsc
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch.progressive import ProgressiveRenderer
+
+    timings = {}
+    scene, camera, cfg = bsc.config5_setup(fixtures, timings=timings)
+    cl = scene.clusters
+    print(f"[config5] {fixtures['car']}: {scene.num_triangles} triangles, loaded in "
+          f"{timings['load_s']:.2f} s, tables, cluster tables and BVH built on the host in "
+          f"{timings['build_s']:.2f} s: {cl.tri_cluster.shape[0]} triangle clusters, slot table "
+          f"{tuple(cl.shade_table.shape)}, atlas {tuple(scene.atlas.shape)}")
+    check(scene.num_triangles == 162_562 and scene.has_image_textures,
+          "config 5's scene is not the full fixture")
+    scene.to(dev)
+    w, h = camera.image_width, camera.image_height
+    schedule, every = bsc.config5_schedule(CONFIG5_SPP)
+    mk.LAUNCHES_CLUSTERED = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    whole = ProgressiveRenderer(scene, camera, cfg, schedule=schedule, engine="mega", device=dev)
+    whole.run()
+    whole_s = time.perf_counter() - t0
+    launches = mk.LAUNCHES_CLUSTERED
+    rays = CONFIG5_SPP * w * h
+    print(f"[config5] car {w}x{h} depth {cfg.max_depth}, {len(schedule.passes())} sweeps of "
+          f"{schedule.passes()[0]} spp ({CONFIG5_SPP} spp, the config's 256 cut) on {card}: "
+          f"{whole_s:.3f} s, {rays / whole_s / 1e6:.3f} Mray/s; K5 launches {launches}; image "
+          f"mean {float(whole.state.image.mean()):.4f}")
+    check(whole.engine == "mega" and launches == len(schedule.passes())
+          and whole.state.total_spp == CONFIG5_SPP and bool(np.isfinite(whole.state.accum).all()),
+          "config 5: the progressive run did not go through K5")
+    ckpt = os.path.join("build", "config5_smoke.npz")
+    mk.LAUNCHES_CLUSTERED = 0
+    resumed, spp, resumed_s = bsc.run_config5(scene, camera, cfg, CONFIG5_SPP, ckpt, dev)
+    same = np.array_equal(resumed.state.accum, whole.state.accum)
+    print(f"[config5] checkpoint every {every} sweeps, resumed at the midpoint by a fresh "
+          f"renderer: {resumed_s:.3f} s, K5 launches {mk.LAUNCHES_CLUSTERED} (a re-rendered "
+          f"sweep); accumulator ({resumed.state.accum.nbytes / 1e6:.1f} MB) bit-identical to the "
+          f"uninterrupted run {same}")
+    check(same and spp == CONFIG5_SPP and mk.LAUNCHES_CLUSTERED == launches + 1,
+          "config 5: the resumed run differs from the uninterrupted run")
+    sweep_cfg = cfg.replace(samples_per_pixel=schedule.passes()[0])
+    spw = sweep_cfg.samples_per_pixel
+    frame, ms = timer(lambda: mk.render_megakernel(scene, camera, sweep_cfg, spw, 0, cfg.seed), 3)
+    print(f"[config5] K5 {ms:.3f} ms per {spw}-spp sweep launch at {w}x{h} (CUDA events, mean of "
+          f"3 after a warm-up), {spw * w * h / ms / 1e3:.3f} Mray/s in the kernel")
+    return launches, k5_phase(dev, "config-5 car", scene, camera, sweep_cfg, frame, ms,
+                              runs=runs, last_run=True), whole_s
+
+
+def bench_lines_phase(dev):
+    """bench_cuda.main and bench_grad_cuda.main at their defaults on the
+    card (their JSON lines are printed), through K1 and K2."""
+    import bench_cuda
+    import bench_grad_cuda
+    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch import nearest_ops
+
+    mk.LAUNCHES = 0
+    check(bench_cuda.main([]) == 0, "bench_cuda.py failed")
+    k1 = mk.LAUNCHES
+    for name in nearest_ops.LAUNCHES:
+        nearest_ops.LAUNCHES[name] = 0
+    check(bench_grad_cuda.main([]) == 0, "bench_grad_cuda.py failed")
+    k2 = nearest_ops.LAUNCHES["sphere_nearest"]
+    print(f"[bench] K1 launches in bench_cuda.main {k1}, K2 launches in bench_grad_cuda.main {k2}")
+    check(k1 == 4 and k2 > 0, "the bench scripts did not go through K1 and K2")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1849,7 +2054,7 @@ def main() -> int:
 
     # -- 16. mesh scenes: the BVH builder, the config-3 fixtures and scenes ------------
     fixtures = mesh_setup()
-    blob = mesh_scene(fixtures["skull_class"], dev)
+    blob = mesh_scene(fixtures["obj"], dev)
     heightfield = mesh_scene(fixtures["heightfield"], dev)
     mesh_cfg = RenderConfig(width=MESH_W, height=MESH_H, samples_per_pixel=MESH_SPP,
                             max_depth=MESH_DEPTH)
@@ -1869,8 +2074,9 @@ def main() -> int:
 
     # -- 19. K5 kernel vs plain on the card -----------------------------------------------
     k5_small_phase(dev)
-    k5 = k5_phase(dev, "blob", blob, mesh_camera, mesh_cfg, k5_frames["blob"], k5_frame_ms["blob"])
-    k5_hf = k5_phase(dev, "heightfield", heightfield, mesh_camera, mesh_cfg,
+    k5 = k5_phase(dev, "config-3 blob", blob, mesh_camera, mesh_cfg, k5_frames["blob"],
+                  k5_frame_ms["blob"])
+    k5_hf = k5_phase(dev, "config-3 heightfield", heightfield, mesh_camera, mesh_cfg,
                      k5_frames["heightfield"], k5_frame_ms["heightfield"])
     for name, r in (("blob", k5), ("heightfield", k5_hf)):
         print(f"[time] K5 megakernel_clustered, the config-3 {name} frame ({MESH_W}x{MESH_H}, "
@@ -1881,7 +2087,7 @@ def main() -> int:
     k4_launches, mesh_wf_counts, mesh_wf_s = mesh_wavefront_phase(dev, blob)
 
     # -- 21. progressive ("mega" engine) and the CLI on the mesh ----------------------------
-    mesh_progressive_cli_phase(dev, blob, fixtures["skull_class"])
+    mesh_progressive_cli_phase(dev, blob, fixtures["obj"])
 
     # -- 22. K6 kernels vs plain, then the probe at its defaults ---------------------------
     k6_scatter_err = micro_parity_phase(dev)
@@ -1915,7 +2121,26 @@ def main() -> int:
     mesh_chunk_s = mesh_chunked_phase(dev, blob, card, float(k5_frames["blob"].mean()))
     defocus_phase(dev, card)
 
-    # -- 26. result -------------------------------------------------------------------
+    # -- 26. the live Hosek-Wilkie sky, and the cover frame under it (K1) -----------------
+    sky_launches, sky_k1_ms, sky_plain_ms = live_sky_phase(dev, card, timed_cuda)
+
+    # -- 27. BASELINE config 4: the armor-class glb under the live sky (K5) --------------
+    c4_launches, k5_c4 = gltf_frames_phase(dev, card, fixtures, timed_cuda)
+
+    # -- 28. BASELINE config 5: the car-class glb, progressive at 1080p and resumed (K5) --
+    c5_launches, k5_c5, c5_s = progressive_gltf_phase(dev, card, fixtures, timed_cuda)
+    for name, r in (("config-4 armor (800x450, 8 spp)", k5_c4),
+                    ("config-5 car (1920x1080, one 4-spp sweep)", k5_c5)):
+        print(f"[time] K5 megakernel_clustered, the {name} frame on {card}: kernel {r[1]:.4f} ms "
+              f"per launch, plain {r[2]:.1f} ms (wall) on the sampled pixels, bound {r[3]:.4f} ms "
+              f"for the frame by {r[4]}")
+
+    # -- 29. the port's bench scripts (bench_cuda.py, bench_grad_cuda.py) ----------------
+    bench_lines_phase(dev)
+
+    # -- 30. result -------------------------------------------------------------------
+    check(all(math.isfinite(v) for v in (sky_k1_ms, sky_plain_ms, *k5_c4[:4], *k5_c5[:4], c5_s)),
+          "non-finite measurement")
     check(all(math.isfinite(v) for v in (bench_err, kernel_ms, k1_640_ms, k1_wide_ms,
                                           k1_wide_bound[0], plain_ms,
                                           k2_ms, k2_plain_ms,
@@ -1947,8 +2172,9 @@ def main() -> int:
     print(f"[kernels] K4 {k4[3]:.4f} ms and K4b {k4b[3]:.4f} ms from the walk's counted slab and "
           f"pair tests on phase 17's rays, K5 {k5[3]:.4f} ms (blob) and {k5_hf[3]:.4f} ms "
           f"(height field) from those on phase 19's 144 pixels of each frame scaled to the "
-          f"frame ({FLOPS_SLAB} FLOP a slab test); bytes: the clusters entered and the "
-          f"winners' shade rows, read once")
+          f"frame, {k5_c4[3]:.4f} ms (config 4) and {k5_c5[3]:.4f} ms (config 5's sweep) from "
+          f"phases 27 and 28's sampled pixels ({FLOPS_SLAB} FLOP a slab test); bytes: the "
+          f"clusters entered and the winners' shade rows, read once")
     print("[kernels] sphere_nearest_packed (K2b), prim_nearest_packed (K3b) and cluster_nearest "
           "(K4b) have no caller on any path, as in rt_tpu; each is held against its plain "
           "version above")
@@ -1963,7 +2189,8 @@ def main() -> int:
         dict(entry("megakernel_flat", "rt_tpu_torch/csrc/megakernel.cu",
                    "rt_tpu/megakernel.py:288", launches, bench_err, kernel_ms, plain_ms, k1_bound),
              ms_1600x900=k1_wide_ms, bound_ms_1600x900=k1_wide_bound[0],
-             bound_by_1600x900=k1_wide_bound[1]),
+             bound_by_1600x900=k1_wide_bound[1], launches_live_sky=sky_launches,
+             ms_live_sky=sky_k1_ms, plain_ms_live_sky=sky_plain_ms),
         entry("sphere_nearest", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:123",
               grad_launches["sphere_nearest"], k2_err, k2_ms, k2_plain_ms, k2_bound),
         entry("sphere_nearest_packed", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:313",
@@ -1980,8 +2207,12 @@ def main() -> int:
         entry("cluster_nearest_predicated", "rt_tpu_torch/csrc/cluster_nearest.cu",
               "rt_tpu/pallas_ops.py:533", k4_launches["cluster_nearest"], k4b[0], k4b[1], k4b[2],
               k4b[3:5]),
-        entry("megakernel_clustered", "rt_tpu_torch/csrc/megakernel.cu",
-              "rt_tpu/megakernel.py:3768", k5_launches, k5[0], k5[1], k5[2], k5[3:5]),
+        dict(entry("megakernel_clustered", "rt_tpu_torch/csrc/megakernel.cu",
+                   "rt_tpu/megakernel.py:3768", k5_launches, k5[0], k5[1], k5[2], k5[3:5]),
+             **{f"{key}_{cfg_name}": value
+                for cfg_name, n, r in (("config4", c4_launches, k5_c4), ("config5", c5_launches, k5_c5))
+                for key, value in zip(("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by"), (n, *r))}),
         entry("micro_reduce", "rt_tpu_torch/csrc/micro_probe.cu", "tools/micro_probe.py:41",
               k6_launches["micro_reduce"], 0.0, k6_ms["reduce"], k6_plain_ms["reduce"],
               k6_bound["reduce"], k6_reduce_library_ms),

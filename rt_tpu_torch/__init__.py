@@ -10,9 +10,10 @@ Ported so far: the flat forward renderer (scenes with up to 128 triangles
 and 2048 primitives), its scenes, camera, sky, I/O and single-frame CLI;
 the chunked renderer (``render_pixel_colors(wavefront=False)``,
 ``render_chunk``) and pixel gradients (``grad``: ``pixel_loss``,
-``pixel_grad``); the persistent wavefront and progressive rendering; and
-clustered scenes (meshes from OBJ files, ``cover-large``) through the
-clustered megakernel and the clustered wavefront.
+``pixel_grad``); the persistent wavefront and progressive rendering;
+clustered scenes (meshes from OBJ and glTF files, ``cover-large``) through
+the clustered megakernel and the clustered wavefront; and the live
+Hosek-Wilkie sky (``SkyParams.hosek``).
 """
 
 from rt_tpu_torch.config import RenderConfig, CompatConfig, ProgressiveSchedule

@@ -5,6 +5,7 @@ Examples:
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --spp 10 --out out.png
     python -m rt_tpu_torch.cli --scene textured --camera cam2 --device cpu --out t.ppm
     python -m rt_tpu_torch.cli --scene obj:model.obj --size 200x112 --spp 2 --out m.png
+    python -m rt_tpu_torch.cli --scene gltf:model.glb --camera widecam --spp 8 --out g.png
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --progressive --passes 4 \
         --checkpoint cover.npz --out cover.png
 """
@@ -48,7 +49,12 @@ def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
         scenes.add_ground_plane(b, 1000.0, 1000.0, -0.2, ground)
         return b.build()
     if spec.startswith("gltf:"):
-        raise SystemExit(f"scene {spec!r}: not yet ported")
+        from rt_tpu_torch.io.gltf_loader import add_gltf_to_scene
+        from rt_tpu_torch.scene import SceneBuilder
+
+        b = SceneBuilder()
+        add_gltf_to_scene(b, spec[5:])
+        return b.build()
     raise SystemExit(f"unknown scene: {spec!r}")
 
 
@@ -61,7 +67,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="rt_tpu_torch", description=__doc__)
     parser.add_argument("--scene", default="cover",
                         help="cover | cover-large | earth | checkered | textured | triangles | "
-                        "obj:PATH")
+                        "obj:PATH | gltf:PATH")
     parser.add_argument("--camera", default="cam1", choices=["cam1", "cam2", "widecam", "topdown"])
     parser.add_argument("--size", default="800x600", help="WIDTHxHEIGHT")
     parser.add_argument("--spp", type=int, default=32)

@@ -8,8 +8,10 @@ defaults to +z, hittable.rs:38).
 
 The default model is Perez/Preetham with the published coefficient tables
 (Preetham, Shirley & Smits 1999).  ``SkyParams.hosek_reference()`` is the
-Hosek-Wilkie configuration fitted against the reference's golden render.
-The live dataset interpolation ``SkyParams.hosek()`` is not ported yet.
+Hosek-Wilkie configuration fitted against the reference's golden render;
+``SkyParams.hosek()`` interpolates a live (turbidity, albedo, elevation)
+configuration from the dataset in data/hw_dataset.npz (``hosek_config``),
+differentiably in all three.
 
 ``frame_scalars`` reduces a sky to the per-frame scalars the megakernel and
 its plain version evaluate per ray.
@@ -18,7 +20,9 @@ its plain version evaluate per ray.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -50,6 +54,30 @@ class SkyParams:
             sun_direction=torch.tensor([0.0, 0.0, 1.0]),
             turbidity=torch.tensor(2.0),
             exposure=torch.tensor(0.25),
+        )
+
+    @staticmethod
+    def hosek(turbidity=3.0, albedo=0.2, elevation=None, sun_direction=None,
+              exposure=1.0) -> "SkyParams":
+        """Hosek-Wilkie sky at a live (turbidity, albedo, elevation)
+        configuration through the dataset interpolation (``hosek_config``).
+        The sun defaults to +z (hittable.rs:38) and is normalised; when
+        ``elevation`` is None it is asin of the sun's z.  A given
+        ``elevation`` moves only the H-W rows, not the sun.  Gamma is the
+        true angle (no cos-as-angle quirk); ``hosek_reference()`` is the
+        reference's exact configuration.  Tensors that require grad keep
+        their graph through ``hw_params``."""
+        sun = torch.as_tensor([0.0, 0.0, 1.0] if sun_direction is None else sun_direction,
+                              dtype=torch.float32)
+        sun = sun / torch.linalg.vector_norm(sun)
+        if elevation is None:
+            elevation = torch.arcsin(torch.clamp(sun[2], -1.0, 1.0))
+        turbidity = torch.as_tensor(turbidity, dtype=torch.float32)
+        return SkyParams(
+            sun_direction=sun,
+            turbidity=turbidity,
+            exposure=torch.as_tensor(exposure, dtype=torch.float32),
+            hw_params=hosek_config(turbidity, albedo, elevation),
         )
 
     @staticmethod
@@ -102,6 +130,56 @@ HW_REFERENCE_FIT = np.array([
     [-0.5307202, -0.627763, 1.301451, 0.3937595, 0.215148, 0.3467761, 0.344817, 0.6351792, 0.8778835, 0.3376637],
     [-0.4482514, -0.6766365, 1.381625, 0.4830969, 0.5850139, 0.4258644, 0.4260356, 0.6652659, 1.022361, 0.4170587],
 ], np.float32)
+
+
+_HW_DATASET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "hw_dataset.npz")
+
+
+@functools.cache
+def _hw_params() -> torch.Tensor:
+    """The dataset's H-W configurations f32[turbidity 10, elevation 9,
+    albedo 2, channel 3, 10] (a byte-for-byte copy of the JAX package's
+    rt_tpu/data/hw_dataset.npz, generated by its tools/gen_hw_dataset.py:
+    the H-W form fitted per grid point to the Perez model plus a
+    ground-albedo lift, on the published model's grid axes)."""
+    with np.load(_HW_DATASET) as z:
+        return torch.from_numpy(np.array(z["params"], np.float32))
+
+
+def hosek_config(turbidity, albedo, elevation) -> torch.Tensor:
+    """(turbidity, albedo, solar elevation) -> f32[3, 10] H-W
+    configuration for ``SkyParams.hw_params`` (the hw-skymodel crate's
+    ``SkyState::new``, hittable.rs:84-93; rt_tpu/sky.py:251-301).
+
+    Piecewise-linear over the dataset grid: turbidity knots 1..10, albedo
+    {0, 1}, elevation knots uniform in (2 eta / pi)^(1/3).  Inputs are
+    clipped to the grid's domain.  Differentiable in all three arguments;
+    the result is on the arguments' device (the CPU for numbers)."""
+    t_in = torch.as_tensor(turbidity, dtype=torch.float32)
+    e_in = torch.as_tensor(elevation, dtype=torch.float32)
+    a_in = torch.as_tensor(albedo, dtype=torch.float32)
+    params = _hw_params().to(t_in.device)
+    n_t, n_e = params.shape[0], params.shape[1]
+
+    t = torch.clamp(t_in, 1.0, float(n_t)) - 1.0
+    t0 = torch.clamp(torch.floor(t).to(torch.int64), 0, n_t - 2)
+    tw = t - t0.to(torch.float32)
+
+    eta = torch.clamp(e_in, 0.0, math.pi / 2)
+    x = torch.pow(eta * float(np.float32(2.0 / np.pi)), float(np.float32(1.0 / 3.0)))
+    e = x * (n_e - 1)
+    e0 = torch.clamp(torch.floor(e).to(torch.int64), 0, n_e - 2)
+    ew = e - e0.to(torch.float32)
+
+    aw = torch.clamp(a_in, 0.0, 1.0)
+
+    def at(ti, ei):
+        p = params[ti, ei]  # [2, 3, 10]
+        return p[0] * (1.0 - aw) + p[1] * aw
+
+    p0 = at(t0, e0) * (1.0 - ew) + at(t0, e0 + 1) * ew
+    p1 = at(t0 + 1, e0) * (1.0 - ew) + at(t0 + 1, e0 + 1) * ew
+    return p0 * (1.0 - tw) + p1 * tw
 
 
 def _safe_arccos(x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +268,7 @@ def sky_radiance_rgb(params: SkyParams, direction: torch.Tensor) -> torch.Tensor
     sun, cos_theta, gamma, cos_gamma = _angles(params, direction)
     exposure = params.exposure.to(dev)
     if params.hw_params is not None:
-        r, g, b = hosek_radiance_rgb(params.hw_params, cos_theta, gamma, cos_gamma)
+        r, g, b = hosek_radiance_rgb(params.hw_params.to(dev), cos_theta, gamma, cos_gamma)
         rgb = torch.stack([r, g, b], dim=-1) * exposure
         return torch.clamp(rgb, min=0.0)
     turbidity = params.turbidity.to(dev)
@@ -249,7 +327,7 @@ def frame_scalars(params: SkyParams) -> dict:
         hw=None,
     )
     if params.hw_params is not None:
-        hw = params.hw_params.to(torch.float32).clone()
-        hw[:, 9] = hw[:, 9] * params.exposure
+        hw = params.hw_params.detach().to(torch.float32).clone()
+        hw[:, 9] = hw[:, 9] * params.exposure.detach()
         out["hw"] = hw.tolist()
     return out

@@ -123,7 +123,7 @@ def test_pixel_grad_matches_jax(jax_grads, name):
     assert len(walks) == (2 * (depth + 1) if name == "mesh" else 0)
 
 
-@pytest.mark.parametrize("sky", ["perez", "hosek"])
+@pytest.mark.parametrize("sky", ["perez", "hosek", "hosek_live"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_gradient_graph_stays_on_the_rays_device(name, sky):
     """Every node of pixel_loss's autograd graph runs on the scene's device
@@ -138,6 +138,8 @@ def test_gradient_graph_stays_on_the_rays_device(name, sky):
     scene = factory(SceneBuilder)
     if sky == "hosek":
         scene.sky = SkyParams.hosek_reference()
+    elif sky == "hosek_live":
+        scene.sky = SkyParams.hosek(3.0, 0.3, 0.8)
     scene.to("meta")
 
     def walk(scene, org, dirn, *_):

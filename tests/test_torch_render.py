@@ -89,8 +89,7 @@ def test_cli_writes_png(tmp_path):
     assert cli.main(["--scene", "cover", "--size", "32x18", "--spp", "1", "--max-depth", "8",
                      "--device", "cpu", "--out", str(out)]) == 0
     assert Image.open(out).size == (32, 18)
-    for argv in (["--term-preview"], ["--serve", "8000"], ["--probe", "1,1"],
-                 ["--scene", "gltf:x.gltf"]):
+    for argv in (["--term-preview"], ["--serve", "8000"], ["--probe", "1,1"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "x.png")])
 
@@ -105,10 +104,12 @@ def test_import_loads_no_jax():
         "import rt_tpu_torch.cluster, rt_tpu_torch.cluster_ops, rt_tpu_torch.io.obj_loader\n"
         "import rt_tpu_torch.bvh.builder, rt_tpu_torch.bvh.native, rt_tpu_torch.bvh.traverse\n"
         "import rt_tpu_torch.micro_probe, rt_tpu_torch.grad, rt_tpu_torch.sampling\n"
+        "import rt_tpu_torch.io.gltf_loader, rt_tpu_torch.io.png_io, rt_tpu_torch.fixtures\n"
+        "import bench_cuda, bench_grad_cuda, bench_scenes_cuda\n"
         "from rt_tpu_torch.bvh import native\n"
         "assert native.available(), 'the port builds its own BVH library'\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rt_tpu', 'flax', 'tools'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rt_tpu', 'flax', 'tools', 'PIL'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
