@@ -55,7 +55,24 @@ the launch counts set to 0 just before and read just after:
   renderer, bit-identical to the uninterrupted run, and K5 against plain
   on runs of a sweep's pixels;
 - the port's bench scripts: ``bench_cuda.main`` (K1) and
-  ``bench_grad_cuda.main`` (K2) print bench.py's and bench_grad.py's lines.
+  ``bench_grad_cuda.main`` (K2) print bench.py's and bench_grad.py's lines;
+- sphere clusters (cluster_bench_cuda.py's covers of 40k and 360k spheres
+  at 800x450, depth 50, spp cut from 64 to 4): the host's scene build and
+  the tables' bytes, ``render_image`` through K5, K5 against plain on
+  runs of the frame and its last 16 pixels, the clustered wavefront (K4)
+  at 1 spp against K5's image, and K4 against plain on the frame's camera
+  rays and first bounces;
+- the front ends: ``cli --probe`` on the card against the CPU probe, a
+  "mega" progressive run feeding ``PreviewServer`` (``/frame.png`` and
+  ``/probe``), and the CLI with ``--serve 0 --term-preview``;
+- examples/inverse_rendering_torch.py, 10 steps on the card (K2, each
+  launch held against plain on its inputs);
+- sharding: ``parallel.render_sharded_megakernel`` on one NCCL rank
+  against ``render_image``'s frames (K1 on the bench cover, K5 on the 40k
+  cover), then ``graft_entry.dryrun_multichip(2)``: two gloo ranks on the
+  one card, K2, K3 and K5 in each, every sharded frame equal to its serial
+  shards, and the ranks' launches rerun here and held against their plain
+  versions bit for bit.
 
 It prints the card, the timings, the kernel table and, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -64,6 +81,7 @@ non-zero and prints no result.  Without CUDA it fails at once.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -970,10 +988,39 @@ def equal(got, ref) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
 
 
+def k4_rays_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
+    """K4 against its plain version, bit for bit, on ``n`` camera rays and
+    first bounces of the frame (cull as ``cfg``), over the whole tables
+    (one wavefront intersect), with its time, the plain version's and the
+    bound from the walk's counted work.  Returns ((max |d t|, kernel ms,
+    plain ms, bound ms, bound_by), the rays, the tables, the walk's work)."""
+    from rt_tpu_torch import cluster_ops
+
+    cl = scene.clusters
+    rays = mesh_rays(scene, camera, cfg, n, dev)
+    whole = cluster_ops.cluster_tables(cl)
+    args = (cl.n_sph_slots, cfg.t_min, cfg.t_max, cfg.compat.triangle_backface_cull)
+    # The work is counted apart from the timed plain runs (counting syncs
+    # with the host).
+    work = {}
+    ref = cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work)
+    got, ms = timer(lambda: cluster_ops.cluster_worklist_nearest(rays, *whole, *args), 5)
+    _, plain_ms = timer(lambda: cluster_ops.cluster_nearest_plain(rays, *whole, *args), 1)
+    hits = int((ref[1] >= 0).sum())
+    print(f"[K4] {n} rays (camera + first bounce) x {scene.num_spheres} spheres + "
+          f"{scene.num_triangles} triangles over the whole tables: equal to plain "
+          f"{equal(got, ref)}, hits {hits}; walk work {walk_counts(work)}")
+    check(equal(got, ref) and hits > n // 4, "K4: kernel and plain version disagree")
+    k4 = (0.0, ms, plain_ms,
+          *walk_bound(work, walk_bytes(work, n, whole[0].shape[0] + whole[3].shape[0])))
+    return k4, rays, whole, work
+
+
 def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
-    """K4 and K4b against their plain versions, bit for bit (t and slot ids
-    on every ray), culling on and off: on ``n`` rays of the config-3 blob frame, over the whole tables (K4 as
-    the wavefront launches it, and K4b) and per cluster page (K4 with the
+    """``k4_rays_phase`` on ``n`` rays of the frame, then K4 and K4b against
+    their plain versions, bit for bit (t and slot ids on every ray),
+    culling on and off: on those rays over the whole tables (K4 as the
+    wavefront launches it, and K4b) and per cluster page (K4 with the
     page's slot bases; the pages merged equal the whole tables); and on the
     tie scene's rays.  Returns, for K4 (one wavefront intersect: one launch
     over the whole tables) and K4b, (max |d t|, kernel ms, plain ms, bound
@@ -983,8 +1030,7 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     from rt_tpu_torch import cluster_ops
 
     cl = scene.clusters
-    rays = mesh_rays(scene, camera, cfg, n, dev)
-    whole = cluster_ops.cluster_tables(cl)
+    k4, rays, whole, work = k4_rays_phase(dev, scene, camera, cfg, timer, n)
     pages = [(cluster_ops.cluster_tables(p), p.sph_slot_base, p.tri_slot_base) for p in cl.pages]
     ns = cl.n_sph_slots
     tie_scene, tie_rays = tie_cases()
@@ -1011,7 +1057,8 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
                 merged_p = [torch.where(p[0] < merged_p[0], a, b) for a, b in zip(p, merged_p)]
         paged_same = equal(merged_k, ref) and equal(merged_p, ref)
         hit = ref[1] >= 0
-        print(f"[K4] {n} rays (camera + first bounce) x {scene.num_triangles} triangles, cull "
+        print(f"[K4] {n} rays (camera + first bounce) x {scene.num_spheres} spheres + "
+              f"{scene.num_triangles} triangles, cull "
               f"{cull}: over the whole tables, and on the tie scene's {t_rays.shape[1]} rays "
               f"(hits {int((t_ref[1] >= 0).sum())}), equal to plain: K4 "
               f"{same['cluster_worklist_nearest']}, K4b {same['cluster_nearest']}; every K4 page "
@@ -1020,21 +1067,11 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
         check(all(same.values()) and pages_same and paged_same and int(hit.sum()) > n // 4,
               "K4/K4b: kernel and plain version disagree")
     args = (ns, cfg.t_min, cfg.t_max, cfg.compat.triangle_backface_cull)
-    _, k4_ms = timer(lambda: cluster_ops.cluster_worklist_nearest(rays, *whole, *args), 5)
-    _, k4_plain_ms = timer(lambda: cluster_ops.cluster_nearest_plain(rays, *whole, *args), 1)
     _, k4b_ms = timer(lambda: cluster_ops.cluster_nearest(rays, *whole, *args), 5)
     _, k4b_plain_ms = timer(lambda: cluster_ops.cluster_nearest_plain(rays, *whole, *args), 1)
     _, pages_ms = timer(lambda: [cluster_ops.cluster_worklist_nearest(rays, *t, *args, sb, tb)
                                  for t, sb, tb in pages], 5)
-    # The work is counted apart from the timed plain runs (counting syncs
-    # with the host).  K4 and K4b compute one function on the same rays,
-    # so they share one bound.
-    work = {}
-    cluster_ops.cluster_nearest_plain(rays, *whole, *args, work=work)
-    k4_bound = walk_bound(work, walk_bytes(work, n, whole[0].shape[0] + whole[3].shape[0]))
-    print(f"[K4] walk work on these rays (tests; supers and clusters entered): "
-          f"{walk_counts(work)}")
-    print(f"[K4] one launch over the whole tables: {k4_ms:.4f} ms; the {len(pages)} page "
+    print(f"[K4] one launch over the whole tables: {k4[1]:.4f} ms; the {len(pages)} page "
           f"launches together {pages_ms:.4f} ms")
     # Coherent against incoherent rays, and four times the rays.
     tests = walk_tests(work)
@@ -1049,7 +1086,9 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     _, ms4 = timer(lambda: cluster_ops.cluster_nearest(four, *whole, *args), 5)
     print(f"[K4] K4b on the rays four times over ({4 * n}): {ms4:.4f} ms, "
           f"{ms4 * 1e6 / (4 * tests):.4f} ns per test (at {n}: {k4b_ms * 1e6 / tests:.4f})")
-    return (0.0, k4_ms, k4_plain_ms, *k4_bound), (0.0, k4b_ms, k4b_plain_ms, *k4_bound)
+    # K4 and K4b compute one function on the same rays, so they share one
+    # bound.
+    return k4, (0.0, k4b_ms, k4b_plain_ms, *k4[3:])
 
 
 def k5_small_phase(dev):
@@ -1870,6 +1909,419 @@ def bench_lines_phase(dev):
     check(k1 == 4 and k2 > 0, "the bench scripts did not go through K1 and K2")
 
 
+# The sphere covers of cluster_bench_cuda.py (tools/cluster_bench.py:69-73)
+# at its 800x450 and depth 50; the sample count is cut from 64 to 4 to fit
+# this script's time.
+SPHERE_W, SPHERE_H, SPHERE_DEPTH, SPHERE_SPP = 800, 450, 50, 4
+
+
+def sphere_cluster_phase(dev, card: str, timer) -> dict:
+    """Sphere-cluster scenes on the card: the 40k- and 360k-sphere covers of
+    cluster_bench_cuda.py at 800x450, depth 50 and 4 spp.  Each: the host's
+    scene build (``SceneBuilder.build`` apart) and the tables' bytes on the
+    card; ``render_image`` through K5 (launches counted from 0 just
+    before), equal to the timed K5 launch; K5 against plain on 4 runs of 16
+    pixels down the diagonal and the frame's last 16; the clustered
+    wavefront at 1 spp (K4 launches counted from 0 just before) against
+    K5's 1-spp image; and K4 against plain on the frame's rays (the whole
+    ``cluster_phase`` on the 40k cover).  Returns {"40k"|"360k": results},
+    the 40k scene, camera, cfg and image kept for the sharding phase."""
+    import numpy as np
+    import torch
+
+    from cluster_bench_cuda import SPHERE_COVERS, table_bytes, timed_scene
+    from rt_tpu_torch import cluster_ops, megakernel as mk, scenes, wavefront
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.render import render_image, render_pixel_colors
+
+    camera = scenes.cam1(SPHERE_W, SPHERE_H)
+    cfg = RenderConfig(width=SPHERE_W, height=SPHERE_H, samples_per_pixel=SPHERE_SPP,
+                       max_depth=SPHERE_DEPTH)
+    out = {}
+    for key in ("40k", "360k"):
+        name, grid = SPHERE_COVERS[key]
+        scene, scene_s, build_s = timed_scene(
+            lambda: scenes.cover_scene(grid, grid, camera, z=-0.2, seed=0))
+        scene.to(dev)
+        cl = scene.clusters
+        nbytes = table_bytes(scene)
+        print(f"[spheres] {name}: {scene.num_spheres} spheres + {scene.num_triangles} triangles; "
+              f"scene on the host {scene_s:.2f} s, of which SceneBuilder.build {build_s:.2f} s; "
+              f"tables {nbytes / 1e6:.1f} MB on {card} ({cl.sph_cluster.shape[0]} sphere and "
+              f"{cl.tri_cluster.shape[0]} triangle cluster rows, {cl.shade_table.shape[1]} slots, "
+              f"{len(cl.pages)} pages)")
+        check(mk.eligible_clustered(scene, cfg), f"{name}: no cluster tables")
+        mk.LAUNCHES_CLUSTERED = 0
+        img, m = render_image(scene, camera, cfg, device=dev)
+        k5_launches = mk.LAUNCHES_CLUSTERED
+        print(f"[spheres] {name} {SPHERE_W}x{SPHERE_H} {SPHERE_SPP} spp (cluster_bench's 64 cut "
+              f"to {SPHERE_SPP}) depth {SPHERE_DEPTH}: render_image {m['wall_s']:.4f} s "
+              f"({m['mray_per_s']:.3f} Mray/s), image mean {float(img.mean()):.4f}; K5 launches "
+              f"{k5_launches}")
+        check(k5_launches == 1 and bool(np.isfinite(img).all()) and 0.01 < float(img.mean()) < 5,
+              f"{name}: render_image did not go through K5, or its image is implausible")
+        frame, ms = timer(lambda: mk.render_megakernel(scene, camera, cfg, SPHERE_SPP, 0,
+                                                       cfg.seed), 3)
+        check(np.array_equal(frame.reshape(SPHERE_H, SPHERE_W, 3).cpu().numpy(), img),
+              f"{name}: render_image differs from the timed K5 launch")
+        print(f"[spheres] {name}: K5 {ms:.3f} ms per launch (CUDA events, mean of 3 after a "
+              f"warm-up), {SPHERE_SPP * SPHERE_W * SPHERE_H / ms / 1e3:.3f} Mray/s in the kernel")
+        k5 = k5_phase(dev, f"{name} cover", scene, camera, cfg, frame, ms, runs=4, last_run=True)
+        for fn in cluster_ops.LAUNCHES:
+            cluster_ops.LAUNCHES[fn] = 0
+        wavefront.COUNTS.update(iterations=0, segments=0)
+        sync(dev)
+        t0 = time.perf_counter()
+        wf = render_pixel_colors(scene, camera, cfg.replace(renderer="wavefront"), device=dev,
+                                 spp=1).cpu().numpy()
+        wf_s = time.perf_counter() - t0
+        k4_launches = cluster_ops.LAUNCHES["cluster_worklist_nearest"]
+        ref1 = mk.render_megakernel(scene, camera, cfg, 1, 0, cfg.seed)
+        ref1 = ref1.reshape(SPHERE_H, SPHERE_W, 3).cpu().numpy()
+        d = np.abs(wf - ref1)
+        within = float((d <= ATOL + RTOL * np.abs(ref1)).all(axis=-1).mean())
+        print(f"[spheres] {name}: the clustered wavefront at 1 spp {wf_s:.3f} s, iterations "
+              f"{wavefront.COUNTS['iterations']}, K4 launches {k4_launches}; against K5's "
+              f"1-spp image max|d| {d.max():.3e}, pixels within 1e-3 {within:.4%}")
+        check(k4_launches == wavefront.COUNTS["iterations"] > 0 and within >= 0.999,
+              f"{name}: the clustered wavefront did not run K4 an iteration, or differs from K5")
+        if key == "40k":
+            k4, _ = cluster_phase(dev, scene, camera, cfg, timer)
+        else:
+            k4 = k4_rays_phase(dev, scene, camera, cfg, timer)[0]
+        out[key] = {"k5": k5, "k5_launches": k5_launches, "k4": k4, "k4_launches": k4_launches,
+                    "scene_s": scene_s, "build_s": build_s, "bytes": nbytes,
+                    "mray": m["mray_per_s"]}
+        if key == "40k":
+            out["cover40k"] = (scene, camera, cfg, img)
+        else:
+            del scene, frame
+            torch.cuda.empty_cache()
+    return out
+
+
+def front_end_phase(dev, card: str):
+    """The front ends on the card: ``cli --probe`` against the CPU probe
+    (floats within 1e-5); a "mega" progressive run (K1) feeding
+    ``PreviewServer`` through ``on_sweep``: ``/frame.png`` decodes to the
+    image the run writes, ``/probe`` answers as the CPU probe; and the CLI
+    with ``--progressive --engine mega --serve 0 --term-preview``, its
+    output captured.  Returns K1's launches in the viewer's run."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    from rt_tpu_torch import cli, megakernel as mk, scenes
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.debug import debug_pixel
+    from rt_tpu_torch.io import write_png
+    from rt_tpu_torch.io.png_io import decode_png
+    from rt_tpu_torch.progressive import ProgressiveRenderer
+    from rt_tpu_torch.viewer import PreviewServer
+
+    def same_probe(got, ref) -> bool:
+        for k, v in ref.items():
+            if isinstance(v, list) or isinstance(v, float):
+                a, b = np.asarray(got[k], np.float64), np.asarray(v, np.float64)
+                if not (np.abs(a - b) <= 1e-5 + 1e-5 * np.abs(b)).all():
+                    return False
+            elif got[k] != v:
+                return False
+        return set(got) == set(ref)
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.read()
+
+    w, h, xy = 400, 225, (200, 150)
+    camera = scenes.cam1(w, h)
+    scene = scenes.cover_scene(11, 11, camera, z=-0.2, seed=0)
+    cfg = RenderConfig(width=w, height=h, max_depth=50)
+    cpu_probe = debug_pixel(scene, camera, *xy, cfg, device="cpu")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["--scene", "cover", "--size", f"{w}x{h}", "--probe", "%d,%d" % xy])
+    card_probe = json.loads(out.getvalue())
+    print(f"[front] cli --probe {xy[0]},{xy[1]} on the card: rc {rc}, {card_probe['material']} "
+          f"prim {card_probe['prim']} t {card_probe['t']:.6f}; equal to the CPU probe within "
+          f"1e-5: {same_probe(card_probe, cpu_probe)}")
+    check(rc == 0 and same_probe(card_probe, cpu_probe), "cli --probe: card and CPU disagree")
+
+    scene.to(dev)
+    prog = ProgressiveRenderer(scene, camera, cfg, engine="mega", device=dev)
+    server = PreviewServer(0, probe=lambda x, y: debug_pixel(scene, camera, x, y, cfg,
+                                                              device=dev)).start()
+    served, probes = [], []
+    try:
+        base = f"http://localhost:{server.port}"
+
+        def on_sweep(image, metrics):
+            server.update(image, metrics)
+            served.append(decode_png(get(base + "/frame.png")))
+            probes.append(json.loads(get(base + "/probe?x=%d&y=%d" % xy)))
+
+        mk.LAUNCHES = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            image = prog.run(max_passes=2, on_sweep=on_sweep)
+        k1 = mk.LAUNCHES
+        status = json.loads(get(base + "/status"))
+    finally:
+        server.stop()
+    png = os.path.join("build", "serve_mega.png")
+    write_png(png, image)
+    with open(png, "rb") as f:
+        written = decode_png(f.read())
+    ok = (len(served) == 2 and np.array_equal(served[-1], written) and status["total_spp"] == 3
+          and all(same_probe(p, cpu_probe) for p in probes))
+    print(f"[front] 'mega' progressive, 2 passes through PreviewServer on :{server.port}: K1 "
+          f"launches {k1}; /frame.png of the last sweep equal to the PNG the run wrote, /status "
+          f"total_spp {status['total_spp']}, /probe equal to the CPU probe: {ok}")
+    check(ok and k1 == 2, "the viewer's frames or probe are wrong")
+
+    png2 = os.path.join("build", "cli_serve.png")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["--scene", "cover", "--size", f"{w}x{h}", "--max-depth", "50",
+                       "--progressive", "--engine", "mega", "--passes", "2", "--serve", "0",
+                       "--term-preview", "--out", png2])
+    with open(png2, "rb") as f:
+        cli_png = decode_png(f.read())
+    text = out.getvalue()
+    frames = text.count("\x1b[38;2;") >= 2 * 100 or text.count("\x1b_Ga=T") == 2  # ANSI or kitty
+    ok = (rc == 0 and "preview at http://localhost:" in err.getvalue() and frames
+          and "F\x1b[J" in text and "total_spp=3" in text
+          and np.array_equal(cli_png, written))
+    print(f"[front] cli --progressive --engine mega --passes 2 --serve 0 --term-preview: rc {rc}, "
+          f"{time.perf_counter() - t0:.2f} s, {len(text)} characters of terminal frames, PNG "
+          f"equal to the viewer run's: {ok}")
+    check(ok, "the CLI's --serve/--term-preview run failed")
+    return k1
+
+
+@contextlib.contextmanager
+def recorded_launches(calls: list):
+    """Within the block, every launch of K2's and K3's wrappers
+    (``nearest_ops._launch``, ``prim_ops._launch``) appends (name, copies of
+    its inputs, copies of its outputs) to ``calls``.  The launches run and
+    count as before; the copies keep what a caller later overwrites."""
+    import torch
+
+    from rt_tpu_torch import nearest_ops, prim_ops
+
+    copy = lambda xs: [x.clone() if torch.is_tensor(x) else x for x in xs]
+    saved = {m: m._launch for m in (nearest_ops, prim_ops)}
+
+    def recording(launch):
+        def record(name, *args):
+            out = launch(name, *args)
+            calls.append((name, copy(args), copy(out)))
+            return out
+        return record
+
+    for m, launch in saved.items():
+        m._launch = recording(launch)
+    try:
+        yield calls
+    finally:
+        for m, launch in saved.items():
+            m._launch = launch
+
+
+def hold_recorded(calls: list) -> dict:
+    """Each recorded K2 or K3 launch against its plain version on the same
+    inputs, bit for bit (t, ids and, for K3, the shade columns).  Returns
+    {name: number of launches held}; fails on any difference."""
+    import torch
+
+    from rt_tpu_torch import nearest_ops, prim_ops
+
+    def plain(name, args):
+        if name == "sphere_nearest":
+            org, dirn, sph, t_min, t_max = args
+            return nearest_ops.sphere_nearest_plain(org, dirn, sph[:, :3], sph[:, 3], t_min, t_max)
+        check(name == "prim_nearest_shaded", f"{name}: not a launch of these paths")
+        return prim_ops.prim_nearest_shaded_plain(*args)
+
+    held, bad = {}, []
+    for name, args, out in calls:
+        if not all(torch.equal(a, b) for a, b in zip(out, plain(name, args), strict=True)):
+            bad.append((name, tuple(args[0].shape)))
+        held[name] = held.get(name, 0) + 1
+    check(not bad and bool(held), f"K2/K3 launches differ from their plain versions: {bad}")
+    return held
+
+
+def dryrun_kernels_phase(dev, results: list) -> dict:
+    """The kernels of ``dryrun_multichip(n)``'s ranks held against their
+    plain versions at the dryrun's shapes: every shard of its mesh run here
+    on the card as the ranks run them (``render_shard``, ``wavefront_shard``
+    and ``train_shard`` with its backward pass: K2 and K3, each launch
+    recorded and held against plain on its inputs by ``hold_recorded``;
+    ``megakernel_shard``: K5, each range against ``render_megakernel_plain``).
+    The shards assembled equal rank 0's three frames, and the training
+    shards' loss its loss, bit for bit, and each kernel's launches here
+    number the ranks' together, so these are the ranks' launches.  The
+    launch counts are restored afterwards.  Returns {kernel: launches
+    held}."""
+    import numpy as np
+    import torch
+
+    from rt_tpu_torch import grad as grad_mod
+    from rt_tpu_torch import megakernel as mk, nearest_ops, prim_ops, rng
+    from rt_tpu_torch.graft_entry import DRYRUN_SPP, dryrun_setup
+    from rt_tpu_torch.parallel import (
+        assemble_render, megakernel_range, megakernel_shard, render_shard, tile_squared_error,
+        train_shard, wavefront_shard,
+    )
+
+    n, rank0 = len(results), results[0]
+    ranks = {k: sum(r["launches"][k] for r in results) for k in rank0["launches"]}
+    counts = dict(nearest_ops.LAUNCHES), dict(prim_ops.LAUNCHES), mk.LAUNCHES_CLUSTERED
+    shape, (scene, camera, cfg), (scene_cl, cam_cl, cfg_cl) = dryrun_setup(n)
+    scene.to(dev)
+    scene_cl.to(dev)
+    (t, s), spp, key = shape, DRYRUN_SPP, rng.key(cfg.seed)
+    w, h = camera.image_width, camera.image_height
+    frames = rank0["frames"]
+    calls = []
+    with recorded_launches(calls):
+        total = lambda xs: sum(xs[1:], xs[0])  # the collectives' order for two ranks
+        sums = [total([render_shard(scene, camera, cfg, shape, (i, j), spp, key)
+                       for j in range(s)]) for i in range(t)]
+        img = assemble_render(sums, camera, spp, shape).cpu().numpy()
+        wf = torch.cat([wavefront_shard(scene, camera, cfg, n, r, spp, key) for r in range(n)])
+        wf = wf[: w * h].reshape(h, w, 3).cpu().numpy()
+        params = grad_mod.SceneParams(*(p.detach().requires_grad_()
+                                        for p in grad_mod.get_params(scene)))
+        pix = torch.arange(w * h, dtype=torch.int32, device=dev)
+        target = torch.as_tensor(frames["render_sharded"].reshape(w * h, 3), device=dev)
+        rows = (w * h) // t
+        sq = total([tile_squared_error(
+            total([train_shard(params, scene, camera, cfg, shape, (i, j), pix, spp, key)
+                   for j in range(s)]), target[i * rows : (i + 1) * rows], spp, s)
+                    for i in range(t)])
+        loss = float(sq.detach() / (w * h * 3))
+        torch.autograd.grad(sq, params, allow_unused=True)  # its launches too
+    held = hold_recorded(calls)
+    key_cl, n_cl = rng.key(cfg_cl.seed), cam_cl.image_width * cam_cl.image_height
+    k5_same, parts = True, []
+    for r in range(n):
+        base, count = megakernel_range(n_cl, n, r)
+        got = megakernel_shard(scene_cl, cam_cl, cfg_cl, n, r, 1, key_cl)
+        ref = mk.render_megakernel_plain(scene_cl, cam_cl, cfg_cl, 1, 0, rng.key_seed(key_cl),
+                                         pixel_base=base, n_pixels=count)
+        k5_same = k5_same and torch.equal(got, ref)
+        parts.append(got)
+    cl = torch.cat(parts).reshape(cam_cl.image_height, cam_cl.image_width, 3).cpu().numpy()
+    held["megakernel_clustered"] = n if k5_same else 0
+    nearest_ops.LAUNCHES.update(counts[0])
+    prim_ops.LAUNCHES.update(counts[1])
+    mk.LAUNCHES_CLUSTERED = counts[2]
+    same = {"render_sharded": np.array_equal(img, frames["render_sharded"]),
+            "render_sharded_wavefront": np.array_equal(wf, frames["render_sharded_wavefront"]),
+            "render_sharded_megakernel": np.array_equal(cl, frames["render_sharded_megakernel"]),
+            "loss": loss == rank0["loss"]}
+    print(f"[shard] the dryrun's {t}x{s} mesh, its shards run here on the card: equal to rank "
+          f"0's frames and loss {same}; launches held bit for bit against plain on their "
+          f"inputs {held}, the ranks' launches together {ranks}")
+    check(all(same.values()) and k5_same and held == ranks and ranks["sphere_nearest"] > 0
+          and ranks["prim_nearest_shaded"] > 0,
+          "the dryrun's kernels differ from their plain versions, or its shards from its ranks")
+    return held
+
+
+def inverse_phase(dev, card: str, steps: int = 10):
+    """examples/inverse_rendering_torch.py, ``steps`` Adam steps on the card
+    (K2 launches counted from 0 just before, each held against plain on its
+    inputs): the loss falls, and step 0's loss equals a CPU run's at rtol
+    1e-5 (tests/test_torch_grad.py).
+    Returns (K2 launches, mean wall s of the warm steps)."""
+    import importlib.util
+
+    from rt_tpu_torch import nearest_ops
+
+    spec = importlib.util.spec_from_file_location(
+        "inverse_rendering_torch", os.path.join("examples", "inverse_rendering_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for fn in nearest_ops.LAUNCHES:
+        nearest_ops.LAUNCHES[fn] = 0
+    calls = []
+    with recorded_launches(calls):
+        res = example.run(steps, device=dev, log=lambda line: print(f"[inverse] {line}"))
+    k2 = nearest_ops.LAUNCHES["sphere_nearest"]
+    held = hold_recorded(calls)
+    print(f"[inverse] the run's launches held bit for bit against plain on their inputs: {held}")
+    check(held == {"sphere_nearest": k2}, "the example's K2 launches were not all held")
+    cpu = example.run(1, device="cpu", log=lambda line: None)
+    losses = res["losses"]
+    step_s = sum(res["step_s"][1:]) / (steps - 1)
+    rel = abs(losses[0] - cpu["losses"][0]) / cpu["losses"][0]
+    print(f"[inverse] {steps} steps on {card}: loss {losses[0]:.6f} -> {losses[-1]:.6f}; step 0 "
+          f"against the CPU's {cpu['losses'][0]:.6f}: rel {rel:.2e}; first step "
+          f"{res['step_s'][0]:.3f} s, warm steps {step_s:.4f} s each (wall); K2 launches {k2}")
+    check(losses[-1] < losses[0] and rel <= 1e-5 and k2 > 0,
+          "the inverse-rendering example did not fit, or its card and CPU losses disagree")
+    return k2, step_s
+
+
+def sharding_phase(dev, card: str, cover40k) -> dict:
+    """parallel.render_sharded_megakernel on one NCCL rank, bit-equal to
+    render_image's frames: the bench cover (K1) and the 40k sphere cover
+    (K5), launches counted from 0 just before each; then
+    graft_entry.dryrun_multichip(2): two gloo ranks on the one card, each
+    running K2, K3 and K5, every sharded frame equal to its serial shards;
+    then ``dryrun_kernels_phase``, the ranks' kernels against their plain
+    versions.  Returns the launches and the dryrun's results."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from rt_tpu_torch import megakernel as mk, parallel
+    from rt_tpu_torch.graft_entry import dryrun_multichip
+    from rt_tpu_torch.render import render_image
+    from rt_tpu_torch.scenes import bench_cover_config
+
+    parallel.initialize_multihost(f"localhost:{parallel.free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = parallel.make_mesh()
+        scene, camera, cfg = bench_cover_config()
+        ref, _ = render_image(scene, camera, cfg, device=dev)
+        mk.LAUNCHES = 0
+        got = parallel.render_sharded_megakernel(scene, camera, cfg, mesh, device=dev)
+        k1 = mk.LAUNCHES
+        same_k1 = np.array_equal(got.cpu().numpy(), ref)
+        scene40k, cam40k, cfg40k, img40k = cover40k
+        mk.LAUNCHES_CLUSTERED = 0
+        got = parallel.render_sharded_megakernel(scene40k, cam40k, cfg40k, mesh, device=dev)
+        k5 = mk.LAUNCHES_CLUSTERED
+        same_k5 = np.array_equal(got.cpu().numpy(), img40k)
+        print(f"[shard] render_sharded_megakernel on a mesh {tuple(mesh.shape)} of one NCCL "
+              f"({dist.get_backend()}) rank: the bench cover equal to render_image's frame "
+              f"{same_k1} (K1 launches {k1}); the 40k sphere cover equal {same_k5} (K5 launches "
+              f"{k5})")
+        check(same_k1 and same_k5 and k1 == 1 and k5 == 1,
+              "the sharded megakernel differs from render_image")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    results = dryrun_multichip(2)
+    seconds = time.perf_counter() - t0
+    for r in results:
+        print(f"[shard] dryrun rank {r['rank']} on {r['device']}: mesh {r['mesh']}, loss "
+              f"{r['loss']:.6f}, K5 launches of its sharded megakernel {r['k5_sharded']}, kernel "
+              f"launches of its run {r['launches']}, frames equal to the serial shards "
+              f"{r['serial_equal']}")
+    print(f"[shard] dryrun_multichip(2) on {card}: {seconds:.1f} s (two spawned ranks)")
+    check(all(r["k5_sharded"] == 1 and r["device"].startswith("cuda")
+              and r["launches"]["sphere_nearest"] > 0 and r["launches"]["prim_nearest_shaded"] > 0
+              for r in results) and all(results[0]["serial_equal"].values()),
+          "dryrun_multichip(2): a rank did not run its kernels, or the frame depends on the mesh")
+    held = dryrun_kernels_phase(dev, results)
+    return {"k1": k1, "k5": k5, "dryrun": results, "dryrun_s": seconds, "dryrun_held": held}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1877,6 +2329,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from rt_tpu_torch import _build, megakernel as mk
     from rt_tpu_torch.config import RenderConfig
     from rt_tpu_torch.render import render_image
@@ -2138,9 +2591,33 @@ def main() -> int:
     # -- 29. the port's bench scripts (bench_cuda.py, bench_grad_cuda.py) ----------------
     bench_lines_phase(dev)
 
-    # -- 30. result -------------------------------------------------------------------
+    # -- 30. sphere clusters: the 40k and 360k covers through K5 and K4 ------------------
+    t_new = time.perf_counter()
+    spheres = sphere_cluster_phase(dev, card, timed_cuda)
+    for key in ("40k", "360k"):
+        r = spheres[key]
+        print(f"[time] K5 megakernel_clustered, the {key}-sphere cover ({SPHERE_W}x{SPHERE_H}, "
+              f"{SPHERE_SPP} spp, depth {SPHERE_DEPTH}) on {card}: kernel {r['k5'][1]:.4f} ms per "
+              f"launch, plain {r['k5'][2]:.1f} ms (wall) on 80 of its pixels, bound "
+              f"{r['k5'][3]:.4f} ms by {r['k5'][4]}; K4 {r['k4'][1]:.4f} ms, plain "
+              f"{r['k4'][2]:.1f} ms, bound {r['k4'][3]:.4f} ms by {r['k4'][4]} (65,536 rays)")
+
+    # -- 31. the front ends: --probe, the viewer, --serve and --term-preview ---------------
+    front_k1 = front_end_phase(dev, card)
+
+    # -- 32. the inverse-rendering example (K2) -------------------------------------------
+    inverse_k2, inverse_step_s = inverse_phase(dev, card)
+
+    # -- 33. sharding: one NCCL rank, then two gloo ranks on the card ---------------------
+    shard = sharding_phase(dev, card, spheres.pop("cover40k"))
+    print(f"[time] phases 30-33 (sphere clusters, front ends, inverse rendering, sharding): "
+          f"{time.perf_counter() - t_new:.1f} s")
+
+    # -- 34. result -------------------------------------------------------------------
     check(all(math.isfinite(v) for v in (sky_k1_ms, sky_plain_ms, *k5_c4[:4], *k5_c5[:4], c5_s)),
           "non-finite measurement")
+    check(all(math.isfinite(v) for r in spheres.values() for v in (*r["k5"][:4], *r["k4"][:4]))
+          and math.isfinite(inverse_step_s), "non-finite measurement")
     check(all(math.isfinite(v) for v in (bench_err, kernel_ms, k1_640_ms, k1_wide_ms,
                                           k1_wide_bound[0], plain_ms,
                                           k2_ms, k2_plain_ms,
@@ -2179,31 +2656,49 @@ def main() -> int:
           "(K4b) have no caller on any path, as in rt_tpu; each is held against its plain "
           "version above")
 
+    def sphere_keys(spheres: dict, kernel: str) -> dict:
+        """K5's or K4's numbers on the sphere covers, as extra keys."""
+        return {f"{key}_spheres{cover}": value
+                for cover, r in spheres.items()
+                for key, value in zip(("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by"), (r[f"{kernel}_launches"], *r[kernel]))}
+
     def entry(name, source, replaces, n_launches, err, ms, p_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
+    print(f"[time] chip_smoke.py total: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [
         dict(entry("megakernel_flat", "rt_tpu_torch/csrc/megakernel.cu",
                    "rt_tpu/megakernel.py:288", launches, bench_err, kernel_ms, plain_ms, k1_bound),
              ms_1600x900=k1_wide_ms, bound_ms_1600x900=k1_wide_bound[0],
              bound_by_1600x900=k1_wide_bound[1], launches_live_sky=sky_launches,
-             ms_live_sky=sky_k1_ms, plain_ms_live_sky=sky_plain_ms),
-        entry("sphere_nearest", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:123",
-              grad_launches["sphere_nearest"], k2_err, k2_ms, k2_plain_ms, k2_bound),
+             ms_live_sky=sky_k1_ms, plain_ms_live_sky=sky_plain_ms,
+             launches_viewer_mega=front_k1, launches_sharded=shard["k1"]),
+        dict(entry("sphere_nearest", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:123",
+                   grad_launches["sphere_nearest"], k2_err, k2_ms, k2_plain_ms, k2_bound),
+             launches_inverse=inverse_k2,
+             launches_dryrun_ranks=[r["launches"]["sphere_nearest"] for r in shard["dryrun"]],
+             # Every launch of these two paths was held bit for bit against
+             # plain on its inputs (inverse_phase, dryrun_kernels_phase).
+             max_abs_err_inverse=0.0, max_abs_err_dryrun=0.0),
         entry("sphere_nearest_packed", "rt_tpu_torch/csrc/nearest.cu", "rt_tpu/pallas_ops.py:313",
               grad_launches["sphere_nearest_packed"], k2b_err, k2b_ms, k2b_plain_ms, k2b_bound),
-        entry("prim_nearest_shaded", "rt_tpu_torch/csrc/prim_nearest.cu",
-              "rt_tpu/pallas_ops.py:936", wf_launches["prim_nearest_shaded"], k3[0], k3[1], k3[2],
-              k3[3:5]),
+        dict(entry("prim_nearest_shaded", "rt_tpu_torch/csrc/prim_nearest.cu",
+                   "rt_tpu/pallas_ops.py:936", wf_launches["prim_nearest_shaded"], k3[0], k3[1],
+                   k3[2], k3[3:5]),
+             launches_dryrun_ranks=[r["launches"]["prim_nearest_shaded"]
+                                    for r in shard["dryrun"]],
+             max_abs_err_dryrun=0.0),
         entry("prim_nearest_packed", "rt_tpu_torch/csrc/prim_nearest.cu",
               "rt_tpu/pallas_ops.py:270", wf_launches["prim_nearest_packed"], k3b[0], k3b[1],
               k3b[2], k3b[3:5]),
-        entry("cluster_nearest", "rt_tpu_torch/csrc/cluster_nearest.cu",
-              "rt_tpu/pallas_ops.py:1015", k4_launches["cluster_worklist_nearest"], k4[0], k4[1],
-              k4[2], k4[3:5]),
+        dict(entry("cluster_nearest", "rt_tpu_torch/csrc/cluster_nearest.cu",
+                   "rt_tpu/pallas_ops.py:1015", k4_launches["cluster_worklist_nearest"], k4[0],
+                   k4[1], k4[2], k4[3:5]),
+             **sphere_keys(spheres, "k4")),
         entry("cluster_nearest_predicated", "rt_tpu_torch/csrc/cluster_nearest.cu",
               "rt_tpu/pallas_ops.py:533", k4_launches["cluster_nearest"], k4b[0], k4b[1], k4b[2],
               k4b[3:5]),
@@ -2212,7 +2707,11 @@ def main() -> int:
              **{f"{key}_{cfg_name}": value
                 for cfg_name, n, r in (("config4", c4_launches, k5_c4), ("config5", c5_launches, k5_c5))
                 for key, value in zip(("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by"), (n, *r))}),
+                                       "bound_by"), (n, *r))},
+             **sphere_keys(spheres, "k5"),
+             launches_sharded_spheres40k=shard["k5"],
+             launches_dryrun_ranks=[r["k5_sharded"] for r in shard["dryrun"]],
+             max_abs_err_dryrun=0.0),
         entry("micro_reduce", "rt_tpu_torch/csrc/micro_probe.cu", "tools/micro_probe.py:41",
               k6_launches["micro_reduce"], 0.0, k6_ms["reduce"], k6_plain_ms["reduce"],
               k6_bound["reduce"], k6_reduce_library_ms),

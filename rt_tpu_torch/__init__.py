@@ -12,8 +12,12 @@ the chunked renderer (``render_pixel_colors(wavefront=False)``,
 ``render_chunk``) and pixel gradients (``grad``: ``pixel_loss``,
 ``pixel_grad``); the persistent wavefront and progressive rendering;
 clustered scenes (meshes from OBJ and glTF files, ``cover-large``) through
-the clustered megakernel and the clustered wavefront; and the live
-Hosek-Wilkie sky (``SkyParams.hosek``).
+the clustered megakernel and the clustered wavefront; the live
+Hosek-Wilkie sky (``SkyParams.hosek``); the click probe (``debug``), the
+terminal and HTTP previews (``term_preview``, ``viewer``) and the CLI's
+``--probe``, ``--serve`` and ``--term-preview``; and sharding over
+``torch.distributed`` (``parallel``, ``graft_entry``).  With them the port
+does everything the JAX package does.
 """
 
 from rt_tpu_torch.config import RenderConfig, CompatConfig, ProgressiveSchedule

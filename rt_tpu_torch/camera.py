@@ -47,6 +47,13 @@ class Camera:
     def defocus_on(self) -> bool:
         return self.defocus_angle > 0.0
 
+    def debug_ray(self, x: float, y: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """Center-of-pixel ray with no jitter or defocus (camera.rs:256-260;
+        rt_tpu/camera.py:108-112), for the click-to-inspect probe: (origin
+        f32[3], direction f32[3]) on the CPU."""
+        pixel_sample = self.pixel00_loc + self.pixel_du * x + self.pixel_dv * y
+        return self.center, pixel_sample - self.center
+
 
 def make_camera(
     center,
@@ -165,6 +172,7 @@ def generate_rays_keyed(
     sample_index: torch.Tensor,
     key: np.ndarray,
     compat: CompatConfig = CompatConfig(),
+    work: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's ``Camera.generate_rays`` (rt_tpu/camera.py:50-106),
     the camera of ``render.render_chunk``: rays for pixel coordinates and
@@ -172,15 +180,16 @@ def generate_rays_keyed(
     when on, is keyed on the key's hash seed and the flat pixel id; the
     thin-lens disc, when the camera defocuses, is ``jax.random``'s draw
     under fold_in(key, 0xD15C) (sampling.random_in_unit_disc), as
-    rt_tpu/camera.py:97-104 draws it.  Returns (origins f32[N,3],
-    directions f32[N,3]).
+    rt_tpu/camera.py:97-104 draws it; ``work`` (int64[N]) gives the rays'
+    rows in a larger batch, whose disc draws they take (None: rows
+    0..N-1).  Returns (origins f32[N,3], directions f32[N,3]).
     """
     pix = pixel_y.to(torch.int64) * camera.image_width + pixel_x.to(torch.int64)
     device = pix.device
     pixel_sample = _pixel_sample(camera, pix, sample_index.to(torch.int64), rng.key_seed(key), compat)
     center = camera.center.to(device)[None, :]
     if camera.defocus_on:
-        disk = sampling.random_in_unit_disc(rng.fold_in(key, 0xD15C), pix.shape[0], device)
+        disk = sampling.random_in_unit_disc(rng.fold_in(key, 0xD15C), pix.shape[0], device, work)
         origin = (center + disk[:, 0:1] * camera.defocus_disk_u.to(device)[None, :]
                   + disk[:, 1:2] * camera.defocus_disk_v.to(device)[None, :])
     else:

@@ -8,6 +8,8 @@ Examples:
     python -m rt_tpu_torch.cli --scene gltf:model.glb --camera widecam --spp 8 --out g.png
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --progressive --passes 4 \
         --checkpoint cover.npz --out cover.png
+    python -m rt_tpu_torch.cli --scene cover --progressive --serve 8000 --term-preview
+    python -m rt_tpu_torch.cli --scene cover --probe 200,150
 """
 
 from __future__ import annotations
@@ -15,9 +17,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-# Front ends of the JAX package that are not ported yet.
-_NOT_PORTED = ("--serve", "--probe", "--term-preview")
 
 
 def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
@@ -59,11 +58,6 @@ def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    for flag in _NOT_PORTED:
-        if any(a == flag or a.startswith(flag + "=") for a in argv):
-            raise SystemExit(f"{flag}: not yet ported")
-
     parser = argparse.ArgumentParser(prog="rt_tpu_torch", description=__doc__)
     parser.add_argument("--scene", default="cover",
                         help="cover | cover-large | earth | checkered | textured | triangles | "
@@ -88,6 +82,13 @@ def main(argv=None) -> int:
     parser.add_argument("--checkpoint-every", type=int, default=1,
                         help="sweeps between checkpoint writes")
     parser.add_argument("--metrics", default=None, help="JSONL metrics path")
+    parser.add_argument("--serve", type=int, default=None,
+                        help="HTTP preview port (progressive mode; 0 binds a free port)")
+    parser.add_argument("--term-preview", action="store_true",
+                        help="live in-terminal preview (ANSI half-blocks; kitty graphics when "
+                        "TERM supports it)")
+    parser.add_argument("--probe", default=None, metavar="X,Y",
+                        help="print click-debug info for pixel X,Y and exit")
     args = parser.parse_args(argv)
 
     from rt_tpu_torch import scenes
@@ -104,6 +105,14 @@ def main(argv=None) -> int:
     scene = build_scene(args.scene, camera, args.seed, args.texture_dir)
     print(f"Rendering a scene with {scene.num_prims} shapes", file=sys.stderr)
 
+    if args.probe:
+        from rt_tpu_torch.debug import debug_pixel
+
+        x, y = (float(v) for v in args.probe.split(","))
+        info = debug_pixel(scene, camera, x, y, cfg, device=args.device)
+        print(json.dumps(info if info else {"miss": "hit the skybox"}, indent=2))
+        return 0
+
     if args.progressive:
         from rt_tpu_torch.progressive import ProgressiveRenderer
 
@@ -112,7 +121,33 @@ def main(argv=None) -> int:
             progress=True, engine=args.engine, checkpoint_every=args.checkpoint_every,
             device=args.device,
         )
-        image = renderer.run(max_passes=args.passes)
+        server = term = None
+        if args.serve is not None:
+            from rt_tpu_torch.debug import debug_pixel
+            from rt_tpu_torch.viewer import PreviewServer
+
+            server = PreviewServer(
+                args.serve,
+                probe=lambda x, y: debug_pixel(scene, camera, x, y, cfg, device=args.device),
+            ).start()
+            print(f"preview at http://localhost:{server.port}", file=sys.stderr)
+        if args.term_preview:
+            from rt_tpu_torch.term_preview import TerminalPreview
+
+            term = TerminalPreview()
+
+        def on_sweep(image, metrics):
+            if server is not None:
+                server.update(image, metrics)
+            if term is not None:
+                term.update(image, {k: metrics[k] for k in ("pass", "total_spp", "mray_per_s")
+                                    if k in metrics})
+
+        try:
+            image = renderer.run(max_passes=args.passes, on_sweep=on_sweep)
+        finally:
+            if server is not None:
+                server.stop()
     else:
         image, metrics = render_image(scene, camera, cfg, device=args.device)
         print(json.dumps(metrics), file=sys.stderr)

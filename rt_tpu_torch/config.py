@@ -7,10 +7,11 @@ dataclasses are shared by the library, CLI and tests.
 
 ``RenderConfig`` keeps every field of the JAX package so one configuration
 drives both.  Fields that only steered TPU mechanisms (``sort_rays``,
-``sort_every``, ``bin_lanes``, ``expand_sweep``, ``max_rays_per_batch``)
-are accepted and ignored here: the CUDA megakernel has no ray pool to sort,
-no lane rows to bin and no sweep to expand, and its image does not depend
-on them in the JAX package either.
+``sort_every``, ``bin_lanes``, ``expand_sweep``) are accepted and ignored
+here: the CUDA megakernel has no ray pool to sort, no lane rows to bin and
+no sweep to expand, and its image does not depend on them in the JAX
+package either.  ``max_rays_per_batch`` sizes the chunked route's calls,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ class RenderConfig:
     # most max_depth + 1 times; Russian roulette retires nearly all paths
     # long before that.
     max_depth: int = 100
-    # Bounce count for the differentiable path (not ported yet).
+    # Bounce count of the differentiable path (integrator.trace_radiance_diff
+    # runs exactly diff_max_depth + 1 bounces).
     diff_max_depth: int = 8
     t_min: float = DEFAULT_T_MIN
     t_max: float = DEFAULT_T_MAX
@@ -80,10 +82,12 @@ class RenderConfig:
     origin_offset: float = 1.0e-4
     # Base RNG seed: the 32-bit seed of the counter hash (rng.py).
     seed: int = 0
-    # Accepted, no effect: bounded the JAX wavefront's HBM residency.
+    # Rays per render_chunk call of the chunked route
+    # (render_pixel_colors(wavefront=False)); the wavefront ignores it.
     max_rays_per_batch: int = 1 << 20
-    # Detach discrete sampling decisions in the backward pass (not ported
-    # yet).
+    # Detach the Russian roulette's survival probability in the backward
+    # pass of the generic bounce (integrator._bounce_step); False lets
+    # gradients flow through its 1/p, as the fast-shade bounce always does.
     detach_sampling: bool = True
     # Accepted, no effect: sorted the JAX wavefront's ray pool.
     sort_rays: bool = False

@@ -26,6 +26,11 @@ Each has two branches, chosen as the JAX package chooses them (:105,
   draws under fold_in(key, d), the scatter under its purposes 1-3 and the
   Russian roulette under 0x52.
 
+Both integrators take ``work``, int64[N]: the rays' rows in a larger batch
+(a shard's rows in the whole mesh's batch, parallel.py).  It replaces the
+lane id ``arange(N)`` of the hash and the threefry counters ``0..N-1``, so
+each row draws what it draws in that batch; None changes nothing.
+
 Both branches drive one bounce step from both integrators, so the two
 agree at equal depth.  Discrete events (hit ids, RR survival, reflect vs
 refract) are decided with detached quantities; the continuous factors
@@ -52,12 +57,14 @@ def _generic(scene) -> bool:
 
 
 def _bounce_step(scene, cfg, state, bounce_key, depth: int, impl: str = "auto", *,
-                 sphere_nearest=nearest_ops.sphere_nearest, bvh_walk=traverse.bvh_walk):
+                 sphere_nearest=nearest_ops.sphere_nearest, bvh_walk=traverse.bvh_walk,
+                 work=None):
     """One generic bounce (rt_tpu/integrator.py:43-88): intersect, add the
     sky on a miss and the emission on an emissive hit, then scatter and
     Russian roulette on a hit.  ``state`` is (origins f32[N,3], directions
     f32[N,3], throughput f32[N,3], radiance f32[N,3], alive bool[N]);
-    ``bounce_key`` the bounce's rng key."""
+    ``bounce_key`` the bounce's rng key; ``work`` the rows' ids (module
+    docstring)."""
     org, dirn, throughput, radiance, alive = state
     compat = cfg.compat
     rec = nearest_hit(scene, org, dirn, cfg.t_min, cfg.t_max, compat, impl=impl,
@@ -74,11 +81,11 @@ def _bounce_step(scene, cfg, state, bounce_key, depth: int, impl: str = "auto", 
     emit_hit = alive & rec.hit & is_emissive
     radiance = radiance + torch.where(emit_hit[:, None], throughput * emit_rgb, 0.0)
 
-    attenuation, new_dir = materials.scatter(scene, rec, dirn, bounce_key)
+    attenuation, new_dir = materials.scatter(scene, rec, dirn, bounce_key, work)
     p = clip(attenuation.amax(dim=-1), 0.0, compat.rr_clamp)
     if cfg.detach_sampling:
         p = p.detach()
-    u = rng.random_uniform(rng.fold_in(bounce_key, 0x52), p.shape, device=p.device)
+    u = rng.random_uniform(rng.fold_in(bounce_key, 0x52), p.shape, device=p.device, counters=work)
     cont = alive & rec.hit & (u < p) & ~is_emissive
     if depth >= cfg.max_depth:  # camera.rs:300
         cont = torch.zeros_like(cont)
@@ -94,7 +101,8 @@ def _bounce_step(scene, cfg, state, bounce_key, depth: int, impl: str = "auto", 
     return org, dirn, throughput, radiance, cont
 
 
-def _generic_trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest, bvh_walk):
+def _generic_trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest, bvh_walk,
+                         work):
     """(step, initial state, radiance of a state) of the generic branch:
     the state is (origins f32[N,3], directions f32[N,3], throughput
     f32[N,3], radiance f32[N,3], alive bool[N]); bounce ``depth`` draws
@@ -106,12 +114,12 @@ def _generic_trace_setup(scene, origins, directions, key, cfg, impl, sphere_near
     def step(state, depth: int, max_depth: int):
         step_cfg = cfg if max_depth == cfg.max_depth else cfg.replace(max_depth=max_depth)
         return _bounce_step(scene, step_cfg, state, rng.fold_in(key, depth), depth, impl,
-                            sphere_nearest=sphere_nearest, bvh_walk=bvh_walk)
+                            sphere_nearest=sphere_nearest, bvh_walk=bvh_walk, work=work)
 
     return step, init, lambda state: state[3]
 
 
-def _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest):
+def _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest, work):
     """(step, initial state, radiance of a state) of the fast-shade branch:
     the state is (rays f32[8,N], throughput rows f32[3,N], radiance rows
     f32[3,N], alive bool[N])."""
@@ -119,7 +127,8 @@ def _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest):
     device = origins.device
     table = fast_shade.build_shade_table_diff(scene)
     seed = rng.key_seed(key)
-    work = torch.arange(n, device=device)
+    if work is None:
+        work = torch.arange(n, device=device)
     z = torch.zeros((n,), device=device)
     rays0 = torch.stack([*origins.T, *directions.T, z, z], dim=0)
     init = (
@@ -149,27 +158,28 @@ def _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest):
     return step, init, lambda state: state[2].T
 
 
-def _trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest, bvh_walk):
+def _trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest, bvh_walk, work):
     """(step, initial state, radiance of a state) of the branch the JAX
     package takes for ``scene`` (rt_tpu/integrator.py:105, :160), shared by
     both integrators: ``step(state, depth, max_depth)`` runs bounce
     ``depth``, and the state's last entry is the alive mask."""
     if _generic(scene):
         return _generic_trace_setup(scene, origins, directions, key, cfg, impl, sphere_nearest,
-                                    bvh_walk)
-    return _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest)
+                                    bvh_walk, work)
+    return _fast_trace_setup(scene, origins, directions, key, cfg, sphere_nearest, work)
 
 
 def trace_radiance(scene, origins, directions, key, cfg,
                    sphere_nearest=nearest_ops.sphere_nearest, *,
-                   bvh_walk=traverse.bvh_walk) -> torch.Tensor:
+                   bvh_walk=traverse.bvh_walk, work=None) -> torch.Tensor:
     """Forward radiance f32[N,3] of rays (origins, directions f32[N,3])
     under ``key`` (rng.key).  Not differentiable, as JAX's while loop is
     not: it runs without gradients.  ``sphere_nearest`` (K2) and
-    ``bvh_walk`` choose the kernels or their plain versions (geometry)."""
+    ``bvh_walk`` choose the kernels or their plain versions (geometry);
+    ``work`` gives the rays' rows (module docstring)."""
     with torch.no_grad():
         step, state, radiance = _trace_setup(scene, origins, directions, key, cfg, "auto",
-                                             sphere_nearest, bvh_walk)
+                                             sphere_nearest, bvh_walk, work)
         depth = 0
         while depth <= cfg.max_depth and bool(state[-1].any()):
             state = step(state, depth, cfg.max_depth)
@@ -179,13 +189,13 @@ def trace_radiance(scene, origins, directions, key, cfg,
 
 def trace_radiance_diff(scene, origins, directions, key, cfg,
                         sphere_nearest=nearest_ops.sphere_nearest, *,
-                        bvh_walk=traverse.bvh_walk) -> torch.Tensor:
+                        bvh_walk=traverse.bvh_walk, work=None) -> torch.Tensor:
     """Differentiable radiance f32[N,3]: ``cfg.diff_max_depth + 1``
-    checkpointed bounces."""
+    checkpointed bounces; ``work`` as in ``trace_radiance``."""
     # "detached": the winner search under no_grad on the generic branch,
     # as rt_tpu/integrator.py:180 asks for it.
     step, state, radiance = _trace_setup(scene, origins, directions, key, cfg, "detached",
-                                         sphere_nearest, bvh_walk)
+                                         sphere_nearest, bvh_walk, work)
     for depth in range(cfg.diff_max_depth + 1):
         state = checkpoint(step, state, depth, cfg.diff_max_depth,
                            use_reentrant=False, preserve_rng_state=False)

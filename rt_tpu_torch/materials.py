@@ -80,16 +80,17 @@ def scatter_hashed(scene, rec, dir_in: torch.Tensor, seed: int, work, depth):
     return scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise)
 
 
-def scatter(scene, rec, dir_in: torch.Tensor, key):
+def scatter(scene, rec, dir_in: torch.Tensor, key, work=None):
     """Scatter with ``jax.random`` draws under the per-bounce key ``key``
     (rng.key data), as rt_tpu/materials.py:65-89 draws them: unit vectors
     under fold_in(key, 1) and fold_in(key, 2), the Fresnel noise under
-    fold_in(key, 3).  Returns (attenuation f32[N, 3], scattered direction
-    f32[N, 3])."""
+    fold_in(key, 3).  ``work`` (int64[N], the rows' ids in a larger batch)
+    gives each row the draws it gets in that batch; None means rows 0..N-1.
+    Returns (attenuation f32[N, 3], scattered direction f32[N, 3])."""
     n, device = dir_in.shape[0], dir_in.device
-    u_lam = sampling.random_unit(rng.fold_in(key, 1), n, device)
-    u_fuzz = sampling.random_unit(rng.fold_in(key, 2), n, device)
-    noise = rng.random_uniform(rng.fold_in(key, 3), (n,), device=device)
+    u_lam = sampling.random_unit(rng.fold_in(key, 1), n, device, work)
+    u_fuzz = sampling.random_unit(rng.fold_in(key, 2), n, device, work)
+    noise = rng.random_uniform(rng.fold_in(key, 3), (n,), device=device, counters=work)
     return scatter_with_randoms(scene, rec, dir_in, u_lam, u_fuzz, noise)
 
 

@@ -67,23 +67,26 @@ def render_chunk(
     *,
     sphere_nearest=nearest_ops.sphere_nearest,
     bvh_walk=traverse.bvh_walk,
+    work: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Mean radiance f32[P,3] of ``spp`` samples for flat pixel ids
     ``pixel_idx`` int[P] (y * W + x) on the scene's device, samples
     [sample_offset, sample_offset + spp) (rt_tpu/render.py:29-63).  ``key``
     is an rng.key: the camera folds in 0xCA0 and the paths 0x7ACE, as in
     JAX.  ``sphere_nearest`` is K2 and ``bvh_walk`` the BVH walk (see
-    geometry)."""
+    geometry).  ``work`` (int64[P * spp], pixel-major) gives the rays'
+    rows in a larger batch, whose draws they take (integrator); None means
+    rows 0..P*spp-1."""
     p = pixel_idx.shape[0]
     device = pixel_idx.device
     pix = pixel_idx.to(torch.int64).repeat_interleave(spp)
     sample = torch.arange(spp, device=device).repeat(p) + sample_offset
     width = camera.image_width
     org, dirn = generate_rays_keyed(camera, pix % width, pix // width, sample,
-                                    rng.fold_in(key, 0xCA0), cfg.compat)
+                                    rng.fold_in(key, 0xCA0), cfg.compat, work)
     trace = trace_radiance_diff if differentiable else trace_radiance
     radiance = trace(scene, org, dirn, rng.fold_in(key, 0x7ACE), cfg, sphere_nearest,
-                     bvh_walk=bvh_walk)
+                     bvh_walk=bvh_walk, work=work)
     return radiance.reshape(p, spp, 3).mean(dim=1)
 
 

@@ -84,21 +84,29 @@ def split(k: np.ndarray, n: int = 2) -> list[np.ndarray]:
     return [np.array(_threefry2x32(int(k[0]), int(k[1]), 0, j), np.uint32) for j in range(n)]
 
 
-def random_bits(k: np.ndarray, n: int, device=None) -> torch.Tensor:
+def random_bits(k: np.ndarray, n: int, device=None, counters=None) -> torch.Tensor:
     """``jax.random.bits(k, (n,), uint32)`` as int64 u32 patterns: x0 ^ x1
-    of threefry of the counters (0, i), i < n."""
-    x1 = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = _threefry2x32(int(k[0]), int(k[1]), torch.zeros_like(x1), x1)
+    of threefry of the counters (0, i), i < n.  ``counters`` (int64[n],
+    on ``device``) replaces ``arange(n)``: the draws a batch's rows get as
+    rows ``counters`` of a larger batch (the high word of a counter goes to
+    x0, as JAX splits its 64-bit iota)."""
+    if counters is None:
+        x1 = torch.arange(n, dtype=torch.int64, device=device)
+        x0 = torch.zeros_like(x1)
+    else:
+        x0, x1 = (counters >> 32) & _MASK, counters & _MASK
+    x0, x1 = _threefry2x32(int(k[0]), int(k[1]), x0, x1)
     return x0 ^ x1
 
 
 def random_uniform(k: np.ndarray, shape, lo: float = 0.0, hi: float = 1.0,
-                   device=None) -> torch.Tensor:
+                   device=None, counters=None) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32, lo, hi)``: the top 23 bits as
     a mantissa in [1, 2), minus 1, scaled by f32(hi) - f32(lo), shifted by
-    lo, and floored at lo (row-major draws)."""
+    lo, and floored at lo (row-major draws; ``counters`` as in
+    ``random_bits``, one a value, row-major)."""
     shape = tuple(shape)
-    bits = random_bits(k, math.prod(shape), device)
+    bits = random_bits(k, math.prod(shape), device, counters)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo32, span = np.float32(lo), np.float32(hi) - np.float32(lo)
     out = torch.clamp(f * float(span) + float(lo32), min=float(lo32))

@@ -63,21 +63,26 @@ def halton_pair(sample_index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     return radical_inverse_base2(pos), radical_inverse(3, pos)
 
 
-def random_unit(key: np.ndarray, n: int, device=None) -> torch.Tensor:
+def random_unit(key: np.ndarray, n: int, device=None, work=None) -> torch.Tensor:
     """normalize(uniform([-1, 1]^3)) f32[n, 3]: the reference's slightly
     non-uniform sphere distribution (vec3.rs:118-120), the norm floored at
-    1e-12."""
-    v = rng.random_uniform(key, (n, 3), -1.0, 1.0, device)
+    1e-12.  ``work`` (int64[n]) gives the rows' ids in a larger batch:
+    draw (i, j) takes the counter ``work[i] * 3 + j``."""
+    counters = None
+    if work is not None:
+        counters = (work[:, None] * 3 + torch.arange(3, device=work.device)).reshape(-1)
+    v = rng.random_uniform(key, (n, 3), -1.0, 1.0, device, counters)
     p = v * v
     norm = torch.sqrt(p[:, 0:1] + p[:, 1:2] + p[:, 2:3])
     return v / torch.clamp(norm, min=1.0e-12)
 
 
-def random_in_unit_disc(key: np.ndarray, n: int, device=None) -> torch.Tensor:
+def random_in_unit_disc(key: np.ndarray, n: int, device=None, work=None) -> torch.Tensor:
     """Uniform points f32[n, 3] in the unit x-y disc, z = 0, by the polar
     transform r = sqrt(u) (vec3.rs:124-135's distribution), with r and the
-    angle drawn under the two halves of ``rng.split(key)``."""
+    angle drawn under the two halves of ``rng.split(key)``; ``work``
+    (int64[n]) as in ``random_unit``."""
     ku, kt = rng.split(key)
-    r = torch.sqrt(rng.random_uniform(ku, (n,), device=device))
-    theta = rng.random_uniform(kt, (n,), 0.0, 2.0 * math.pi, device)
+    r = torch.sqrt(rng.random_uniform(ku, (n,), device=device, counters=work))
+    theta = rng.random_uniform(kt, (n,), 0.0, 2.0 * math.pi, device, work)
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta), torch.zeros_like(r)], dim=-1)

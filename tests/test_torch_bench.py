@@ -1,6 +1,6 @@
 """The port's bench scripts (bench_cuda.py, bench_grad_cuda.py,
-bench_scenes_cuda.py) on the CPU at tiny sizes, and the fixtures they
-render.
+bench_scenes_cuda.py, cluster_bench_cuda.py, bench_scaling_cuda.py) on the
+CPU at tiny sizes, and the fixtures they render.
 
 - Each script's ``main`` on ``device="cpu"`` prints the JAX script's
   metric names (bench.py, bench_grad.py, bench_scenes.py) with finite
@@ -16,12 +16,13 @@ render.
 - The OBJ fixtures are byte-equal to tools/gen_fixtures.py's, and the glb
   fixture differs from its PNG bytes only.
 
-Serial CPU time of this file: about 25 s.
+Serial CPU time of this file: about 30 s.
 """
 
 import base64
 import filecmp
 import json
+import re
 import struct
 
 import jax
@@ -32,7 +33,9 @@ import torch
 
 import bench_cuda
 import bench_grad_cuda
+import bench_scaling_cuda
 import bench_scenes_cuda
+import cluster_bench_cuda
 from rt_tpu import scenes as jscenes
 from rt_tpu.config import RenderConfig as JConfig
 from rt_tpu.megakernel import render_megakernel as j_render_megakernel
@@ -94,6 +97,36 @@ def test_bench_scenes_main_on_cpu(tmp_path, capsys):
     assert all(r["unit"] == "Mray/s" and np.isfinite(r["value"]) and r["value"] >= 0
                and r["wall_s"] >= 0 and r["device"] == "cpu" for r in recs)
     assert recs[-1]["resumed_mid_run"] is True
+
+
+def test_cluster_bench_main_on_cpu(tmp_path, capsys):
+    """cluster_bench_cuda.py's scenes on the CPU at 16x9 and 1 spp: the 40k
+    sphere cover (cluster tables, K5's plain version), the height field
+    and the blob: tools/cluster_bench.py's line and the set-up line for
+    each."""
+    small_fixtures(tmp_path / "fx")
+    for which in ("40k", "heightfield", "mesh"):
+        assert cluster_bench_cuda.main([which, "--device", "cpu", "--size", "16x9", "--spp", "1",
+                                        "--bin", "auto", "--fixtures", str(tmp_path / "fx")]) == 0
+    out = capsys.readouterr().out
+    lines = re.findall(r"^(.+): (\d+\.\d\d) Mray/s \((\d+\.\d\d) s, prims=(\d+)\)$", out, re.M)
+    assert [name for name, *_ in lines] == ["40k spheres", "100k-tri heightfield",
+                                            "100k-tri blob+light"]
+    assert int(lines[0][3]) == 39_963 and all(float(v) >= 0 for _, v, _, _ in lines)
+    setup = re.findall(r"^(.+): scene (\S+) s \(SceneBuilder.build (\S+) s\), (\S+) MB of "
+                       r"tables on cpu \((\d+) cluster rows", out, re.M)
+    assert [name for name, *_ in setup] == [name for name, *_ in lines]
+    assert all(0 <= float(b) <= float(t) and float(mb) > 0 for _, t, b, mb, _ in setup)
+
+
+def test_bench_scaling_main_on_cpu(capsys):
+    """bench_scaling_cuda.py in one process (a gloo group of one): the
+    1-device row of bench_scaling.py."""
+    assert bench_scaling_cuda.main(["--device", "cpu", "--size", "16x9", "--spp", "1"]) == 0
+    (rec,) = json_lines(capsys.readouterr().out)
+    assert rec["devices"] == 1 and rec["scaling_vs_1dev"] is None
+    assert rec["speedup_vs_1dev"] is None
+    assert rec["mray_per_s"] >= 0 and rec["wall_s"] > 0
 
 
 def test_bench_route_cover_crop_matches_jax():

@@ -80,7 +80,9 @@ def test_render_image_on_cpu():
     )
 
 
-def test_cli_writes_png(tmp_path):
+def test_cli_writes_png(tmp_path, capsys, monkeypatch):
+    import json
+
     from PIL import Image
 
     from rt_tpu_torch import cli
@@ -89,9 +91,21 @@ def test_cli_writes_png(tmp_path):
     assert cli.main(["--scene", "cover", "--size", "32x18", "--spp", "1", "--max-depth", "8",
                      "--device", "cpu", "--out", str(out)]) == 0
     assert Image.open(out).size == (32, 18)
-    for argv in (["--term-preview"], ["--serve", "8000"], ["--probe", "1,1"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            cli.main(argv + ["--device", "cpu", "--out", str(tmp_path / "x.png")])
+    # The front ends run: the probe prints its dict, and a progressive pass
+    # feeds the terminal preview and the HTTP viewer (tests/test_torch_front_ends.py
+    # holds them against the JAX package).
+    capsys.readouterr()
+    assert cli.main(["--scene", "cover", "--size", "32x18", "--probe", "16,12",
+                     "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["material"] == "Lambertian"
+    monkeypatch.setenv("TERM", "xterm-256color")  # the ANSI terminal preview
+    prog = tmp_path / "prog.png"
+    assert cli.main(["--scene", "cover", "--size", "32x18", "--max-depth", "8", "--progressive",
+                     "--passes", "1", "--term-preview", "--serve", "0", "--device", "cpu",
+                     "--out", str(prog)]) == 0
+    captured = capsys.readouterr()
+    assert "\x1b[38;2;" in captured.out and "preview at http://localhost:" in captured.err
+    assert Image.open(prog).size == (32, 18)
 
 
 def test_import_loads_no_jax():
@@ -105,7 +119,10 @@ def test_import_loads_no_jax():
         "import rt_tpu_torch.bvh.builder, rt_tpu_torch.bvh.native, rt_tpu_torch.bvh.traverse\n"
         "import rt_tpu_torch.micro_probe, rt_tpu_torch.grad, rt_tpu_torch.sampling\n"
         "import rt_tpu_torch.io.gltf_loader, rt_tpu_torch.io.png_io, rt_tpu_torch.fixtures\n"
-        "import bench_cuda, bench_grad_cuda, bench_scenes_cuda\n"
+        "import rt_tpu_torch.debug, rt_tpu_torch.viewer, rt_tpu_torch.term_preview\n"
+        "import rt_tpu_torch.parallel, rt_tpu_torch.graft_entry\n"
+        "import bench_cuda, bench_grad_cuda, bench_scenes_cuda, cluster_bench_cuda\n"
+        "import bench_scaling_cuda\n"
         "from rt_tpu_torch.bvh import native\n"
         "assert native.available(), 'the port builds its own BVH library'\n"
         "bad = sorted(m for m in sys.modules\n"
