@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from rt_tpu_torch import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "rt_tpu_torch"
 NVCC_FLAGS = (
@@ -92,7 +94,8 @@ def library() -> ctypes.CDLL:
     points' argument types declared."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        with profiling.span("kernels.build"):
+            lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         i64, f32 = ctypes.c_longlong, ctypes.c_float
         fn = lib.rt_megakernel_flat

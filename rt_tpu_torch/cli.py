@@ -10,6 +10,7 @@ Examples:
         --checkpoint cover.npz --out cover.png
     python -m rt_tpu_torch.cli --scene cover --progressive --serve 8000 --term-preview
     python -m rt_tpu_torch.cli --scene cover --probe 200,150
+    python -m rt_tpu_torch.cli --scene cover --size 400x225 --spp 8 --trace t.json --out t.png
 """
 
 from __future__ import annotations
@@ -89,8 +90,21 @@ def main(argv=None) -> int:
                         "TERM supports it)")
     parser.add_argument("--probe", default=None, metavar="X,Y",
                         help="print click-debug info for pixel X,Y and exit")
+    parser.add_argument("--trace", default=None, metavar="PATH",
+                        help="write a torch.profiler Chrome trace of the set-up and the render, "
+                        "with the package's rt.* spans, to PATH")
     args = parser.parse_args(argv)
+    if not args.trace:
+        return _run(args)
+    from rt_tpu_torch.profiling import device_trace
 
+    with device_trace(args.trace):
+        rc = _run(args)
+    print(f"wrote {args.trace}", file=sys.stderr)
+    return rc
+
+
+def _run(args) -> int:
     from rt_tpu_torch import scenes
     from rt_tpu_torch.config import RenderConfig
     from rt_tpu_torch.io import write_png, write_ppm

@@ -31,6 +31,7 @@ import struct
 
 import numpy as np
 
+from rt_tpu_torch import profiling
 from rt_tpu_torch.io.png_io import load_image
 
 _COMPONENT_DTYPES = {
@@ -182,15 +183,16 @@ def add_gltf_to_scene(
     triangle count (reference analog: the load_gltf -> Vec<Triangle> ->
     shapes.push loop, hittable.rs:556-633 + scenes.rs:429-438)."""
     count = 0
-    for prim in load_gltf(path, apply_node_transforms):
-        mat = material_from_gltf(builder, prim, compat_all_metal)
-        verts = prim["vertices"]
-        if transform is not None:
-            t = np.asarray(transform, np.float32)
-            flat = verts.reshape(-1, 3) @ t[:3, :3].T
-            verts = flat.reshape(-1, 3, 3)
-        builder.add_triangles(verts, prim["uvs"], mat)
-        count += len(verts)
+    with profiling.span("gltf.load"):
+        for prim in load_gltf(path, apply_node_transforms):
+            mat = material_from_gltf(builder, prim, compat_all_metal)
+            verts = prim["vertices"]
+            if transform is not None:
+                t = np.asarray(transform, np.float32)
+                flat = verts.reshape(-1, 3) @ t[:3, :3].T
+                verts = flat.reshape(-1, 3, 3)
+            builder.add_triangles(verts, prim["uvs"], mat)
+            count += len(verts)
     return count
 
 

@@ -35,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from rt_tpu_torch import _build, cluster_ops, color, fast_shade, prim_ops, rng
+from rt_tpu_torch import _build, cluster_ops, color, fast_shade, prim_ops, profiling, rng
 from rt_tpu_torch.camera import Camera, generate_rays
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.elementwise import div
@@ -209,27 +209,28 @@ def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) 
     scratch and the claim counters, and launches each chunk on the current
     stream (one count of LAUNCHES for the call).  Raises on any failure."""
     global LAUNCHES
-    n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
-    device = scene.device
-    sph = _build.require(scene.sph_packed, "sph_packed", device)
-    tri = _build.require(scene.tri_packed, "tri_packed", device)
-    atlas = _build.require(scene.atlas, "atlas", device)
-    if sph.shape[1] != 4 or tri.shape[1] != 12 or atlas.dim() != 3 or atlas.shape[2] != 3:
-        raise ValueError("scene tables are not in the kernel layout")
-    if sph.shape[0] < scene.num_spheres or tri.shape[0] < scene.num_triangles:
-        raise ValueError("scene tables are shorter than the primitive counts")
-    # The kernel reads one primitive's 40 parameters as one row.
-    table = _build.require(scene.shade_table.t().contiguous(), "shade_table", device)
-    if table.shape[0] < scene.num_prims or table.shape[1] != fast_shade.F_ROWS:
-        raise ValueError(f"shade_table: need [>= {scene.num_prims}, {fast_shade.F_ROWS}]")
-    pf = kernel_params(scene, camera, cfg, spp)
-    out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
-    lib = _build.library()
-    chunks = chunk_schedule(n_pixels, spp)
-    flags = _flags(scene, camera, cfg)
-    with torch.cuda.device(device):
+    with profiling.span("megakernel.prepare"):
+        n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
+        device = scene.device
+        sph = _build.require(scene.sph_packed, "sph_packed", device)
+        tri = _build.require(scene.tri_packed, "tri_packed", device)
+        atlas = _build.require(scene.atlas, "atlas", device)
+        if sph.shape[1] != 4 or tri.shape[1] != 12 or atlas.dim() != 3 or atlas.shape[2] != 3:
+            raise ValueError("scene tables are not in the kernel layout")
+        if sph.shape[0] < scene.num_spheres or tri.shape[0] < scene.num_triangles:
+            raise ValueError("scene tables are shorter than the primitive counts")
+        # The kernel reads one primitive's 40 parameters as one row.
+        table = _build.require(scene.shade_table.t().contiguous(), "shade_table", device)
+        if table.shape[0] < scene.num_prims or table.shape[1] != fast_shade.F_ROWS:
+            raise ValueError(f"shade_table: need [>= {scene.num_prims}, {fast_shade.F_ROWS}]")
+        pf = kernel_params(scene, camera, cfg, spp)
+        out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
+        lib = _build.library()
+        chunks = chunk_schedule(n_pixels, spp)
+        flags = _flags(scene, camera, cfg)
         scratch = torch.empty((chunks[0][1], n_pixels, 3), dtype=torch.float32, device=device)
         next_item = torch.zeros((len(chunks),), dtype=torch.int32, device=device)
+    with profiling.span("megakernel.launch"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for j, (first, count) in enumerate(chunks):
             err = lib.rt_megakernel_flat(
@@ -251,33 +252,35 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base,
     pixel-claim counter and launches on the current stream.  Raises on any
     failure."""
     global LAUNCHES_CLUSTERED
-    n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
-    device = scene.device
-    cl = scene.clusters
-    atlas = _build.require(scene.atlas, "atlas", device)
-    tables = cluster_ops.cluster_tables(cl)
-    cluster_ops.check_tables("megakernel_clustered", tables)
-    if atlas.dim() != 3 or atlas.shape[2] != 3:
-        raise ValueError("atlas is not in the kernel layout")
-    # The kernel reads one slot's 40 parameters as one row.
-    table = _build.require(cl.shade_table.t().contiguous(), "clusters.shade_table", device)
-    n_slots = cl.n_sph_slots + cl.tri_slots.shape[1]
-    if table.shape[0] < n_slots or table.shape[1] != fast_shade.F_ROWS:
-        raise ValueError(f"clusters.shade_table: need [{fast_shade.F_ROWS}, >= {n_slots}]")
-    if cl.n_sph_slots != cl.sph_slots.shape[1]:
-        raise ValueError("clusters.n_sph_slots differs from the sphere slot count")
-    s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots = (
-        cluster_ops.cluster_args(tables, device, "megakernel_clustered"))
-    pf = kernel_params(scene, camera, cfg, spp)
-    out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
-    next_pixel = torch.zeros((1,), dtype=torch.int32, device=device)
-    lib = _build.library()
-    with torch.cuda.device(device):
+    with profiling.span("megakernel.prepare"):
+        n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
+        device = scene.device
+        cl = scene.clusters
+        atlas = _build.require(scene.atlas, "atlas", device)
+        tables = cluster_ops.cluster_tables(cl)
+        cluster_ops.check_tables("megakernel_clustered", tables)
+        if atlas.dim() != 3 or atlas.shape[2] != 3:
+            raise ValueError("atlas is not in the kernel layout")
+        # The kernel reads one slot's 40 parameters as one row.
+        table = _build.require(cl.shade_table.t().contiguous(), "clusters.shade_table", device)
+        n_slots = cl.n_sph_slots + cl.tri_slots.shape[1]
+        if table.shape[0] < n_slots or table.shape[1] != fast_shade.F_ROWS:
+            raise ValueError(f"clusters.shade_table: need [{fast_shade.F_ROWS}, >= {n_slots}]")
+        if cl.n_sph_slots != cl.sph_slots.shape[1]:
+            raise ValueError("clusters.n_sph_slots differs from the sphere slot count")
+        s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots = (
+            cluster_ops.cluster_args(tables, device, "megakernel_clustered"))
+        pf = kernel_params(scene, camera, cfg, spp)
+        out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
+        next_pixel = torch.zeros((1,), dtype=torch.int32, device=device)
+        lib = _build.library()
+        flags = _flags(scene, camera, cfg)
+    with profiling.span("megakernel.launch"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rt_megakernel_clustered(
             pf.ctypes.data, n_pixels, pixel_base, spp, sample_offset, seed & 0xFFFFFFFF,
             camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
-            atlas.shape[0], atlas.shape[1], _flags(scene, camera, cfg),
+            atlas.shape[0], atlas.shape[1], flags,
             s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots,
             cl.n_sph_slots, table.data_ptr(), atlas.data_ptr(), out.data_ptr(),
             next_pixel.data_ptr(), stream,

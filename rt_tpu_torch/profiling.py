@@ -4,7 +4,14 @@ Reference analog (SURVEY.md §5.1, §5.5): per-sweep and cumulative Mray/s
 prints (window.rs:315-324) and indicatif progress bars.  The Mray/s
 definition is the reference's: camera samples only, bounces not counted.
 ``device_trace`` records a ``torch.profiler`` trace (host and, where a card
-is present, device activity) and writes it as a Chrome trace.
+is present, device activity) and writes it as a Chrome trace; ``cli --trace``
+is its front end.
+
+``span`` marks the package's layer boundaries (a frame, a sweep, a
+launch's preparation, the fetch to the host, set-up steps) as
+``record_function`` ranges named ``rt.<layer>.<step>``, on the profiler's
+clock beside the card's kernels and copies.  A span records only while a
+profiler records; otherwise it costs one flag test and does nothing.
 """
 
 from __future__ import annotations
@@ -16,6 +23,22 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+SPAN_PREFIX = "rt."
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """A context manager: the range ``rt.<name>`` (``args``, if given, as
+    its string argument) while a ``torch.profiler`` profile records, and a
+    shared null context otherwise.  It adds no synchronization, device
+    operation or copy, so it changes no result."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name,
+                                          None if args is None else str(args))
 
 
 def mray_per_s(width: int, height: int, spp: int, seconds: float) -> float:
@@ -86,12 +109,14 @@ class ProgressBar:
 
 class ThroughputTimer:
     """Per-sweep and cumulative Mray/s, the reference's two printed figures
-    (window.rs:315-324)."""
+    (window.rs:315-324).  ``sweep_s`` is the last sweep's wall seconds,
+    from the same two clock readings as its Mray/s."""
 
     def __init__(self, width: int, height: int):
         self.width = width
         self.height = height
         self.total_rays = 0
+        self.sweep_s = 0.0
         self._start = time.perf_counter()
         self._sweep_start = self._start
 
@@ -102,6 +127,7 @@ class ThroughputTimer:
         now = time.perf_counter()
         rays = spp * self.width * self.height
         self.total_rays += rays
-        sweep = rays / 1.0e6 / max(now - self._sweep_start, 1e-12)
+        self.sweep_s = now - self._sweep_start
+        sweep = rays / 1.0e6 / max(self.sweep_s, 1e-12)
         cumulative = self.total_rays / 1.0e6 / max(now - self._start, 1e-12)
         return sweep, cumulative

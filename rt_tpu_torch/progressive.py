@@ -26,13 +26,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from rt_tpu_torch import megakernel, rng
+from rt_tpu_torch import megakernel, profiling, rng
 from rt_tpu_torch.camera import Camera
 from rt_tpu_torch.config import ProgressiveSchedule, RenderConfig
 from rt_tpu_torch.profiling import MetricsLog, ProgressBar, ThroughputTimer
@@ -107,52 +106,55 @@ class ProgressiveRenderer:
         ns = self.passes[i]
         w, h = self.camera.image_width, self.camera.image_height
 
-        self._timer.begin_sweep()
-        sweep_start = time.perf_counter()
-        # Reference quirk: jitter indices restart at 0 every pass
-        # (camera.rs:317-320); the draws differ through the pass key.
-        offset = 0 if self.reuse_sample_indices else self.state.total_spp
-        key = rng.fold_in(rng.key(self.cfg.seed), i)
-        if self.engine == "mega":
-            colors = megakernel.render_megakernel(self.scene, self.camera, self.cfg, ns, offset,
-                                                  rng.key_seed(key))
-        else:
-            colors = render_wavefront(self.scene, self.camera, self._pixel_idx, self.cfg, ns,
-                                      offset, key)
-        colors = colors.cpu().numpy().reshape(h, w, 3)  # waits for the device
-        sweep_s = time.perf_counter() - sweep_start
-        sweep_mray, cum_mray = self._timer.end_sweep(ns)
+        with profiling.span("progressive.step", i):
+            self._timer.begin_sweep()
+            # Reference quirk: jitter indices restart at 0 every pass
+            # (camera.rs:317-320); the draws differ through the pass key.
+            offset = 0 if self.reuse_sample_indices else self.state.total_spp
+            key = rng.fold_in(rng.key(self.cfg.seed), i)
+            with profiling.span("progressive.dispatch"):
+                if self.engine == "mega":
+                    colors = megakernel.render_megakernel(self.scene, self.camera, self.cfg, ns,
+                                                          offset, rng.key_seed(key))
+                else:
+                    colors = render_wavefront(self.scene, self.camera, self._pixel_idx, self.cfg,
+                                              ns, offset, key)
+            with profiling.span("progressive.fetch"):
+                colors = colors.cpu().numpy().reshape(h, w, 3)  # waits for the device
+            sweep_mray, cum_mray = self._timer.end_sweep(ns)
 
-        self.state.accum += colors * ns
-        self.state.total_spp += ns
-        self.state.pass_index += 1
+            with profiling.span("progressive.accumulate"):
+                self.state.accum += colors * ns
+                self.state.total_spp += ns
+                self.state.pass_index += 1
 
-        metrics = {
-            "sweep": i + 1,
-            "sweep_spp": ns,
-            "total_spp": self.state.total_spp,
-            "sweep_s": sweep_s,
-            "mray_per_s": sweep_mray,
-            "cumulative_mray_per_s": cum_mray,
-        }
-        # Reference-parity print (window.rs:264-269, 319-324).
-        print(
-            f"On sweep {i + 1} adding {ns} sample(s) for a total of "
-            f"{self.state.total_spp} sample(s) per pixel"
-        )
-        print(
-            f"Rendered sweep {i + 1} at {metrics['mray_per_s']:.1f} million "
-            f"rays/second, overall speed: {metrics['cumulative_mray_per_s']:.1f} Mray/s"
-        )
-        self._metrics.log(**metrics)
-        if self._bar is not None:
-            self._bar.update(self.state.pass_index,
-                             f"{self.state.total_spp} spp, {sweep_mray:.1f} Mray/s")
-        if self.checkpoint_path and (
-            self.state.pass_index % self.checkpoint_every == 0
-            or self.state.pass_index >= len(self.passes)
-        ):
-            self.save_checkpoint(self.checkpoint_path)
+            metrics = {
+                "sweep": i + 1,
+                "sweep_spp": ns,
+                "total_spp": self.state.total_spp,
+                "sweep_s": self._timer.sweep_s,
+                "mray_per_s": sweep_mray,
+                "cumulative_mray_per_s": cum_mray,
+            }
+            with profiling.span("progressive.report"):
+                # Reference-parity print (window.rs:264-269, 319-324).
+                print(
+                    f"On sweep {i + 1} adding {ns} sample(s) for a total of "
+                    f"{self.state.total_spp} sample(s) per pixel"
+                )
+                print(
+                    f"Rendered sweep {i + 1} at {metrics['mray_per_s']:.1f} million "
+                    f"rays/second, overall speed: {metrics['cumulative_mray_per_s']:.1f} Mray/s"
+                )
+                self._metrics.log(**metrics)
+                if self._bar is not None:
+                    self._bar.update(self.state.pass_index,
+                                     f"{self.state.total_spp} spp, {sweep_mray:.1f} Mray/s")
+            if self.checkpoint_path and (
+                self.state.pass_index % self.checkpoint_every == 0
+                or self.state.pass_index >= len(self.passes)
+            ):
+                self.save_checkpoint(self.checkpoint_path)
         return metrics
 
     def run(
@@ -180,14 +182,15 @@ class ProgressiveRenderer:
 
     def save_checkpoint(self, path: str) -> None:
         tmp = path + ".tmp"
-        np.savez(
-            tmp,
-            accum=self.state.accum,
-            total_spp=self.state.total_spp,
-            pass_index=self.state.pass_index,
-            seed=self.cfg.seed,
-        )
-        os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
+        with profiling.span("progressive.checkpoint"):
+            np.savez(
+                tmp,
+                accum=self.state.accum,
+                total_spp=self.state.total_spp,
+                pass_index=self.state.pass_index,
+                seed=self.cfg.seed,
+            )
+            os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
 
     def load_checkpoint(self, path: str) -> None:
         data = np.load(path)

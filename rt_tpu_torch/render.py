@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rt_tpu_torch import megakernel, nearest_ops, rng
+from rt_tpu_torch import megakernel, nearest_ops, profiling, rng
 from rt_tpu_torch import wavefront as wavefront_mod
 from rt_tpu_torch.bvh import traverse
 from rt_tpu_torch.camera import Camera, generate_rays_keyed
@@ -169,18 +169,22 @@ def render_image(
     (window.rs:315-324) and the device that ran the frame."""
     device = _device(device)
     spp = kw.get("spp") or cfg.samples_per_pixel
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    start = time.perf_counter()
-    img = render_pixel_colors(scene, camera, cfg, device=device, **kw)
-    img = img.cpu().numpy()  # waits for the device
-    elapsed = time.perf_counter() - start
-    rays = spp * camera.image_width * camera.image_height
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    metrics = {
-        "wall_s": elapsed,
-        "rays": rays,
-        "mray_per_s": rays / 1.0e6 / elapsed,
-        "device": name,
-    }
+    with profiling.span("render.frame", cfg.seed):
+        if device.type == "cuda":
+            with profiling.span("render.sync"):
+                torch.cuda.synchronize(device)
+        start = time.perf_counter()
+        with profiling.span("render.dispatch"):
+            img = render_pixel_colors(scene, camera, cfg, device=device, **kw)
+        with profiling.span("render.fetch"):
+            img = img.cpu().numpy()  # waits for the device
+        elapsed = time.perf_counter() - start
+        rays = spp * camera.image_width * camera.image_height
+        name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        metrics = {
+            "wall_s": elapsed,
+            "rays": rays,
+            "mray_per_s": rays / 1.0e6 / elapsed,
+            "device": name,
+        }
     return img, metrics

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rt_tpu_torch import profiling
 from rt_tpu_torch.sky import SkyParams
 
 # Material type tags (reference enum Material, material.rs:12-16).
@@ -169,6 +170,16 @@ class SceneData(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.sph_packed.device
+
+    def to(self, *args, **kwargs):
+        """``nn.Module.to``; a move of the tables to another device is the
+        span ``rt.scene.upload``."""
+        device = torch._C._nn._parse_to(*args, **kwargs)[0]
+        here = self.device
+        if device is None or (device.type == here.type and device.index in (None, here.index)):
+            return super().to(*args, **kwargs)
+        with profiling.span("scene.upload"):
+            return super().to(*args, **kwargs)
 
 
 class _Texture:
@@ -364,111 +375,117 @@ class SceneBuilder:
         hittable.rs:33-46), with cluster tables above 128 triangles or 2048
         primitives and a BVH above 256 triangles or 4096 primitives (or as
         ``use_bvh`` says), at the JAX package's thresholds."""
-        ns, nt = len(self._spheres), len(self._triangles)
-        sky = sky if sky is not None else SkyParams.default()
+        with profiling.span("scene.build"):
+            ns, nt = len(self._spheres), len(self._triangles)
+            sky = sky if sky is not None else SkyParams.default()
 
-        s = max(ns, 1)
-        sph_center = np.zeros((s, 3), np.float32)
-        sph_radius = np.zeros((s,), np.float32)  # r=0 spheres can never be hit
-        sph_front = np.tile(np.array([1.0, 0, 0], np.float32), (s, 1))
-        sph_mat = np.zeros((s,), np.int32)
-        for i, (c, r, f, m) in enumerate(self._spheres):
-            sph_center[i], sph_radius[i], sph_front[i], sph_mat[i] = c, r, f, m
+            s = max(ns, 1)
+            sph_center = np.zeros((s, 3), np.float32)
+            sph_radius = np.zeros((s,), np.float32)  # r=0 spheres can never be hit
+            sph_front = np.tile(np.array([1.0, 0, 0], np.float32), (s, 1))
+            sph_mat = np.zeros((s,), np.int32)
+            for i, (c, r, f, m) in enumerate(self._spheres):
+                sph_center[i], sph_radius[i], sph_front[i], sph_mat[i] = c, r, f, m
 
-        t = max(nt, 1)
-        tri_a = np.zeros((t, 3), np.float32)
-        tri_b = np.zeros((t, 3), np.float32)
-        tri_c = np.zeros((t, 3), np.float32)
-        tri_uv = np.zeros((t, 3, 2), np.float32)
-        tri_mat = np.zeros((t,), np.int32)
-        for i, (a, b, c, uv, m) in enumerate(self._triangles):
-            tri_a[i], tri_b[i], tri_c[i], tri_uv[i], tri_mat[i] = a, b, c, uv, m
-        # Flat normal precomputed like the reference: edges normalized
-        # *before* the cross product (hittable.rs:169-178).
-        e1 = _normalize_rows(tri_b - tri_a)
-        e2 = _normalize_rows(tri_c - tri_a)
-        tri_normal = _normalize_rows(np.cross(e1, e2))
+            t = max(nt, 1)
+            tri_a = np.zeros((t, 3), np.float32)
+            tri_b = np.zeros((t, 3), np.float32)
+            tri_c = np.zeros((t, 3), np.float32)
+            tri_uv = np.zeros((t, 3, 2), np.float32)
+            tri_mat = np.zeros((t,), np.int32)
+            for i, (a, b, c, uv, m) in enumerate(self._triangles):
+                tri_a[i], tri_b[i], tri_c[i], tri_uv[i], tri_mat[i] = a, b, c, uv, m
+            # Flat normal precomputed like the reference: edges normalized
+            # *before* the cross product (hittable.rs:169-178).
+            e1 = _normalize_rows(tri_b - tri_a)
+            e2 = _normalize_rows(tri_c - tri_a)
+            tri_normal = _normalize_rows(np.cross(e1, e2))
 
-        m = max(len(self._materials), 1)
-        mat_kind = np.zeros((m,), np.int32)
-        mat_tex = np.zeros((m,), np.int32)
-        mat_fuzz = np.zeros((m,), np.float32)
-        mat_ior = np.ones((m,), np.float32)
-        for i, mt in enumerate(self._materials):
-            mat_kind[i], mat_tex[i], mat_fuzz[i], mat_ior[i] = mt.kind, mt.texture, mt.fuzz, mt.ior
+            m = max(len(self._materials), 1)
+            mat_kind = np.zeros((m,), np.int32)
+            mat_tex = np.zeros((m,), np.int32)
+            mat_fuzz = np.zeros((m,), np.float32)
+            mat_ior = np.ones((m,), np.float32)
+            for i, mt in enumerate(self._materials):
+                mat_kind[i], mat_tex[i] = mt.kind, mt.texture
+                mat_fuzz[i], mat_ior[i] = mt.fuzz, mt.ior
 
-        x = max(len(self._textures), 1)
-        tex_kind = np.zeros((x,), np.int32)
-        tex_color = np.zeros((x, 3), np.float32)
-        tex_inv_scale = np.zeros((x,), np.float32)
-        tex_children = np.zeros((x, 2), np.int32)
-        tex_rect = np.zeros((x, 4), np.int32)
+            x = max(len(self._textures), 1)
+            tex_kind = np.zeros((x,), np.int32)
+            tex_color = np.zeros((x, 3), np.float32)
+            tex_inv_scale = np.zeros((x,), np.float32)
+            tex_children = np.zeros((x, 2), np.int32)
+            tex_rect = np.zeros((x, 4), np.int32)
 
-        atlas, rects = _pack_atlas(
-            [(i, tx.image) for i, tx in enumerate(self._textures) if tx.kind == TEX_IMAGE]
-        )
-        for i, tx in enumerate(self._textures):
-            tex_kind[i] = tx.kind
-            tex_color[i] = tx.color
-            tex_inv_scale[i] = tx.inv_scale
-            tex_children[i] = tx.children
-            if tx.kind == TEX_IMAGE:
-                tex_rect[i] = rects[i]
+            atlas, rects = _pack_atlas(
+                [(i, tx.image) for i, tx in enumerate(self._textures) if tx.kind == TEX_IMAGE]
+            )
+            for i, tx in enumerate(self._textures):
+                tex_kind[i] = tx.kind
+                tex_color[i] = tx.color
+                tex_inv_scale[i] = tx.inv_scale
+                tex_children[i] = tx.children
+                if tx.kind == TEX_IMAGE:
+                    tex_rect[i] = rects[i]
 
-        from rt_tpu_torch.fast_shade import build_shade_table
+            from rt_tpu_torch.fast_shade import build_shade_table
 
-        shade_np = build_shade_table(
-            sph_center, sph_radius, sph_front, sph_mat,
-            tri_a, tri_b, tri_c, tri_normal, tri_uv, tri_mat,
-            mat_kind, mat_tex, mat_fuzz, mat_ior,
-            tex_kind, tex_color, tex_inv_scale, tex_children, tex_rect,
-            ns, nt,
-        )
-        # Kernel-layout sphere table: center xyz, radius.
-        s_pad = -(-s // 128) * 128
-        sph_packed = np.zeros((s_pad, 4), np.float32)
-        sph_packed[:s, 0:3] = sph_center
-        sph_packed[:s, 3] = sph_radius
+            shade_np = build_shade_table(
+                sph_center, sph_radius, sph_front, sph_mat,
+                tri_a, tri_b, tri_c, tri_normal, tri_uv, tri_mat,
+                mat_kind, mat_tex, mat_fuzz, mat_ior,
+                tex_kind, tex_color, tex_inv_scale, tex_children, tex_rect,
+                ns, nt,
+            )
+            # Kernel-layout sphere table: center xyz, radius.
+            s_pad = -(-s // 128) * 128
+            sph_packed = np.zeros((s_pad, 4), np.float32)
+            sph_packed[:s, 0:3] = sph_center
+            sph_packed[:s, 3] = sph_radius
 
-        # Kernel-layout triangle table: a.xyz, e1.xyz, e2.xyz, valid, pad.
-        t_pad = -(-t // 64) * 64
-        tri_packed = np.zeros((t_pad, 12), np.float32)
-        tri_packed[:t, 0:3] = tri_a
-        tri_packed[:t, 3:6] = tri_b - tri_a
-        tri_packed[:t, 6:9] = tri_c - tri_a
-        tri_packed[:nt, 9] = 1.0  # real (non-dummy) rows
+            # Kernel-layout triangle table: a.xyz, e1.xyz, e2.xyz, valid, pad.
+            t_pad = -(-t // 64) * 64
+            tri_packed = np.zeros((t_pad, 12), np.float32)
+            tri_packed[:t, 0:3] = tri_a
+            tri_packed[:t, 3:6] = tri_b - tri_a
+            tri_packed[:t, 6:9] = tri_c - tri_a
+            tri_packed[:nt, 9] = 1.0  # real (non-dummy) rows
 
-        tables = dict(
-            sph_center=sph_center, sph_radius=sph_radius, sph_front_dir=sph_front,
-            sph_material=sph_mat, tri_a=tri_a, tri_b=tri_b, tri_c=tri_c,
-            tri_normal=tri_normal, tri_uv=tri_uv, tri_material=tri_mat,
-            mat_kind=mat_kind, mat_texture=mat_tex, mat_fuzz=mat_fuzz, mat_ior=mat_ior,
-            tex_kind=tex_kind, tex_color=tex_color, tex_inv_scale=tex_inv_scale,
-            tex_children=tex_children, tex_rect=tex_rect, atlas=atlas,
-            shade_table=shade_np, sph_packed=sph_packed, tri_packed=tri_packed,
-        )
-        # Cluster tables for mid-sized and large scenes, a BVH for large ones
-        # (rt_tpu/scene.py:528-553).
-        clusters = None
-        if shade_np is not None and (nt > 128 or ns + nt > 2048):
-            clusters = self._build_cluster_data(shade_np, sph_center, sph_radius, tri_a, tri_b,
-                                                tri_c)
-        if use_bvh is None:
-            use_bvh = nt > 256 or ns + nt > 4096
-        bvh = None
-        if use_bvh and ns + nt > 0:
-            from rt_tpu_torch.bvh import build_bvh
+            tables = dict(
+                sph_center=sph_center, sph_radius=sph_radius, sph_front_dir=sph_front,
+                sph_material=sph_mat, tri_a=tri_a, tri_b=tri_b, tri_c=tri_c,
+                tri_normal=tri_normal, tri_uv=tri_uv, tri_material=tri_mat,
+                mat_kind=mat_kind, mat_texture=mat_tex, mat_fuzz=mat_fuzz, mat_ior=mat_ior,
+                tex_kind=tex_kind, tex_color=tex_color, tex_inv_scale=tex_inv_scale,
+                tex_children=tex_children, tex_rect=tex_rect, atlas=atlas,
+                shade_table=shade_np, sph_packed=sph_packed, tri_packed=tri_packed,
+            )
+            # Cluster tables for mid-sized and large scenes, a BVH for large ones
+            # (rt_tpu/scene.py:528-553).
+            clusters = None
+            if shade_np is not None and (nt > 128 or ns + nt > 2048):
+                with profiling.span("scene.clusters"):
+                    clusters = self._build_cluster_data(shade_np, sph_center, sph_radius, tri_a,
+                                                        tri_b, tri_c)
+            if use_bvh is None:
+                use_bvh = nt > 256 or ns + nt > 4096
+            bvh = None
+            if use_bvh and ns + nt > 0:
+                from rt_tpu_torch.bvh import build_bvh
 
-            bvh = build_bvh(self._prim_bounds())
-        return SceneData(
-            sky=sky,
-            num_spheres=ns,
-            num_triangles=nt,
-            has_image_textures=any(tx.kind == TEX_IMAGE for tx in self._textures),
-            clusters=clusters,
-            bvh=bvh,
-            **{k: torch.from_numpy(v) if v is not None else None for k, v in tables.items()},
-        )
+                with profiling.span("scene.bounds"):
+                    bounds = self._prim_bounds()
+                with profiling.span("scene.bvh"):
+                    bvh = build_bvh(bounds)
+            return SceneData(
+                sky=sky,
+                num_spheres=ns,
+                num_triangles=nt,
+                has_image_textures=any(tx.kind == TEX_IMAGE for tx in self._textures),
+                clusters=clusters,
+                bvh=bvh,
+                **{k: torch.from_numpy(v) if v is not None else None for k, v in tables.items()},
+            )
 
     def _build_cluster_data(self, shade_np, sph_center, sph_radius, tri_a, tri_b, tri_c
                             ) -> ClusterData:

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from rt_tpu_torch import cluster_ops, fast_shade, materials, nearest_ops, prim_ops
+from rt_tpu_torch import cluster_ops, fast_shade, materials, nearest_ops, prim_ops, profiling
 from rt_tpu_torch import rng, sky
 from rt_tpu_torch.camera import Camera, generate_rays
 from rt_tpu_torch.config import RenderConfig
@@ -216,15 +216,18 @@ def _render_fast(
         # Phase 1 keeps the pool full while work remains, then bounces on
         # until the survivors fit the tail pool; phase 2 drains them there.
         while pool.next_work < pool.total or n_active > TAIL:
-            bounce(True)
+            with profiling.span("wavefront.iteration"):
+                bounce(True)
         order = torch.argsort((~active).to(torch.int8), stable=True)[:TAIL]
         rays, tp = rays[:, order].contiguous(), tp[:, order]
         work, gid, depth, active = work[order], gid[order], depth[order], active[order]
         while n_active > 0:
-            bounce(False)
+            with profiling.span("wavefront.iteration"):
+                bounce(False)
     else:
         while pool.next_work < pool.total or n_active > 0:
-            bounce(True)
+            with profiling.span("wavefront.iteration"):
+                bounce(True)
     return pool.mean(acc, spp)
 
 
@@ -262,49 +265,50 @@ def _render_generic(
     n_active = 0
 
     while pool.next_work < pool.total or n_active > 0:
-        claimed = pool.claim(active, n_active)
-        if claimed is not None:
-            lanes, w_ids, pix, sample = claimed
-            o, d, g = generate_rays(camera, pix, sample, seed, compat)
-            org.index_copy_(0, lanes, o.contiguous())
-            dirn.index_copy_(0, lanes, d)
-            throughput.index_fill_(0, lanes, 1.0)
-            work.index_copy_(0, lanes, w_ids)
-            gid.index_copy_(0, lanes, g)
-            depth.index_fill_(0, lanes, 0)
-            active.index_fill_(0, lanes, True)
-            n_active += lanes.shape[0]
-        COUNTS["iterations"] += 1
-        COUNTS["segments"] += n_active
+        with profiling.span("wavefront.iteration"):
+            claimed = pool.claim(active, n_active)
+            if claimed is not None:
+                lanes, w_ids, pix, sample = claimed
+                o, d, g = generate_rays(camera, pix, sample, seed, compat)
+                org.index_copy_(0, lanes, o.contiguous())
+                dirn.index_copy_(0, lanes, d)
+                throughput.index_fill_(0, lanes, 1.0)
+                work.index_copy_(0, lanes, w_ids)
+                gid.index_copy_(0, lanes, g)
+                depth.index_fill_(0, lanes, 0)
+                active.index_fill_(0, lanes, True)
+                n_active += lanes.shape[0]
+            COUNTS["iterations"] += 1
+            COUNTS["segments"] += n_active
 
-        rec = nearest_hit(scene, org, dirn, cfg.t_min, cfg.t_max, compat, impl="pallas",
-                          sphere_nearest=sphere_nearest)
-        unit_dir = dirn / torch.clamp(materials.norm3(dirn), min=1e-20)
-        sky_rgb = sky.sky_color_toward(scene.sky, unit_dir)
-        miss = active & ~rec.hit
+            rec = nearest_hit(scene, org, dirn, cfg.t_min, cfg.t_max, compat, impl="pallas",
+                              sphere_nearest=sphere_nearest)
+            unit_dir = dirn / torch.clamp(materials.norm3(dirn), min=1e-20)
+            sky_rgb = sky.sky_color_toward(scene.sky, unit_dir)
+            miss = active & ~rec.hit
 
-        # Emissive hits end the path with a deposit (MAT_EMISSIVE).
-        mat_id = torch.clamp(rec.material.to(torch.int64), 0, n_mat - 1)
-        is_emissive = scene.mat_kind[mat_id] == MAT_EMISSIVE
-        emis = active & rec.hit & is_emissive
-        emit_rgb = texture_value(scene, scene.mat_texture[mat_id], rec.uv, rec.point)
+            # Emissive hits end the path with a deposit (MAT_EMISSIVE).
+            mat_id = torch.clamp(rec.material.to(torch.int64), 0, n_mat - 1)
+            is_emissive = scene.mat_kind[mat_id] == MAT_EMISSIVE
+            emis = active & rec.hit & is_emissive
+            emit_rgb = texture_value(scene, scene.mat_texture[mat_id], rec.uv, rec.point)
 
-        attenuation, new_dir = materials.scatter_hashed(scene, rec, dirn, seed, gid, depth)
-        rr_p = torch.clamp(attenuation.amax(dim=-1), 0.0, compat.rr_clamp)
-        survive = rng.uniform(seed, gid, depth, 10) < rr_p
-        cont = active & rec.hit & survive & (depth < cfg.max_depth) & ~is_emissive
+            attenuation, new_dir = materials.scatter_hashed(scene, rec, dirn, seed, gid, depth)
+            rr_p = torch.clamp(attenuation.amax(dim=-1), 0.0, compat.rr_clamp)
+            survive = rng.uniform(seed, gid, depth, 10) < rr_p
+            cont = active & rec.hit & survive & (depth < cfg.max_depth) & ~is_emissive
 
-        contribution = throughput * torch.where(miss[:, None], sky_rgb, emit_rgb)
-        acc.index_copy_(0, torch.where(miss | emis, work, pool.total), contribution)
-        throughput = torch.where(
-            cont[:, None], throughput * attenuation / torch.clamp(rr_p, min=1e-12)[:, None],
-            throughput)
-        point_scale = torch.clamp(rec.point.abs().amax(dim=-1, keepdim=True), min=1.0)
-        side = torch.sign((new_dir * rec.normal).sum(dim=-1, keepdim=True))
-        new_org = rec.point + cfg.origin_offset * point_scale * side * rec.normal
-        org = torch.where(cont[:, None], new_org, org)
-        dirn = torch.where(cont[:, None], new_dir, dirn)
-        depth = depth + 1
-        active = cont
-        n_active = int(cont.sum())
+            contribution = throughput * torch.where(miss[:, None], sky_rgb, emit_rgb)
+            acc.index_copy_(0, torch.where(miss | emis, work, pool.total), contribution)
+            throughput = torch.where(
+                cont[:, None], throughput * attenuation / torch.clamp(rr_p, min=1e-12)[:, None],
+                throughput)
+            point_scale = torch.clamp(rec.point.abs().amax(dim=-1, keepdim=True), min=1.0)
+            side = torch.sign((new_dir * rec.normal).sum(dim=-1, keepdim=True))
+            new_org = rec.point + cfg.origin_offset * point_scale * side * rec.normal
+            org = torch.where(cont[:, None], new_org, org)
+            dirn = torch.where(cont[:, None], new_dir, dirn)
+            depth = depth + 1
+            active = cont
+            n_active = int(cont.sum())
     return pool.mean(acc, spp)
