@@ -51,9 +51,12 @@ the launch counts set to 0 just before and read just after:
   against plain on runs of its pixels;
 - BASELINE config 5: the car-class glb (162,560 triangles) at 1920x1080,
   depth 12, progressive on the "mega" engine (K5) in 4-spp sweeps, cut to
-  20 spp: a run resumed at mid-run from an earlier checkpoint by a fresh
-  renderer, bit-identical to the uninterrupted run, and K5 against plain
-  on runs of a sweep's pixels;
+  20 spp, each sweep summed on the card (``progressive.DEVICE_SUMS``): a
+  run resumed at mid-run from an earlier checkpoint by a fresh renderer,
+  bit-identical to the uninterrupted run, K5 against plain on runs of a
+  sweep's pixels, and the sweep-sum kernel (``csrc/sweep_sum.cu``) on a
+  sweep's colours and the run's sum, bit-equal to numpy's
+  ``accum + colors * ns`` and timed beside torch's two-op form;
 - the port's bench scripts: ``bench_cuda.main`` (K1) and
   ``bench_grad_cuda.main`` (K2) print bench.py's and bench_grad.py's lines;
 - sphere clusters (cluster_bench_cuda.py's covers of 40k and 360k spheres
@@ -1835,13 +1838,19 @@ def progressive_gltf_phase(dev, card: str, fixtures: dict, timer, runs: int = 3)
     accumulator bit-identical to the uninterrupted one; then K5's 4-spp
     sweep launch timed and held against plain on ``runs`` 16-pixel runs
     down the diagonal and on the frame's last 16 pixels (K5's pixel claims
-    and output rows reach the end of its largest launch).
+    and output rows reach the end of its largest launch); then the sweep-sum
+    kernel, counted from 0 just before, adding that sweep's colours into the
+    uninterrupted run's sum on the card, bit-equal to numpy's, and timed
+    beside the plain two-op form.
     Returns (K5 launches of the uninterrupted run, k5_phase's result, the
-    uninterrupted run's wall s)."""
+    uninterrupted run's wall s, the sweep sum's (launches of the
+    uninterrupted run, max abs error, ms, plain ms, bound ms, bound by))."""
     import numpy as np
+    import torch
 
     import bench_scenes_cuda as bsc
     from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch import progressive
     from rt_tpu_torch.progressive import ProgressiveRenderer
 
     timings = {}
@@ -1856,7 +1865,7 @@ def progressive_gltf_phase(dev, card: str, fixtures: dict, timer, runs: int = 3)
     scene.to(dev)
     w, h = camera.image_width, camera.image_height
     schedule, every = bsc.config5_schedule(CONFIG5_SPP)
-    mk.LAUNCHES_CLUSTERED = 0
+    mk.LAUNCHES_CLUSTERED = progressive.DEVICE_SUMS = 0
     sync(dev)
     t0 = time.perf_counter()
     whole = ProgressiveRenderer(scene, camera, cfg, schedule=schedule, engine="mega", device=dev)
@@ -1866,28 +1875,52 @@ def progressive_gltf_phase(dev, card: str, fixtures: dict, timer, runs: int = 3)
     rays = CONFIG5_SPP * w * h
     print(f"[config5] car {w}x{h} depth {cfg.max_depth}, {len(schedule.passes())} sweeps of "
           f"{schedule.passes()[0]} spp ({CONFIG5_SPP} spp, the config's 256 cut) on {card}: "
-          f"{whole_s:.3f} s, {rays / whole_s / 1e6:.3f} Mray/s; K5 launches {launches}; image "
-          f"mean {float(whole.state.image.mean()):.4f}")
+          f"{whole_s:.3f} s, {rays / whole_s / 1e6:.3f} Mray/s; K5 launches {launches}, "
+          f"sums on the card {progressive.DEVICE_SUMS}; image mean "
+          f"{float(whole.state.image.mean()):.4f}")
     check(whole.engine == "mega" and launches == len(schedule.passes())
+          and progressive.DEVICE_SUMS == launches
           and whole.state.total_spp == CONFIG5_SPP and bool(np.isfinite(whole.state.accum).all()),
-          "config 5: the progressive run did not go through K5")
+          "config 5: the progressive run did not go through K5 and the sweep sum")
     ckpt = os.path.join("build", "config5_smoke.npz")
-    mk.LAUNCHES_CLUSTERED = 0
+    mk.LAUNCHES_CLUSTERED = progressive.DEVICE_SUMS = 0
     resumed, spp, resumed_s = bsc.run_config5(scene, camera, cfg, CONFIG5_SPP, ckpt, dev)
     same = np.array_equal(resumed.state.accum, whole.state.accum)
     print(f"[config5] checkpoint every {every} sweeps, resumed at the midpoint by a fresh "
           f"renderer: {resumed_s:.3f} s, K5 launches {mk.LAUNCHES_CLUSTERED} (a re-rendered "
-          f"sweep); accumulator ({resumed.state.accum.nbytes / 1e6:.1f} MB) bit-identical to the "
-          f"uninterrupted run {same}")
-    check(same and spp == CONFIG5_SPP and mk.LAUNCHES_CLUSTERED == launches + 1,
+          f"sweep), sums on the card {progressive.DEVICE_SUMS}; accumulator "
+          f"({resumed.state.accum.nbytes / 1e6:.1f} MB) bit-identical to the uninterrupted run "
+          f"{same}")
+    check(same and spp == CONFIG5_SPP and mk.LAUNCHES_CLUSTERED == launches + 1
+          and progressive.DEVICE_SUMS == launches + 1,
           "config 5: the resumed run differs from the uninterrupted run")
     sweep_cfg = cfg.replace(samples_per_pixel=schedule.passes()[0])
     spw = sweep_cfg.samples_per_pixel
     frame, ms = timer(lambda: mk.render_megakernel(scene, camera, sweep_cfg, spw, 0, cfg.seed), 3)
     print(f"[config5] K5 {ms:.3f} ms per {spw}-spp sweep launch at {w}x{h} (CUDA events, mean of "
           f"3 after a warm-up), {spw * w * h / ms / 1e3:.3f} Mray/s in the kernel")
-    return launches, k5_phase(dev, "config-5 car", scene, camera, sweep_cfg, frame, ms,
-                              runs=runs, last_run=True), whole_s
+    k5 = k5_phase(dev, "config-5 car", scene, camera, sweep_cfg, frame, ms, runs=runs,
+                  last_run=True)
+
+    # The sweep sum: this sweep's colours into the run's (non-zero) sum.
+    want = whole.state.accum + frame.cpu().numpy().reshape(h, w, 3) * spw
+    acc = torch.from_numpy(whole.state.accum.copy()).to(dev)
+    progressive.DEVICE_SUMS = 0
+    progressive.accumulate_sweep(acc, frame, spw)
+    got = acc.cpu().numpy()
+    sum_err = float(np.abs(got - want).max())
+    check(np.array_equal(got, want) and progressive.DEVICE_SUMS == 1,
+          "config 5: the sweep-sum kernel differs from numpy's sum")
+    _, sum_ms = timer(lambda: progressive.accumulate_sweep(acc, frame, spw), 20)
+    _, sum_plain_ms = timer(lambda: acc.add_(frame.reshape(acc.shape) * spw), 20)
+    # Two operations a float; colours and the sum read once, the sum written once.
+    sum_bound = bound(2 * 3 * w * h, 3 * w * h * 12)
+    print(f"[config5] sweep sum at {w}x{h}: bit-equal to numpy on the sweep's colours and the "
+          f"run's sum (max abs err {sum_err}); kernel {sum_ms * 1e3:.2f} us, plain two-op form "
+          f"{sum_plain_ms * 1e3:.2f} us (CUDA events, mean of 20 after a warm-up), bound "
+          f"{sum_bound[0] * 1e3:.2f} us by {sum_bound[1]} ({100 * sum_bound[0] / sum_ms:.1f}% "
+          f"reached)")
+    return launches, k5, whole_s, (launches, sum_err, sum_ms, sum_plain_ms, *sum_bound)
 
 
 def bench_lines_phase(dev):
@@ -2581,7 +2614,7 @@ def main() -> int:
     c4_launches, k5_c4 = gltf_frames_phase(dev, card, fixtures, timed_cuda)
 
     # -- 28. BASELINE config 5: the car-class glb, progressive at 1080p and resumed (K5) --
-    c5_launches, k5_c5, c5_s = progressive_gltf_phase(dev, card, fixtures, timed_cuda)
+    c5_launches, k5_c5, c5_s, c5_sum = progressive_gltf_phase(dev, card, fixtures, timed_cuda)
     for name, r in (("config-4 armor (800x450, 8 spp)", k5_c4),
                     ("config-5 car (1920x1080, one 4-spp sweep)", k5_c5)):
         print(f"[time] K5 megakernel_clustered, the {name} frame on {card}: kernel {r[1]:.4f} ms "
@@ -2614,7 +2647,8 @@ def main() -> int:
           f"{time.perf_counter() - t_new:.1f} s")
 
     # -- 34. result -------------------------------------------------------------------
-    check(all(math.isfinite(v) for v in (sky_k1_ms, sky_plain_ms, *k5_c4[:4], *k5_c5[:4], c5_s)),
+    check(all(math.isfinite(v) for v in (sky_k1_ms, sky_plain_ms, *k5_c4[:4], *k5_c5[:4], c5_s,
+                                          *c5_sum[1:5])),
           "non-finite measurement")
     check(all(math.isfinite(v) for r in spheres.values() for v in (*r["k5"][:4], *r["k4"][:4]))
           and math.isfinite(inverse_step_s), "non-finite measurement")
@@ -2721,6 +2755,9 @@ def main() -> int:
         entry("micro_scatter", "rt_tpu_torch/csrc/micro_probe.cu", "tools/micro_probe.py:131",
               k6_launches["micro_scatter"], k6_scatter_err, k6_ms["scatter"],
               k6_plain_ms["scatter"], k6_bound["scatter"]),
+        # Replaces the host's numpy sum of a sweep, not a TPU kernel.
+        entry("sweep_sum", "rt_tpu_torch/csrc/sweep_sum.cu", "rt_tpu/progressive.py:137",
+              *c5_sum[:4], c5_sum[4:6]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -130,6 +130,9 @@ def library() -> ctypes.CDLL:
         fn.argtypes = ([ptr, ptr, i32] + [ptr] * 7 + [i32, i32, ptr, ptr, i32] + [ptr] * 3
                        + [i32, f32, f32, f32, i32, ptr, ptr, ptr])
         fn.restype = i32
+        fn = lib.rt_sweep_accumulate
+        fn.argtypes = [ptr, ptr, i64, i32, ptr]
+        fn.restype = i32
         _lib = lib
     return _lib
 

@@ -6,8 +6,13 @@ rendering every pixel at ``ns`` samples and blending into the image by
 sample count, with per-sweep and cumulative Mray/s prints.
 
 As in the JAX package:
-- the accumulator is f32 on the host (the reference blends through its u8
-  display buffer, window.rs:279-310);
+- the accumulator is f32 (the reference blends through its u8 display
+  buffer, window.rs:279-310), and ``state.accum`` is a host array that
+  holds every finished sweep.  On the card the sum lives on the device:
+  each sweep is added into it there by ``csrc/sweep_sum.cu``, and the sum
+  is copied into one pinned host buffer, reused, which backs
+  ``state.accum`` (read-only there: the next sweep's copy would overwrite a
+  write).  On the CPU ``state.accum`` is the accumulator itself;
 - the state (accum, total_spp, pass_index, seed) is checkpointed to .npz
   and resumes exactly; the keys are the JAX package's, so a checkpoint
   written by either package resumes in the other;
@@ -31,7 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from rt_tpu_torch import megakernel, profiling, rng
+from rt_tpu_torch import _build, megakernel, profiling, rng
 from rt_tpu_torch.camera import Camera
 from rt_tpu_torch.config import ProgressiveSchedule, RenderConfig
 from rt_tpu_torch.profiling import MetricsLog, ProgressBar, ThroughputTimer
@@ -40,8 +45,45 @@ from rt_tpu_torch.scene import SceneData
 from rt_tpu_torch.wavefront import render_wavefront
 
 
+# Sweeps summed by the sweep-sum kernel, as megakernel.LAUNCHES counts K1's
+# launches: read by tests and chip_smoke.py; stays 0 on the CPU.
+DEVICE_SUMS = 0
+
+
+def accumulate_sweep(accum: torch.Tensor, colors: torch.Tensor, ns: int) -> None:
+    """``accum += colors * ns`` in place, as two rounded f32 operations (the
+    host's numpy sum, bit for bit).  ``colors``: one value per element of
+    ``accum`` (any shape of that size), on its device.  On a card, one
+    launch of the sweep-sum kernel on the current stream (one count of
+    DEVICE_SUMS), with no synchronization; on the CPU, the plain two-op
+    form.  Raises on anything else."""
+    global DEVICE_SUMS
+    device = accum.device
+    colors = colors.reshape(accum.shape)
+    if device.type == "cpu":
+        accum += colors * ns
+        return
+    if device.type != "cuda":
+        raise ValueError(f"no sweep sum for device {device}")
+    _build.require(accum, "accum", device)
+    _build.require(colors, "colors", device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _build.library().rt_sweep_accumulate(colors.data_ptr(), accum.data_ptr(),
+                                                   accum.numel(), int(ns), stream)
+    if err != 0:
+        raise RuntimeError(f"sweep-sum launch failed with CUDA error {err}")
+    DEVICE_SUMS += 1
+
+
 @dataclasses.dataclass
 class ProgressiveState:
+    """``accum``: the host array of every finished sweep's sum.  On the CPU
+    it is the accumulator itself.  On a card it mirrors the device's
+    accumulator, refreshed after each sweep, and is read-only: a write into
+    it would be overwritten by the next sweep's fetch, so it raises instead
+    (``ProgressiveRenderer.load_checkpoint`` is how a sum goes in)."""
+
     accum: np.ndarray  # f32[H, W, 3] sum of (pass mean * pass spp)
     total_spp: int
     pass_index: int
@@ -88,7 +130,17 @@ class ProgressiveRenderer:
             engine = "wavefront"
         self.engine = engine
         h, w = camera.image_height, camera.image_width
-        self.state = ProgressiveState(np.zeros((h, w, 3), np.float32), 0, 0)
+        # The accumulator, on the sweeps' device, and the host tensor behind
+        # state.accum: the same tensor on the CPU; on a card a pinned buffer
+        # (torch's caching host allocator hands a later renderer the same
+        # block) that receives the sum after each sweep.
+        self._accum = torch.zeros((h, w, 3), dtype=torch.float32, device=self.device)
+        self._host = (self._accum if self.device.type == "cpu" else
+                      torch.zeros((h, w, 3), dtype=torch.float32, pin_memory=True))
+        host_view = self._host.numpy()
+        if self._host is not self._accum:
+            host_view.setflags(write=False)
+        self.state = ProgressiveState(host_view, 0, 0)
         self._timer = ThroughputTimer(w, h)
         self._metrics = MetricsLog(metrics_path)
         self._bar = ProgressBar(len(self.passes)) if progress else None
@@ -104,7 +156,6 @@ class ProgressiveRenderer:
         if i >= len(self.passes):
             return None
         ns = self.passes[i]
-        w, h = self.camera.image_width, self.camera.image_height
 
         with profiling.span("progressive.step", i):
             self._timer.begin_sweep()
@@ -119,14 +170,18 @@ class ProgressiveRenderer:
                 else:
                     colors = render_wavefront(self.scene, self.camera, self._pixel_idx, self.cfg,
                                               ns, offset, key)
-            with profiling.span("progressive.fetch"):
-                colors = colors.cpu().numpy().reshape(h, w, 3)  # waits for the device
-            sweep_mray, cum_mray = self._timer.end_sweep(ns)
-
             with profiling.span("progressive.accumulate"):
-                self.state.accum += colors * ns
-                self.state.total_spp += ns
-                self.state.pass_index += 1
+                accumulate_sweep(self._accum, colors, ns)
+            with profiling.span("progressive.fetch"):
+                # The sum to the host, behind the sweep and its sum on the
+                # stream; the wait makes a sweep end with its pixels there.
+                # (On the CPU state.accum is the accumulator: nothing to do.)
+                if self._host is not self._accum:
+                    self._host.copy_(self._accum, non_blocking=True)
+                    torch.cuda.current_stream(self.device).synchronize()
+            sweep_mray, cum_mray = self._timer.end_sweep(ns)
+            self.state.total_spp += ns
+            self.state.pass_index += 1
 
             metrics = {
                 "sweep": i + 1,
@@ -193,14 +248,20 @@ class ProgressiveRenderer:
             os.replace(tmp + ".npz" if not tmp.endswith(".npz") else tmp, path)
 
     def load_checkpoint(self, path: str) -> None:
-        data = np.load(path)
-        if int(data["seed"]) != self.cfg.seed:
-            raise ValueError(
-                f"checkpoint {path} was written with seed {int(data['seed'])}, not "
-                f"{self.cfg.seed}: resuming would repeat sample indices"
-            )
-        self.state = ProgressiveState(
-            accum=np.asarray(data["accum"], np.float32),
-            total_spp=int(data["total_spp"]),
-            pass_index=int(data["pass_index"]),
-        )
+        """Resume from ``path``: its sum goes into the host buffer behind
+        ``state.accum`` (the same array object) and up to the device's
+        accumulator."""
+        with np.load(path) as data:
+            if int(data["seed"]) != self.cfg.seed:
+                raise ValueError(
+                    f"checkpoint {path} was written with seed {int(data['seed'])}, not "
+                    f"{self.cfg.seed}: resuming would repeat sample indices"
+                )
+            if data["accum"].shape != self.state.accum.shape:
+                raise ValueError(f"checkpoint {path} holds a {data['accum'].shape} image, not "
+                                 f"{self.state.accum.shape}")
+            self._host.copy_(torch.from_numpy(data["accum"]))
+            self.state.total_spp = int(data["total_spp"])
+            self.state.pass_index = int(data["pass_index"])
+        if self._host is not self._accum:
+            self._accum.copy_(self._host)

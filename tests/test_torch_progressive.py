@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from rt_tpu_torch import profiling, scenes
+from rt_tpu_torch import megakernel, profiling, progressive, scenes
 from rt_tpu_torch.config import ProgressiveSchedule, RenderConfig
-from rt_tpu_torch.progressive import ProgressiveRenderer
+from rt_tpu_torch.progressive import ProgressiveRenderer, accumulate_sweep
 
 torch.set_num_threads(2)
 
@@ -87,6 +87,68 @@ def test_checkpoint_resume_is_exact(tmp_path):
     with np.load(ckpt) as data:
         assert sorted(data.files) == ["accum", "pass_index", "seed", "total_spp"]
         assert int(data["pass_index"]) == 3
+
+
+def test_accumulator_is_the_numpy_sum_of_the_sweeps(monkeypatch):
+    """Three sweeps on the "mega" engine: state.accum, the same array all
+    along, equals numpy's sum of each sweep's colours times its spp bit for
+    bit, and no sweep went through the card's kernel."""
+    seen = []
+    real = megakernel.render_megakernel
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out.numpy().copy())
+        return out
+
+    monkeypatch.setattr(megakernel, "render_megakernel", recorded)
+    sums = progressive.DEVICE_SUMS
+    r = _renderer(engine="mega")
+    accum = r.state.accum
+    r.step()
+    assert r.state.accum is accum
+    r.run()
+    assert r.state.accum is accum and len(seen) == 3
+    want = np.zeros((H, W, 3), np.float32)
+    for colors, ns in zip(seen, (1, 2, 4)):
+        want += colors.reshape(H, W, 3) * ns
+    np.testing.assert_array_equal(r.state.accum, want)
+    assert progressive.DEVICE_SUMS == sums
+
+
+def test_load_checkpoint_fills_the_same_array(tmp_path):
+    """A checkpoint loaded into a running renderer lands in the array
+    state.accum already is, and the next sweep adds onto it; an image of
+    another size is refused."""
+    ckpt = str(tmp_path / "ck.npz")
+    first = _renderer(checkpoint_path=ckpt)
+    first.run(max_passes=2)
+    r = _renderer()
+    accum = r.state.accum
+    r.load_checkpoint(ckpt)
+    assert r.state.accum is accum and r.state.pass_index == 2 and r.state.total_spp == 3
+    np.testing.assert_array_equal(accum, first.state.accum)
+    r.step()
+    assert r.state.accum is accum
+    np.testing.assert_array_equal(r.state.image, _renderer().run())
+    small = str(tmp_path / "small.npz")
+    np.savez(small, accum=np.zeros((H, W - 1, 3), np.float32), total_spp=3, pass_index=2,
+             seed=r.cfg.seed)
+    with pytest.raises(ValueError, match="image"):
+        r.load_checkpoint(small)
+
+
+@pytest.mark.parametrize("ns", [1, 3, 4, 7, 256])
+def test_plain_sweep_sum_is_numpy(ns):
+    """The CPU's sweep sum: numpy's accum + colors * ns bit for bit, over
+    large and tiny magnitudes and a length not divisible by 4."""
+    rng = np.random.default_rng(ns)
+    n = 3 * 7 * 5
+    accum = (rng.standard_normal(n) * 10.0 ** rng.uniform(-40, 30, n)).astype(np.float32)
+    colors = (rng.standard_normal(n) * 10.0 ** rng.uniform(-40, 30, n)).astype(np.float32)
+    got = torch.from_numpy(accum.copy()).reshape(7, 5, 3)
+    accumulate_sweep(got, torch.from_numpy(colors), ns)
+    np.testing.assert_array_equal(got.numpy().reshape(-1), accum + colors * ns)
 
 
 def test_jax_checkpoint_resumes_in_port(tmp_path):

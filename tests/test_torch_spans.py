@@ -113,7 +113,7 @@ def test_sweep_spans_nest_and_leave_the_image_alone(tmp_path):
     (metrics, pr), spans, _ = _recorded(lambda: sweeps("b.npz"))
     step = [("rt.progressive.step", None)] + [
         (f"rt.progressive.{k}", "rt.progressive.step")
-        for k in ("dispatch", "fetch", "accumulate", "report", "checkpoint")]
+        for k in ("dispatch", "accumulate", "fetch", "report", "checkpoint")]
     assert _parents(spans) == step + step
     np.testing.assert_array_equal(pr.state.accum, plain.state.accum)
     for m in metrics:
