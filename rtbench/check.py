@@ -15,20 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rtbench.inputs import car as car_inputs, cover as cover_inputs
+from rtbench import harness
 from rtbench.reference import rng, tracer
 from rtbench.reference.scene import Prims
 
 
 def describe(config: dict) -> dict:
-    """The configuration's scene as a raw description."""
-    sc = config["scene"]
-    if sc["generator"] == "cover":
-        return cover_inputs.describe(sc["grid_i"], sc["grid_j"], sc["z"], sc["seed"],
-                                     viewer=np.float32(config["camera"]["center"]))
-    if sc["generator"] == "car":
-        return car_inputs.describe(sc["res"], sc["n_parts"], sc["seed"], sc["ground"], sc["sky"])
-    raise ValueError(f"unknown scene generator {sc['generator']!r}")
+    """The configuration's scene as a raw description, from its generator's
+    reference side (``rtbench/inputs/<generator>.py``)."""
+    return harness.load_generator(config["scene"]["generator"]).describe(config)
 
 
 def sample_pixels(seed: int, n_pixels: int, k: int, stream: int) -> np.ndarray:

@@ -1,6 +1,16 @@
 """The system under test: how the benchmark builds the program's scene from
 the generated inputs and drives its entry points, one unit of work at a
-time.  The only module of the benchmark that imports the program.
+time.  With the generators' program sides (``rtbench/scenes/``), the only
+part of the benchmark that imports the program.
+
+Scenes: a configuration's ``scene.generator`` names its generator
+(``harness.load_generator``).  Its reference side,
+``rtbench/inputs/<generator>.py``, may write the files the program loads
+(``write_inputs(config, build_dir)``, into the checkout's
+``build/rtbench/``).  Its program side, ``rtbench/scenes/<generator>.py``,
+builds the program's scene (``build(config, desc, build_dir) ->
+SceneData``, through the program's own builders and loaders); without it,
+the description is replayed on a ``scene.SceneBuilder``.
 
 Entries (a traffic file's ``entry``):
 
@@ -11,7 +21,7 @@ Entries (a traffic file's ``entry``):
   engine ("mega" or "wavefront"), sweeps of ``sweep_spp`` samples with the
   reference's sample indices; a fresh image with the next seed starts
   every ``sweeps_per_image`` sweeps; no checkpoint.  A unit ends with the
-  sweep added to the host's accumulator.
+  sweep added to the accumulator and the sum on the host.
 """
 
 from __future__ import annotations
@@ -23,12 +33,14 @@ import time
 import numpy as np
 import torch
 
-from rtbench.inputs import car as car_inputs
+from rtbench import harness
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(ROOT, "build", "rtbench")
 
 
-def _port_sky(sky: dict):
+def port_sky(sky: dict):
+    """The program's sky for a description's ``sky``."""
     from rt_tpu_torch.sky import SkyParams
 
     if sky["model"] == "hosek":
@@ -40,9 +52,13 @@ def _port_sky(sky: dict):
                      exposure=torch.tensor(float(sky["exposure"])))
 
 
-def _replay(b, desc: dict) -> None:
-    """Create the description's textures, materials, spheres and triangles on
-    a SceneBuilder in their order, so that every id is the description's."""
+def replay(desc: dict):
+    """The program's scene of a description: its textures, materials,
+    spheres and triangles created on a SceneBuilder in their order, so that
+    every id is the description's."""
+    from rt_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
     for t in desc["textures"]:
         if t["kind"] == "solid":
             b.solid_color(t["color"])
@@ -57,6 +73,10 @@ def _replay(b, desc: dict) -> None:
             b.metal(m["texture"], m.get("fuzz", 0.0))
         elif m["kind"] == "dielectric":
             b.dielectric(m["ior"], m.get("fuzz", 0.0))
+        elif m["kind"] == "emissive":
+            # Radiance from the material's solid texture; the builder adds
+            # that texture again, after every texture of the description.
+            b.emissive(desc["textures"][m["texture"]]["color"])
         else:
             raise ValueError(f"no replay for material {m['kind']!r}")
     sph, tri = desc["spheres"], desc["triangles"]
@@ -64,54 +84,32 @@ def _replay(b, desc: dict) -> None:
         b.add_sphere(c, r, int(m), front_direction=f)
     for a, bb, c, uv, m in zip(tri["a"], tri["b"], tri["c"], tri["uv"], tri["material"]):
         b.add_triangle(a, bb, c, int(m), uv[0], uv[1], uv[2])
-
-
-def glb_path(scene_cfg: dict) -> str:
-    """The car's glb under the checkout's ``build/rtbench/`` (a fixed
-    name per generator parameters, written once)."""
-    name = f"car_r{scene_cfg['res']}_p{scene_cfg['n_parts']}_s{scene_cfg['seed']}.glb"
-    return os.path.join(ROOT, "build", "rtbench", name)
+    return b.build(sky=port_sky(desc["sky"]))
 
 
 def ensure_inputs(config: dict) -> None:
-    """Write the files the program loads (the car's glb) if missing."""
-    sc = config["scene"]
-    if sc["generator"] == "car":
-        path = glb_path(sc)
-        if not os.path.exists(path):
-            car_inputs.write_glb(path, sc["res"], sc["n_parts"], sc["seed"])
+    """Write the files the program loads, where the configuration's
+    generator writes any (``write_inputs``), under ``BUILD_DIR``."""
+    write = getattr(harness.load_generator(config["scene"]["generator"]), "write_inputs", None)
+    if write is not None:
+        write(config, BUILD_DIR)
 
 
-def build_scene(config: dict, desc_fn, timings: dict):
+def build_scene(config: dict, desc: dict, timings: dict):
     """(scene, camera, RenderConfig) of the program for ``config``, the scene
-    built through ``scene.SceneBuilder`` (and the glTF loader, for a glTF
-    scene); ``timings["scene_build_s"]`` gets the host seconds of the load
-    and the build."""
-    from rt_tpu_torch import scenes
+    built by its generator's program side, or replayed from ``desc`` where
+    the generator has none; ``timings["scene_build_s"]`` gets the host
+    seconds of that build (files loaded, tables, cluster tables, BVH)."""
     from rt_tpu_torch.camera import make_camera
     from rt_tpu_torch.config import RenderConfig
-    from rt_tpu_torch.io.gltf_loader import add_gltf_to_scene
-    from rt_tpu_torch.scene import SceneBuilder
 
-    sc = config["scene"]
-    if sc["generator"] == "car":
-        sky = _port_sky(sc["sky"])
-        g = sc["ground"]
-        t0 = time.perf_counter()
-        b = SceneBuilder()
-        ground = b.lambertian(b.checker(g["scale"], b.solid_color(g["even"]),
-                                        b.solid_color(g["odd"])))
-        scenes.add_ground_plane(b, g["size"], g["size"], g["z"], ground, True)
-        add_gltf_to_scene(b, glb_path(sc), compat_all_metal=False)
-        scene = b.build(sky=sky)
-        timings["scene_build_s"] = time.perf_counter() - t0
+    program_side = harness.load_generator(config["scene"]["generator"], "scenes")
+    t0 = time.perf_counter()
+    if program_side is None:
+        scene = replay(desc)
     else:
-        desc = desc_fn()
-        t0 = time.perf_counter()
-        b = SceneBuilder()
-        _replay(b, desc)
-        scene = b.build(sky=_port_sky(desc["sky"]))
-        timings["scene_build_s"] = time.perf_counter() - t0
+        scene = program_side.build(config, desc, BUILD_DIR)
+    timings["scene_build_s"] = time.perf_counter() - t0
     cam = config["camera"]
     camera = make_camera(cam["center"], cam["lookat"], cam["up"],
                          focus_distance=cam["focus_distance"], defocus_angle=0.0,

@@ -6,7 +6,8 @@ A cell is an entry of ``workloads`` in BENCHMARK.json: a configuration
 (``rtbench/configs/<config>.json``) under a traffic mix
 (``rtbench/workloads/<traffic>.json``), with its check
 (``rtbench/checks/<cell>.json``: how many answers and pixels are compared,
-and each number's limit).  A per-layer metric is read by
+and each number's limit).  A configuration's ``scene.generator`` names its
+scene's generator (``load_generator``), and a per-layer metric is read by
 ``rtbench/metrics/<metric>.py``.  All are found by name.
 
 The loop is closed: one user, each unit (a frame or a sweep)
@@ -21,6 +22,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -112,14 +114,34 @@ class Reservoir:
         self.n += 1
 
 
-def load_metric(name: str):
-    """The reader module of a per-layer metric (rtbench/metrics/<name>.py)."""
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("rtbench_metric_" + name.replace(".", "_"),
-                                                  path)
+def _load_file(path: str, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric(name: str):
+    """The reader module of a per-layer metric (rtbench/metrics/<name>.py)."""
+    return _load_file(os.path.join(HERE, "metrics", name + ".py"),
+                      "rtbench_metric_" + name.replace(".", "_"))
+
+
+def load_generator(name: str, side: str = "inputs"):
+    """A half of the scene generator that a configuration's
+    ``scene.generator`` names: ``rtbench/inputs/<name>.py``, the reference's
+    side, which every generator has, or ``rtbench/scenes/<name>.py``, the
+    program's side, which is optional (None where it is missing).  A
+    generator without its reference's side stops the run."""
+    rel = {s: f"rtbench/{s}/{name}.py" for s in ("inputs", "scenes")}
+    if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]*", name) or not os.path.exists(
+            os.path.join(ROOT, rel["inputs"])):
+        raise SystemExit(f"rtbench: no scene generator {name!r}: looked for {rel['inputs']} "
+                         f"(the reference's side) and {rel['scenes']} (the program's side)")
+    path = os.path.join(ROOT, rel[side])
+    if not os.path.exists(path):
+        return None
+    return _load_file(path, f"rtbench_{side}_" + re.sub(r"[.-]", "_", name))
 
 
 def forbidden_modules() -> list[str]:
@@ -138,7 +160,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start
     cuda = dev.type == "cuda"
     timings: dict = {}
     drivers.ensure_inputs(config)
-    scene, camera, cfg = drivers.build_scene(config, lambda: check.describe(config), timings)
+    scene, camera, cfg = drivers.build_scene(config, check.describe(config), timings)
     scene.to(dev)
     make = lambda stream: drivers.make_driver(config, traffic, scene, camera, cfg, dev,
                                               lambda j: unit_seed(seed, stream + j))

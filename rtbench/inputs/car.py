@@ -6,11 +6,12 @@ not ship.  The stand-in is the renderer's procedural car class: ``n_parts``
 displaced-sphere shells (``res x res`` lat-long grids, two triangles a
 cell), each its own glTF primitive with a metallic-roughness material and a
 64x64 checker PNG as its base colour, drawn from ``default_rng(seed)`` in
-the generator's order.  ``write_glb`` writes the file the renderer loads
-through its glTF loader; ``describe`` gives the reference the same scene
-from the raw arrays (positions, UVs, indices, texels), never from the file
-or the loader.  Material mapping: metallic >= 0.5 is metal with fuzz =
-roughness, else lambertian, each over its base-colour texture.
+the generator's order.  ``write_inputs`` writes the glb the program loads
+through its glTF loader (``rtbench/scenes/car.py``); ``describe`` gives the
+reference the same scene from the raw arrays (positions, UVs, indices,
+texels), never from the file or the loader.  Material mapping: metallic >=
+0.5 is metal with fuzz = roughness, else lambertian, each over its
+base-colour texture.
 """
 
 from __future__ import annotations
@@ -117,10 +118,32 @@ def write_glb(path: str, res: int, n_parts: int, seed: int) -> None:
     os.replace(tmp, path)
 
 
-def describe(res: int, n_parts: int, seed: int, ground: dict, sky: dict) -> dict:
+def glb_path(scene: dict, build_dir: str) -> str:
+    """The car's glb in ``build_dir``, named by the generator's parameters."""
+    return os.path.join(build_dir, f"car_r{scene['res']}_p{scene['n_parts']}_s{scene['seed']}.glb")
+
+
+def write_inputs(config: dict, build_dir: str) -> None:
+    """Write the car's glb once."""
+    sc = config["scene"]
+    path = glb_path(sc, build_dir)
+    if not os.path.exists(path):
+        write_glb(path, sc["res"], sc["n_parts"], sc["seed"])
+
+
+def tiny(scene: dict) -> dict:
+    """The scene cut to a CPU test's size: two parts at res 12 (528
+    triangles and the ground's two: cluster tables and a BVH, as at full
+    size)."""
+    return dict(scene, res=12, n_parts=2)
+
+
+def describe(config: dict) -> dict:
     """The scene's description: the ground's two textures, its checker and
     material and two triangles first (as the scene is built: the ground,
     then the glTF), then each part's texture, material and triangles."""
+    sc = config["scene"]
+    res, n_parts, seed, ground, sky = sc["res"], sc["n_parts"], sc["seed"], sc["ground"], sc["sky"]
     s = float(ground["size"]) / 2.0
     z = float(ground["z"])
     textures = [{"kind": "solid", "color": tuple(ground["even"])},

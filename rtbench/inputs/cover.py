@@ -13,7 +13,8 @@ stand-in the renderer uses (a warm 64x64 gradient).  The sky is the default
 Perez sky: sun at +z, turbidity 2, exposure 0.25.
 
 Textures and materials are listed in the order a scene builder creates
-them, so a builder that replays the list gives every one the same id.
+them, so a builder that replays the list gives every one the same id.  The
+program's side has no file of its own: the harness replays the description.
 """
 
 from __future__ import annotations
@@ -29,10 +30,13 @@ def saul_texture(size: int = 64) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0.0, 1.0).astype(np.float32)
 
 
-def describe(grid_i: int = 11, grid_j: int = 11, z: float = -0.2, seed: int = 0,
-             viewer=(3.0, -5.0, 0.6)) -> dict:
-    """The scene's description; ``viewer`` is the point the textured sphere
-    faces (the camera's centre)."""
+def describe(config: dict) -> dict:
+    """The scene's description: the lattice of ``scene`` (``grid_i``,
+    ``grid_j``, ``z``, ``seed``), the textured sphere facing the camera's
+    centre."""
+    sc = config["scene"]
+    grid_i, grid_j, z, seed = sc["grid_i"], sc["grid_j"], sc["z"], sc["seed"]
+    viewer = np.float32(config["camera"]["center"])
     if grid_i * grid_j > 2500:
         raise ValueError("the lattice is drawn in loop order up to 2500 cells")
     rng = np.random.default_rng(seed)

@@ -1,6 +1,6 @@
 """Per-layer metric ``sweep_host_ms`` (ms): the median profiled sweep's wall time minus
-``k5_ms.sweep``: the host's part of a sweep (the copy of the colours, the
-sum into the accumulator, the launch wrapper).
+``k5_ms.sweep``: what of a sweep is not K5 (the launch wrapper, the sum's
+enqueue and its kernel, the copy of the sum to the host).
 
 Read from the traced run; returns None where there is nothing to read."""
 

@@ -23,24 +23,26 @@ def root():
     return ROOT
 
 
-TINY = {
-    "cover-final": dict(spp=2),
-    "car-preview": dict(sweep_spp=2, sweeps_per_image=3),
+TINY = {  # the traffic's samples, by its entry
+    "frames": dict(spp=2),
+    "sweeps": dict(sweep_spp=2, sweeps_per_image=3),
 }
 
 
-def tiny_cell(name: str, width: int = 16, height: int = 9, car_res: int = 12, car_parts: int = 2,
-              **traffic):
+def tiny_cell(name: str, width: int = 16, height: int = 9, tiny_scene: bool = True, **traffic):
     """A cell of BENCHMARK.json cut to a test's size: the frame, the
-    traffic's samples, the car's tessellation and the pixels compared; its
-    limits are the cell's own."""
+    traffic's samples, the scene (by its generator's ``tiny``, where it has
+    one and ``tiny_scene``) and the pixels compared; its limits are the
+    cell's own."""
     from rtbench import harness
 
     cell = harness.load_cell(name)
-    cell["config_spec"] = dict(cell["config_spec"], width=width, height=height)
-    if cell["config_spec"]["scene"]["generator"] == "car":
-        cell["config_spec"]["scene"] = dict(cell["config_spec"]["scene"], res=car_res,
-                                            n_parts=car_parts)
-    cell["traffic_spec"] = dict(cell["traffic_spec"], **{**TINY.get(name, {}), **traffic})
+    config = dict(cell["config_spec"], width=width, height=height)
+    tiny = getattr(harness.load_generator(config["scene"]["generator"]), "tiny", None)
+    if tiny_scene and tiny is not None:
+        config["scene"] = tiny(config["scene"])
+    cell["config_spec"] = config
+    entry = cell["traffic_spec"]["entry"]
+    cell["traffic_spec"] = dict(cell["traffic_spec"], **{**TINY[entry], **traffic})
     cell["check_spec"] = dict(cell["check_spec"], pixels=48)
     return cell

@@ -23,7 +23,8 @@ def test_config_parses_and_names_a_generator(config):
     entry = next(c for c in BENCH["configs"] if c["name"] == config)
     assert entry["file"] == f"rtbench/configs/{config}.json"
     assert spec["name"] == config
-    assert spec["scene"]["generator"] in ("cover", "car")
+    inputs = harness.load_generator(spec["scene"]["generator"])
+    assert callable(inputs.describe)
     assert set(entry["reduced"]) <= set(spec.get("upstream", {}))
     for key in ("width", "height", "camera", "render"):
         assert key in spec
@@ -145,8 +146,14 @@ def test_nothing_loaded_is_jax_or_the_jax_package(root):
 
 
 def test_reference_imports_nothing_of_the_program(root):
+    # Every generator's reference side, by describing every configuration.
     code = ("import sys, json; sys.path.insert(0, '.');"
             "import rtbench.check, rtbench.control, rtbench.reference.tracer;"
+            "from rtbench import check, harness;"
+            "[check.describe(harness.load_json('rtbench', 'configs', c['name'] + '.json'))"
+            " for c in json.load(open('BENCHMARK.json'))['configs']];"
+            "[harness.load_generator(f[:-3]) for f in __import__('os').listdir('rtbench/inputs')"
+            " if f.endswith('.py') and f != '__init__.py'];"
             "print(json.dumps(sorted(sys.modules)))")
     res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                          timeout=300, check=True)
@@ -156,7 +163,8 @@ def test_reference_imports_nothing_of_the_program(root):
     ref_dir = os.path.join(root, "rtbench", "reference")
     files = [os.path.join(ref_dir, f) for f in os.listdir(ref_dir) if f.endswith(".py")]
     files += [os.path.join(root, "rtbench", f) for f in ("check.py", "stats.py", "roofline.py")]
-    files += [os.path.join(root, "rtbench", "inputs", f) for f in ("cover.py", "car.py")]
+    inputs_dir = os.path.join(root, "rtbench", "inputs")
+    files += [os.path.join(inputs_dir, f) for f in os.listdir(inputs_dir) if f.endswith(".py")]
     for path in files:
         for node in ast.walk(ast.parse(open(path).read())):
             if isinstance(node, ast.Import):

@@ -12,10 +12,9 @@ from conftest import tiny_cell
 
 
 def _program(cell):
-    timings = {}
     config = cell["config_spec"]
     drivers.ensure_inputs(config)
-    return drivers.build_scene(config, lambda: check.describe(config), timings)
+    return drivers.build_scene(config, check.describe(config), {})
 
 
 def test_cover_scene_tables_equal_the_programs_own_cover():
@@ -63,7 +62,7 @@ def test_megakernel_path_on_the_cover():
 def test_megakernel_path_on_the_car():
     # The whole car (res 128, 162,560 triangles): K5's plain walk against
     # the reference's brute force.
-    assert _frame_gap("car-preview", 2, car_res=128, car_parts=5) < 1e-5
+    assert _frame_gap("car-preview", 2, tiny_scene=False) < 1e-5
 
 
 def test_wavefront_progressive_on_the_cover():
