@@ -23,6 +23,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from rt_tpu_torch import profiling
+
+# Files loaded, face records read and triangles assembled (after fan
+# triangulation), accumulated over calls; callers reset them.
+COUNTS = {"files": 0, "faces": 0, "triangles": 0}
+
 
 def load_obj(
     path: str,
@@ -32,19 +38,46 @@ def load_obj(
     """Parse an OBJ file into per-object triangle arrays.
 
     Returns a list of models, each ``{"vertices": f32[n,3,3],
-    "uvs": f32[n,3,2] | None, "name": str}``.
+    "uvs": f32[n,3,2] | None, "name": str}``.  Spans: ``rt.obj.load``
+    around ``rt.obj.parse`` (the text) and ``rt.obj.assemble`` (the
+    arrays; its argument is the triangle count).
     """
+    with profiling.span("obj.load"):
+        with profiling.span("obj.parse"):
+            positions, texcoords, groups, n_faces = _parse(path)
+        n_triangles = sum(len(faces) for _, faces in groups)
+        with profiling.span("obj.assemble", n_triangles):
+            pos = np.asarray(positions, np.float32)
+            tex = np.asarray(texcoords, np.float32) if texcoords else None
+            models = [_assemble(pos, tex, faces, name) for name, faces in groups]
+            for model in models:
+                v = model["vertices"]
+                if centered:
+                    v = v - v.reshape(-1, 3).mean(axis=0, keepdims=True)
+                if transform is not None:
+                    t = np.asarray(transform, np.float32)
+                    flat = v.reshape(-1, 3)
+                    # nalgebra's transform_vector: rotation/scale only, no
+                    # translation (hittable.rs:215-217 uses transform_vector).
+                    flat = flat @ t[:3, :3].T
+                    v = flat.reshape(-1, 3, 3)
+                model["vertices"] = np.ascontiguousarray(v, np.float32)
+    COUNTS["files"] += 1
+    COUNTS["faces"] += n_faces
+    COUNTS["triangles"] += n_triangles
+    return models
+
+
+def _parse(path: str):
+    """(positions, texcoords, [(name, triangles as ((vi, ti) x 3))], face
+    records) of an OBJ file; indices are resolved to 0-based, -1 for a
+    missing texture coordinate."""
     positions: list[list[float]] = []
     texcoords: list[list[float]] = []
-    models: list[dict] = []
+    groups: list[tuple[str, list]] = []
     cur_faces: list[list[tuple[int, int]]] = []
     cur_name = "default"
-
-    def flush():
-        nonlocal cur_faces, cur_name
-        if cur_faces:
-            models.append(_assemble(positions, texcoords, cur_faces, cur_name))
-        cur_faces = []
+    n_faces = 0
 
     with open(path) as f:
         for line in f:
@@ -58,9 +91,12 @@ def load_obj(
             elif tag == "vt":
                 texcoords.append([float(parts[1]), float(parts[2]) if len(parts) > 2 else 0.0])
             elif tag in ("o", "g"):
-                flush()
+                if cur_faces:
+                    groups.append((cur_name, cur_faces))
+                cur_faces = []
                 cur_name = parts[1] if len(parts) > 1 else "default"
             elif tag == "f":
+                n_faces += 1
                 verts = []
                 for token in parts[1:]:
                     fields = token.split("/")
@@ -74,33 +110,14 @@ def load_obj(
                 # Fan triangulation (tobj `triangulate` equivalent).
                 for k in range(1, len(verts) - 1):
                     cur_faces.append([verts[0], verts[k], verts[k + 1]])
-    flush()
-
-    for model in models:
-        v = model["vertices"]
-        if centered:
-            v = v - v.reshape(-1, 3).mean(axis=0, keepdims=True)
-        if transform is not None:
-            t = np.asarray(transform, np.float32)
-            flat = v.reshape(-1, 3)
-            # nalgebra's transform_vector: rotation/scale only, no
-            # translation (hittable.rs:215-217 uses transform_vector).
-            flat = flat @ t[:3, :3].T
-            v = flat.reshape(-1, 3, 3)
-        model["vertices"] = np.ascontiguousarray(v, np.float32)
-    return models
+    if cur_faces:
+        groups.append((cur_name, cur_faces))
+    return positions, texcoords, groups, n_faces
 
 
-def _assemble(positions, texcoords, faces, name) -> dict:
-    pos = np.asarray(positions, np.float32)
-    tex = np.asarray(texcoords, np.float32) if texcoords else None
-    n = len(faces)
-    vertices = np.empty((n, 3, 3), np.float32)
-    has_uv = tex is not None and all(ti >= 0 for face in faces for _, ti in face)
-    uvs = np.empty((n, 3, 2), np.float32) if has_uv else None
-    for i, face in enumerate(faces):
-        for j, (vi, ti) in enumerate(face):
-            vertices[i, j] = pos[vi]
-            if has_uv:
-                uvs[i, j] = tex[ti]
+def _assemble(pos: np.ndarray, tex: np.ndarray | None, faces, name) -> dict:
+    idx = np.asarray(faces, np.int64).reshape(len(faces), 3, 2)
+    has_uv = tex is not None and bool((idx[..., 1] >= 0).all())
+    vertices = pos[idx[..., 0]]
+    uvs = tex[idx[..., 1]] if has_uv else None
     return {"vertices": vertices, "uvs": uvs, "name": name}
