@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the brute-force kernels and K6's kernels of two checkouts of the
-port in turns, on one NVIDIA GPU.
+"""Time the kernels of two checkouts of the port in turns, on one NVIDIA
+GPU.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -20,11 +20,20 @@ this checkout's ``chip_smoke.timed_cuda``, at the bench configuration:
 - K6's scatter, reduce and gather ("full" and "unaligned")
   (``micro_probe.scatter``, ``reduce``, ``gather``) at the probe's inputs
   and shapes, at 8 and 1,024 reps, and each one's time a rep between the
-  two.
+  two;
+- K5 (``megakernel.render_megakernel`` on a clustered scene) on the scenes,
+  cameras and depths of rtbench's K5 cells, built as rtbench builds them:
+  a blob-frames frame (800x450, 64 spp) and a car-preview sweep (1920x1080,
+  4 spp);
+- K4 and K4b (``cluster_ops.cluster_worklist_nearest`` / ``cluster_nearest``)
+  on 65,536 rays of that blob frame (``chip_smoke.mesh_rays``: camera rays
+  and first bounces).
 
-It prints the card, one JSON line per run and, last, whether each output
-of the first change run equals the first parent run's bit for bit, and
-exits non-zero if one differs.  Outputs go to ``build/chip_ab/``.
+It prints the card, the registers and spills of each checkout's kernels
+(nvcc's ``-Xptxas -v`` lines, from the run that builds them), one JSON line
+per run and, last, whether each output of the first change run equals the
+first parent run's bit for bit, and exits non-zero if one differs.  Outputs
+go to ``build/chip_ab/``.
 """
 
 from __future__ import annotations
@@ -39,6 +48,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "build", "chip_ab")
 
 
+def cell_scene(name: str, dev):
+    """(scene on ``dev``, camera, RenderConfig) of rtbench's cell ``name``,
+    built as the benchmark builds it."""
+    from rtbench import check, drivers, harness
+
+    config = harness.load_cell(name)["config_spec"]
+    drivers.ensure_inputs(config)
+    scene, camera, cfg = drivers.build_scene(config, check.describe(config), {})
+    return scene.to(dev), camera, cfg
+
+
 def run(root: str, tag: str) -> None:
     """One timed run of the package of the checkout at ``root``."""
     sys.path.insert(0, root)
@@ -48,6 +68,7 @@ def run(root: str, tag: str) -> None:
     spec.loader.exec_module(smoke)
     import torch
 
+    from rt_tpu_torch import _build, cluster_ops
     from rt_tpu_torch import megakernel as mk
     from rt_tpu_torch import micro_probe as mp
     from rt_tpu_torch import nearest_ops as no
@@ -59,6 +80,10 @@ def run(root: str, tag: str) -> None:
         raise RuntimeError(f"{tag}: imported {mk.__file__}, not the checkout at {root}")
     timed = smoke.timed_cuda
     dev = torch.device("cuda:0")
+    _build.library()
+    for line in _build.build_info["log"].splitlines():
+        if "entry function" in line or "registers" in line or "spill" in line:
+            print(f"[ptxas {tag}] {line.strip()}", flush=True)
     scene, camera, cfg = scenes.bench_cover_config()
     scene.to(dev)
     wide_cam = scenes.cam1(1600, 900)
@@ -96,6 +121,18 @@ def run(root: str, tag: str) -> None:
         for reps in (8, 1024):
             outs[f"{body}_{reps}"], ms[f"{body}_{reps}reps_ms"] = timed(lambda: fn(reps), 5)
         ms[f"{body}_ms_per_rep"] = (ms[f"{body}_1024reps_ms"] - ms[f"{body}_8reps_ms"]) / 1016
+    blob, blob_cam, blob_cfg = cell_scene("blob-frames", dev)
+    car, car_cam, car_cfg = cell_scene("car-preview", dev)
+    outs["k5_blob"], ms["k5_blob_frame_ms"] = timed(
+        lambda: mk.render_megakernel(blob, blob_cam, blob_cfg, 64, 0, 1), 3)
+    outs["k5_car"], ms["k5_car_sweep_ms"] = timed(
+        lambda: mk.render_megakernel(car, car_cam, car_cfg, 4, 0, 1), 5)
+    cl = blob.clusters
+    walk = (smoke.mesh_rays(blob, blob_cam, blob_cfg, 65_536, dev),
+            *cluster_ops.cluster_tables(cl), cl.n_sph_slots, blob_cfg.t_min, blob_cfg.t_max,
+            blob_cfg.compat.triangle_backface_cull)
+    outs["k4"], ms["k4_ms"] = timed(lambda: cluster_ops.cluster_worklist_nearest(*walk), 20)
+    outs["k4b"], ms["k4b_ms"] = timed(lambda: cluster_ops.cluster_nearest(*walk), 20)
     os.makedirs(OUT, exist_ok=True)
     torch.save({k: [x.cpu() for x in v] if isinstance(v, tuple) else v.cpu()
                 for k, v in outs.items()}, os.path.join(OUT, f"{tag}.pt"))

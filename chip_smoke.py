@@ -931,6 +931,16 @@ def walk_counts(work: dict) -> dict:
     return {k: len(v) if isinstance(v, set) else v for k, v in work.items()}
 
 
+def row_share(work: dict) -> str:
+    """The slot-row bytes a plain walk's ``work`` says the kernels load
+    (only the lanes below each entered cluster's live count) against what
+    loading whole clusters would take."""
+    live = work.get("sphere_row_bytes", 0) + work.get("triangle_row_bytes", 0)
+    whole = work.get("sphere_row_bytes_whole", 0) + work.get("triangle_row_bytes_whole", 0)
+    return (f"slot-row bytes {live} of {whole} for whole clusters "
+            f"({100.0 * live / max(whole, 1):.2f}%)")
+
+
 def walk_bound(work: dict, nbytes: float, scale: float = 1.0) -> tuple[float, str]:
     """Least time of a cluster walk that made ``work``'s tests ``scale``
     times over and moved ``nbytes``."""
@@ -1012,7 +1022,7 @@ def k4_rays_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
     hits = int((ref[1] >= 0).sum())
     print(f"[K4] {n} rays (camera + first bounce) x {scene.num_spheres} spheres + "
           f"{scene.num_triangles} triangles over the whole tables: equal to plain "
-          f"{equal(got, ref)}, hits {hits}; walk work {walk_counts(work)}")
+          f"{equal(got, ref)}, hits {hits}; walk work {walk_counts(work)}; {row_share(work)}")
     check(equal(got, ref) and hits > n // 4, "K4: kernel and plain version disagree")
     k4 = (0.0, ms, plain_ms,
           *walk_bound(work, walk_bytes(work, n, whole[0].shape[0] + whole[3].shape[0])))
@@ -1096,10 +1106,12 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
 
 def k5_small_phase(dev):
     """K5 against its plain version, bit for bit: the 32x24 triangle-cloud and image-textured triangle scenes of
-    tests/test_megakernel_cluster.py, and the tie scene seen from above."""
+    tests/test_megakernel_cluster.py, the tie scene seen from above, and the
+    prefix scenes of tests/torch_cluster_cases.py (clusters of 1 to 128
+    live slots), on which K4 and K4b are held against plain too."""
     import torch
 
-    from rt_tpu_torch import megakernel as mk
+    from rt_tpu_torch import cluster_ops, megakernel as mk
     from rt_tpu_torch import scene as tscene
     from rt_tpu_torch.camera import make_camera
     from rt_tpu_torch.config import RenderConfig
@@ -1121,6 +1133,24 @@ def k5_small_phase(dev):
         print(f"[K5] {name} 32x24 2 spp depth 6: equal to plain {same}; mean "
               f"{float(ref.mean()):.4f}")
         check(same, f"K5 {name}: kernel and plain version disagree")
+    above = make_camera((3.0, -6.0, 6.0), (3.0, 0.0, 0.5), (0, 0, 1), focus_distance=8.0,
+                        defocus_angle=0.0, image_width=32, image_height=24, vertical_fov=60.0)
+    for case in cases.PREFIX_CASES:
+        small = cases.prefix_scene(case)[0].to(dev)
+        cl = small.clusters
+        rays = cases.prefix_rays(cl).to(dev)
+        walks = True
+        for cull in (True, False):
+            args = (rays, *cluster_ops.cluster_tables(cl), cl.n_sph_slots, 1e-3, 1e9, cull)
+            ref = cluster_ops.cluster_nearest_plain(*args)
+            walks = walks and equal(cluster_ops.cluster_nearest(*args), ref) and equal(
+                cluster_ops.cluster_worklist_nearest(*args), ref)
+        ref = mk.render_megakernel_plain(small, above, small_cfg, 2, 0, 0)
+        same = bool(torch.equal(mk.render_megakernel(small, above, small_cfg, 2, 0, 0), ref))
+        print(f"[K5] prefix scene {case} 32x24 2 spp depth 6: equal to plain {same}; mean "
+              f"{float(ref.mean()):.4f}; K4 and K4b on its {rays.shape[1]} rays, cull on and off, "
+              f"equal to plain {walks}")
+        check(same and walks, f"prefix scene {case}: a clustered kernel and plain disagree")
 
 
 def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 9,
@@ -1170,7 +1200,7 @@ def k5_phase(dev, name, scene, camera, cfg, frame, frame_ms: float, runs: int = 
     print(f"[K5] {name} {w}x{h} {spp} spp depth {cfg.max_depth}: the full-frame launch "
           f"against plain on {len(bases)} runs of {run_len} pixels (first pixels "
           f"{bases}): equal {same}, max|d| {err:.3e}, sample mean {float(refs.mean()):.4f}; "
-          f"walk work {walk_counts(work)}, {len(winners)} distinct winners")
+          f"walk work {walk_counts(work)}, {len(winners)} distinct winners; {row_share(work)}")
     check(same and bool(torch.isfinite(refs).all()) and float(refs.mean()) > 0.01,
           f"K5: kernel and plain version disagree on the {name} frame")
     cl = scene.clusters

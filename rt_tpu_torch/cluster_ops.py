@@ -22,7 +22,9 @@ wins, spheres before triangles.
 
 On a CUDA tensor each wrapper launches the kernel of csrc/cluster_nearest.cu
 (one kernel for both; the walk itself is csrc/cluster_walk.cuh, which K5
-shares) or raises; on a CPU tensor it runs ``cluster_nearest_plain``, the
+shares) or raises; the kernels also read each cluster's live count
+(``live_counts``), so that an entered cluster's lanes past its last live
+slot load nothing; on a CPU tensor it runs ``cluster_nearest_plain``, the
 same walk in plain PyTorch, which the tests hold against the Pallas kernels
 in interpret mode and against which the kernel is held on the card.  The
 clustered megakernel's plain version searches through it too.
@@ -32,6 +34,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from torch.utils.weak import WeakIdKeyDictionary
 
 from rt_tpu_torch import _build
 from rt_tpu_torch.elementwise import div
@@ -48,10 +52,44 @@ PAD_ADD = float(np.float32(1e-6))
 # Rays per pass of the plain walk: bounds its [rays, 128] temporaries.
 _PLAIN_CHUNK = 1 << 16
 
+# Per kind: the slot table's row that says whether a slot is live, the value
+# a live slot's row is above, and the field rows a lane loads for its pair
+# tests (csrc/cluster_walk.cuh walk_cluster).
+LIVE_ROW = {"sphere": 3, "triangle": 9}  # the radius; the valid flag
+LIVE_MIN = {"sphere": 0.0, "triangle": 0.5}
+PAIR_ROWS = {"sphere": 4, "triangle": 10}
+LANE_SLOTS = 4  # slots a lane of the warp walk tests: one 16-byte load a row
+# live_counts' results by slot table: (the table's version, the counts).
+_LIVE_COUNTS = WeakIdKeyDictionary()
+
 # Launches of the CUDA kernel per wrapper since the last reset.  Only the
 # wrappers change them, once per launch; callers read and reset them to
 # show that a run went through the kernel.
 LAUNCHES = {"cluster_worklist_nearest": 0, "cluster_nearest": 0}
+
+
+def live_counts(slots: torch.Tensor, kind: str) -> torch.Tensor:
+    """Each cluster's live count in a slot table of ``kind`` ("sphere" or
+    "triangle"): int32[n_clusters] on the table's device, the index of the
+    cluster's last live slot plus one (0 for a cluster with none).  The
+    kernels' walk loads and tests only the lanes that hold a slot below it.
+    Computed once per table (again only after an in-place change to it) and
+    kept while the table lives, so that a launch only looks it up."""
+    got = _LIVE_COUNTS.get(slots)
+    if got is not None and got[0] == slots._version:
+        return got[1]
+    alive = (slots[LIVE_ROW[kind]] > LIVE_MIN[kind]).reshape(-1, CLUSTER_SLOTS)
+    pos = torch.arange(1, CLUSTER_SLOTS + 1, dtype=torch.int32, device=slots.device)
+    counts = torch.where(alive, pos, 0).amax(dim=1).to(torch.int32).contiguous()
+    _LIVE_COUNTS[slots] = (slots._version, counts)
+    return counts
+
+
+def row_bytes(live: int, kind: str) -> tuple[int, int]:
+    """Slot-row bytes the warp walk loads for one ray entering a cluster of
+    live count ``live``: (the lanes below the live count, all 32 lanes)."""
+    lane_bytes = 4 * LANE_SLOTS * PAIR_ROWS[kind]
+    return -(-live // LANE_SLOTS) * lane_bytes, CLUSTER_SLOTS // LANE_SLOTS * lane_bytes
 
 
 def _enters(box, r, best):
@@ -119,13 +157,15 @@ def _triangle_pairs(r, s, t_min: float, t_max: float, cull: bool):
 
 
 def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_base: int, pairs,
-              live_row: int, live_min: float, work: dict | None, kind: str):
+              work: dict | None, kind: str):
     """One kind's walk for all rays r, in the kernel's order: supers in
     turn, each entered super's clusters in turn, each entered cluster's
-    slots; ``best_t``/``best_i`` [N] are updated in place.  Slots whose
-    ``live_row`` is not above ``live_min`` can never be hit; ``work``, when
+    slots; ``best_t``/``best_i`` [N] are updated in place.  ``work``, when
     given, counts the slab tests and the pair tests the walk makes on live
-    boxes and slots, as the kernel makes them, and gathers the supers and
+    boxes and slots, as the kernel makes them, and the slot-row bytes the
+    kernel loads for the clusters it enters (``row_bytes``:
+    "<kind>_row_bytes" for the lanes below each cluster's live count,
+    "<kind>_row_bytes_whole" for all 32 lanes), and gathers the supers and
     clusters some ray entered (by their index in the unpaged tables,
     ``slot_base`` / CLUSTER_SLOTS + the page's own index)."""
     sup_live = (supers[:, 0] <= supers[:, 3]).tolist()
@@ -133,7 +173,11 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_bas
     n_clusters = clusters.shape[0]
     first = slot_base // CLUSTER_SLOTS
     if work is not None:
-        live_slots = (slots[live_row] > live_min).reshape(-1, CLUSTER_SLOTS).sum(dim=1).tolist()
+        alive = (slots[LIVE_ROW[kind]] > LIVE_MIN[kind]).reshape(-1, CLUSTER_SLOTS)
+        live_slots = alive.sum(dim=1).tolist()
+        loads = [row_bytes(n, kind) for n in live_counts(slots, kind).tolist()]
+        for key in ("row_bytes", "row_bytes_whole"):
+            work.setdefault(f"{kind}_{key}", 0)
         work["slab"] = work.get("slab", 0) + r["ox"].shape[0] * sum(sup_live)
         entered_supers = work.setdefault(f"{kind}_supers", set())
         entered_clusters = work.setdefault(f"{kind}_clusters", set())
@@ -160,6 +204,8 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_bas
                 continue
             if work is not None:
                 work[f"{kind}_pairs"] = work.get(f"{kind}_pairs", 0) + rows.numel() * live_slots[ci]
+                work[f"{kind}_row_bytes"] += rows.numel() * loads[ci][0]
+                work[f"{kind}_row_bytes_whole"] += rows.numel() * loads[ci][1]
                 entered_clusters.add(first + ci)
             cand = pairs({key: v[rows] for key, v in sub.items()},
                          slots[:, ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS])
@@ -182,8 +228,11 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tr
     the same ``tn < best`` rule, in the kernel's order, with pair tests over
     each ray's entered clusters only.  ``work``, when given, accumulates the
     walk's slab tests ("slab") and pair tests ("sphere_pairs",
-    "triangle_pairs"), and the sets of supers and clusters some ray entered
-    ("sphere_supers", "sphere_clusters", "triangle_supers",
+    "triangle_pairs"), the slot-row bytes the kernel loads under the live
+    counts and under whole clusters ("sphere_row_bytes",
+    "sphere_row_bytes_whole", "triangle_row_bytes",
+    "triangle_row_bytes_whole"), and the sets of supers and clusters some
+    ray entered ("sphere_supers", "sphere_clusters", "triangle_supers",
     "triangle_clusters"), from which a measurement works out the kernel's
     least time."""
     n = rays.shape[1]
@@ -202,9 +251,9 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tr
             r[axis] = div(1.0, torch.where(torch.abs(d) > tiny, d, tiny.to(device)))
         best_t, best_i = t_out[lo : lo + _PLAIN_CHUNK], i_out[lo : lo + _PLAIN_CHUNK]
         _walk_set(r, best_t, best_i, sph_super, sph_cluster, sph_slots, sph_slot_base,
-                  sph_slot_base, sph_pairs, 3, 0.0, work, "sphere")
+                  sph_slot_base, sph_pairs, work, "sphere")
         _walk_set(r, best_t, best_i, tri_super, tri_cluster, tri_slots,
-                  n_sph_slots + tri_slot_base, tri_slot_base, tri_pairs, 9, 0.5, work, "triangle")
+                  n_sph_slots + tri_slot_base, tri_slot_base, tri_pairs, work, "triangle")
     return t_out, i_out
 
 
@@ -268,12 +317,14 @@ def cluster_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_clus
 def cluster_args(tables, device, name: str = "cluster tables") -> list:
     """The C arguments of one clustered scene's tables for the kernels of
     csrc/cluster_walk.cuh: per kind (supers, count, clusters, count,
-    slots), each tensor checked to be a contiguous f32 on ``device``."""
+    slots, live counts), each table checked to be a contiguous f32 on
+    ``device``, the live counts ``live_counts``' int32."""
     out = []
-    for kind, (sup, cl, slots) in (("sph", tables[0:3]), ("tri", tables[3:6])):
+    for kind, (sup, cl, slots) in (("sphere", tables[0:3]), ("triangle", tables[3:6])):
         for t, what in ((sup, "super"), (cl, "cluster"), (slots, "slots")):
-            _build.require(t, f"{name}: {kind}_{what}", device)
-        out += [sup.data_ptr(), sup.shape[0], cl.data_ptr(), cl.shape[0], slots.data_ptr()]
+            _build.require(t, f"{name}: {kind[:3]}_{what}", device)
+        out += [sup.data_ptr(), sup.shape[0], cl.data_ptr(), cl.shape[0], slots.data_ptr(),
+                live_counts(slots, kind).data_ptr()]
     return out
 
 
@@ -285,8 +336,8 @@ def _launch(name: str, rays, tables, sph_base: int, tri_base: int, t_min: float,
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     _build.require(rays, f"{name}: rays", device)
-    s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots = cluster_args(
-        tables, device, name)
+    s_sup, s_n_sup, s_cl, s_n_cl, s_slots, s_live, t_sup, t_n_sup, t_cl, t_n_cl, t_slots, t_live = (
+        cluster_args(tables, device, name))
     n = rays.shape[1]
     t_out = torch.empty((n,), dtype=torch.float32, device=device)
     idx = torch.empty((n,), dtype=torch.int32, device=device)
@@ -294,8 +345,8 @@ def _launch(name: str, rays, tables, sph_base: int, tri_base: int, t_min: float,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rt_cluster_nearest(
-            rays.data_ptr(), n, s_sup, s_n_sup, s_cl, s_n_cl, s_slots, int(sph_base),
-            t_sup, t_n_sup, t_cl, t_n_cl, t_slots, int(tri_base), t_min, t_max,
+            rays.data_ptr(), n, s_sup, s_n_sup, s_cl, s_n_cl, s_slots, s_live, int(sph_base),
+            t_sup, t_n_sup, t_cl, t_n_cl, t_slots, t_live, int(tri_base), t_min, t_max,
             int(bool(backface_cull)), t_out.data_ptr(), idx.data_ptr(), stream,
         )
     if err != 0:

@@ -64,8 +64,8 @@ cluster_nearest_kernel(const float* __restrict__ rays, int n, int per_warp, rt::
 }
 
 rt::ClusterSet make_set(const float* supers, int n_supers, const float* clusters,
-                        int n_clusters, const float* slots, int id_base) {
-  return rt::ClusterSet{supers, clusters, slots, n_supers, n_clusters,
+                        int n_clusters, const float* slots, const int* live, int id_base) {
+  return rt::ClusterSet{supers, clusters, slots, live, n_supers, n_clusters,
                         (long long)n_clusters * rt::kClusterSlots, id_base};
 }
 
@@ -90,22 +90,24 @@ cudaError_t launch(const float* rays, int n, const rt::ClusterSet& sph, const rt
 }  // namespace
 
 // C entry point (ctypes).  Every pointer is device memory: rays f32[8, n];
-// per kind the super and cluster AABBs f32[., 8] (16-byte aligned) and the
-// slot table f32[rows, n_clusters * 128].  Launches on `stream` and returns the
-// CUDA error of the launch (0 on success); it neither allocates nor
-// synchronizes.
+// per kind the super and cluster AABBs f32[., 8] (16-byte aligned), the
+// slot table f32[rows, n_clusters * 128] and each cluster's live count
+// i32[n_clusters] (its last live slot + 1).  Launches on `stream` and
+// returns the CUDA error of the launch (0 on success); it neither allocates
+// nor synchronizes.
 extern "C" int rt_cluster_nearest(const float* rays, int n, const float* sph_super,
                                   int n_sph_super, const float* sph_cluster, int n_sph_cluster,
-                                  const float* sph_slots, int sph_base, const float* tri_super,
-                                  int n_tri_super, const float* tri_cluster, int n_tri_cluster,
-                                  const float* tri_slots, int tri_base, float t_min, float t_max,
-                                  int backface_cull, float* t_out, int* idx_out,
-                                  cudaStream_t stream) {
+                                  const float* sph_slots, const int* sph_live, int sph_base,
+                                  const float* tri_super, int n_tri_super,
+                                  const float* tri_cluster, int n_tri_cluster,
+                                  const float* tri_slots, const int* tri_live, int tri_base,
+                                  float t_min, float t_max, int backface_cull, float* t_out,
+                                  int* idx_out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const rt::ClusterSet sph =
-      make_set(sph_super, n_sph_super, sph_cluster, n_sph_cluster, sph_slots, sph_base);
-  const rt::ClusterSet tri =
-      make_set(tri_super, n_tri_super, tri_cluster, n_tri_cluster, tri_slots, tri_base);
+  const rt::ClusterSet sph = make_set(sph_super, n_sph_super, sph_cluster, n_sph_cluster,
+                                      sph_slots, sph_live, sph_base);
+  const rt::ClusterSet tri = make_set(tri_super, n_tri_super, tri_cluster, n_tri_cluster,
+                                      tri_slots, tri_live, tri_base);
   return static_cast<int>(
       launch(rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out, stream));
 }

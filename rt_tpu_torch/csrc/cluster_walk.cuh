@@ -27,7 +27,11 @@
 //   - slots: lane l tests slots 4l..4l+3 of an entered cluster, so a field
 //     row of the cluster (128 consecutive floats, 512 B) is one coalesced
 //     16-byte load a lane and a cluster's 4 or 10 rows are in flight at
-//     once; a warp minimum picks the winner.
+//     once; a warp minimum picks the winner.  Only the lanes that hold a
+//     live slot load and test (4l < the cluster's live count, the index of
+//     its last live slot plus one): cluster.build_clusters packs each
+//     cluster's primitives at its front and leaves about a third of the
+//     slots dead, so a cluster of 80 live slots moves 20 lanes' rows, not 32.
 // The super and cluster boxes are read through the read-only cache
 // (__ldg): the blob's ~40 KB of boxes stay in L1/L2, and staging them in
 // shared memory once a block (a bulk asynchronous copy on an mbarrier) was
@@ -36,7 +40,8 @@
 // callers keep enough warps resident to hide them.
 //
 // Exactness: the walk visits the same boxes and slots as a sequential scan
-// and returns the same t and id, bit for bit:
+// and returns the same t and id, bit for bit (a lane that loads nothing
+// holds only slots past the last live one, which are never valid):
 //   - a box is admitted ignoring the best t, then entered only if its entry
 //     distance tn < best_t when it is reached: that is the padded slab test
 //     with the current best, since nothing else in it depends on best;
@@ -79,6 +84,7 @@ struct ClusterSet {
   const float* supers;    // [n_supers, 8]: lo xyz, hi xyz, pad
   const float* clusters;  // [n_clusters, 8]
   const float* slots;     // [rows, stride] field-row-major, global memory
+  const int* live;        // [n_clusters]: last live slot + 1 (cluster_ops.live_counts)
   int n_supers, n_clusters;
   long long stride;       // n_clusters * 128
   int id_base;
@@ -120,70 +126,79 @@ __device__ __forceinline__ float component(const float4& v, int q) {
   return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
 }
 
-// The pair tests of entered cluster ci (pallas_ops.py sphere pair test
-// :412-430, triangle pair test :442-480), lane l taking slots 4l..4l+3 (one
-// 16-byte load a field row: all of a cluster's rows are in flight at once),
-// and the warp's winner; best_t/best_i (the same in every lane) are updated.
+// The pair test of one slot, its fields in v (center xyz, radius; or a,
+// e1, e2, the live flag): whether the ray hits it in [t_min, t_max), and
+// at t (pallas_ops.py sphere pair test :412-430, triangle pair test
+// :442-480).
 template <bool kSpheres>
-__device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, const WalkRay& r,
-                                             float t_min, float t_max, bool cull, int lane,
-                                             float& best_t, int& best_i) {
+__device__ __forceinline__ bool pair_test(const float* v, const WalkRay& r, float t_min,
+                                          float t_max, bool cull, float& t) {
+  if (kSpheres) {
+    const float rad = v[3];
+    const float ocx = v[0] - r.ox;
+    const float ocy = v[1] - r.oy;
+    const float ocz = v[2] - r.oz;
+    const float h = r.dx * ocx + r.dy * ocy + r.dz * ocz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+    const float disc = h * h - r.a * c;
+    const float sd = sqrtf(fmaxf(disc, 0.0f));
+    const float t0 = (h - sd) * r.inv_a;
+    const float t1 = (h + sd) * r.inv_a;
+    t = t0 >= t_min ? t0 : t1;
+    return rad > 0.0f && disc >= 0.0f && t >= t_min && t < t_max;
+  }
+  const float ax = v[0], ay = v[1], az = v[2];
+  const float e1x = v[3], e1y = v[4], e1z = v[5];
+  const float e2x = v[6], e2y = v[7], e2z = v[8];
+  const float uvx = r.dy * e2z - r.dz * e2y;
+  const float uvy = r.dz * e2x - r.dx * e2z;
+  const float uvz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * uvx + e1y * uvy + e1z * uvz;
+  const bool det_ok = cull ? det > (float)1e-7 : fabsf(det) > (float)1e-7;
+  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+  const float aox = r.ox - ax, aoy = r.oy - ay, aoz = r.oz - az;
+  const float u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det;
+  const float vvx = aoy * e1z - aoz * e1y;
+  const float vvy = aoz * e1x - aox * e1z;
+  const float vvz = aox * e1y - aoy * e1x;
+  const float w = (r.dx * vvx + r.dy * vvy + r.dz * vvz) * inv_det;
+  t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det;
+  return v[9] > 0.5f && det_ok && u >= 0.0f && u <= 1.0f && w >= 0.0f && u + w <= 1.0f &&
+         t >= t_min && t < t_max && t > (float)1e-7;
+}
+
+// The pair tests of entered cluster ci, lane l taking slots 4l..4l+3 (one
+// 16-byte load a field row: all of a cluster's rows are in flight at once)
+// when 4l < live, ci's live count, and the warp's winner; best_t/best_i
+// (the same in every lane) are updated.
+template <bool kSpheres>
+__device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, int live,
+                                             const WalkRay& r, float t_min, float t_max,
+                                             bool cull, int lane, float& best_t, int& best_i) {
   constexpr int kRows = kSpheres ? 4 : 10;
-  const float4* __restrict__ f =
-      reinterpret_cast<const float4*>(s.slots + (long long)ci * kClusterSlots) + lane;
-  const long long st = s.stride / 4;  // a field row, in float4
-  float4 row[kRows];
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) row[k] = __ldg(f + k * st);
   unsigned lane_key = kNoKey;
   int lane_slot = 0;
   float lane_t = 0.0f;
+  if (4 * lane < live) {
+    const float4* __restrict__ f =
+        reinterpret_cast<const float4*>(s.slots + (long long)ci * kClusterSlots) + lane;
+    const long long st = s.stride / 4;  // a field row, in float4
+    float4 row[kRows];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    float t;
-    bool ok;
-    if (kSpheres) {
-      const float rad = component(row[3], q);
-      const float ocx = component(row[0], q) - r.ox;
-      const float ocy = component(row[1], q) - r.oy;
-      const float ocz = component(row[2], q) - r.oz;
-      const float h = r.dx * ocx + r.dy * ocy + r.dz * ocz;
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-      const float disc = h * h - r.a * c;
-      const float sd = sqrtf(fmaxf(disc, 0.0f));
-      const float t0 = (h - sd) * r.inv_a;
-      const float t1 = (h + sd) * r.inv_a;
-      t = t0 >= t_min ? t0 : t1;
-      ok = rad > 0.0f && disc >= 0.0f && t >= t_min && t < t_max;
-    } else {
-      const float ax = component(row[0], q), ay = component(row[1], q);
-      const float az = component(row[2], q);
-      const float e1x = component(row[3], q), e1y = component(row[4], q);
-      const float e1z = component(row[5], q);
-      const float e2x = component(row[6], q), e2y = component(row[7], q);
-      const float e2z = component(row[8], q);
-      const float live = component(row[kRows - 1], q);
-      const float uvx = r.dy * e2z - r.dz * e2y;
-      const float uvy = r.dz * e2x - r.dx * e2z;
-      const float uvz = r.dx * e2y - r.dy * e2x;
-      const float det = e1x * uvx + e1y * uvy + e1z * uvz;
-      const bool det_ok = cull ? det > (float)1e-7 : fabsf(det) > (float)1e-7;
-      const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-      const float aox = r.ox - ax, aoy = r.oy - ay, aoz = r.oz - az;
-      const float u = (aox * uvx + aoy * uvy + aoz * uvz) * inv_det;
-      const float vvx = aoy * e1z - aoz * e1y;
-      const float vvy = aoz * e1x - aox * e1z;
-      const float vvz = aox * e1y - aoy * e1x;
-      const float v = (r.dx * vvx + r.dy * vvy + r.dz * vvz) * inv_det;
-      t = (e2x * vvx + e2y * vvy + e2z * vvz) * inv_det;
-      ok = live > 0.5f && det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-           t >= t_min && t < t_max && t > (float)1e-7;
-    }
-    const unsigned key = ok ? order_key(t) : kNoKey;
-    if (key < lane_key) {  // ascending slots, strict: the lane's lowest slot wins its ties
-      lane_key = key;
-      lane_slot = 4 * lane + q;
-      lane_t = t;
+    for (int k = 0; k < kRows; ++k) row[k] = __ldg(f + k * st);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) v[k] = component(row[k], q);
+      float t;
+      const bool ok = pair_test<kSpheres>(v, r, t_min, t_max, cull, t);
+      const unsigned key = ok ? order_key(t) : kNoKey;
+      if (key < lane_key) {  // ascending slots, strict: the lane's lowest slot wins its ties
+        lane_key = key;
+        lane_slot = 4 * lane + q;
+        lane_t = t;
+      }
     }
   }
   const unsigned least = __reduce_min_sync(kFullMask, lane_key);
@@ -197,16 +212,19 @@ __device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, const 
 }
 
 // Visits the admitted boxes of one ballot in ascending order, entering each
-// whose entry distance (held by the lane of its bit) is below the best t.
+// whose entry distance (held by the lane of its bit, beside its live count)
+// is below the best t.
 template <bool kSpheres>
 __device__ __forceinline__ void visit_clusters(const ClusterSet& s, unsigned admitted, float tn_lane,
-                                               int first, const WalkRay& r, float t_min,
-                                               float t_max, bool cull, int lane, float& best_t,
-                                               int& best_i) {
+                                               int live_lane, int first, const WalkRay& r,
+                                               float t_min, float t_max, bool cull, int lane,
+                                               float& best_t, int& best_i) {
   for (unsigned m = admitted; m; m &= m - 1) {
     const int b = __ffs(m) - 1;
-    if (!(__shfl_sync(kFullMask, tn_lane, b) < best_t)) continue;
-    walk_cluster<kSpheres>(s, first + b, r, t_min, t_max, cull, lane, best_t, best_i);
+    const float tn = __shfl_sync(kFullMask, tn_lane, b);
+    const int live = __shfl_sync(kFullMask, live_lane, b);
+    if (!(tn < best_t)) continue;
+    walk_cluster<kSpheres>(s, first + b, live, r, t_min, t_max, cull, lane, best_t, best_i);
   }
 }
 
@@ -226,13 +244,17 @@ __device__ __forceinline__ void walk_set(const ClusterSet& s, const WalkRay& r, 
       const int c0 = (s0 + b) * kSuperClusters;
       float tn_lo = 0.0f, tn_hi = 0.0f;
       const int cl = c0 + lane, ch = c0 + 32 + lane;
+      // Each lane's clusters' live counts, loaded beside their boxes.
+      const int live_lo = cl < s.n_clusters ? __ldg(s.live + cl) : 0;
+      const int live_hi = ch < s.n_clusters ? __ldg(s.live + ch) : 0;
       const bool adm_lo = cl < s.n_clusters && admits(s.clusters + 8 * cl, r, tn_lo);
       const bool adm_hi = ch < s.n_clusters && admits(s.clusters + 8 * ch, r, tn_hi);
       const unsigned m_lo = __ballot_sync(kFullMask, adm_lo);
       const unsigned m_hi = __ballot_sync(kFullMask, adm_hi);
-      visit_clusters<kSpheres>(s, m_lo, tn_lo, c0, r, t_min, t_max, cull, lane, best_t, best_i);
-      visit_clusters<kSpheres>(s, m_hi, tn_hi, c0 + 32, r, t_min, t_max, cull, lane, best_t,
+      visit_clusters<kSpheres>(s, m_lo, tn_lo, live_lo, c0, r, t_min, t_max, cull, lane, best_t,
                                best_i);
+      visit_clusters<kSpheres>(s, m_hi, tn_hi, live_hi, c0 + 32, r, t_min, t_max, cull, lane,
+                               best_t, best_i);
     }
   }
 }

@@ -268,8 +268,7 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base,
             raise ValueError(f"clusters.shade_table: need [{fast_shade.F_ROWS}, >= {n_slots}]")
         if cl.n_sph_slots != cl.sph_slots.shape[1]:
             raise ValueError("clusters.n_sph_slots differs from the sphere slot count")
-        s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots = (
-            cluster_ops.cluster_args(tables, device, "megakernel_clustered"))
+        walk_args = cluster_ops.cluster_args(tables, device, "megakernel_clustered")
         pf = kernel_params(scene, camera, cfg, spp)
         out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
         next_pixel = torch.zeros((1,), dtype=torch.int32, device=device)
@@ -281,8 +280,7 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base,
             pf.ctypes.data, n_pixels, pixel_base, spp, sample_offset, seed & 0xFFFFFFFF,
             camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
             atlas.shape[0], atlas.shape[1], flags,
-            s_sup, s_n_sup, s_cl, s_n_cl, s_slots, t_sup, t_n_sup, t_cl, t_n_cl, t_slots,
-            cl.n_sph_slots, table.data_ptr(), atlas.data_ptr(), out.data_ptr(),
+            *walk_args, cl.n_sph_slots, table.data_ptr(), atlas.data_ptr(), out.data_ptr(),
             next_pixel.data_ptr(), stream,
         )
     if err != 0:

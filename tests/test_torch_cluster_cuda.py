@@ -2,8 +2,10 @@
 
 The ``cuda`` tests run only where a card is present: built without fused
 multiply-adds, each kernel must agree with its plain version bit for bit
-(winners and t for K4/K4b, the image for K5), on the test scenes and on the
-tie scene of test_torch_walk_order.py.  This file imports nothing of the JAX package, so
+(winners and t for K4/K4b, the image for K5), on the test scenes, on the
+tie scene of test_torch_walk_order.py and on the prefix scenes of
+torch_cluster_cases.py, whose clusters hold 1 to 128 live slots (so the
+last lane that loads a cluster holds live and dead slots, or none loads).  This file imports nothing of the JAX package, so
 that it also runs on a machine that has PyTorch for CUDA but not the JAX
 package's dependencies; the comparisons with the JAX package are in
 test_torch_cluster.py and test_torch_clustered.py.
@@ -137,3 +139,37 @@ def test_cuda_cluster_kernel_ties_bit_for_bit():
             for a, b in zip(got, ref):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert (ref[1] >= 0).sum() > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(cases.PREFIX_CASES))
+def test_cuda_cluster_kernels_on_partly_filled_clusters(case):
+    """K4 (whole tables and its one page), K4b and K5 on a prefix scene:
+    clusters of live counts 1 to 128, one with none, and a last live slot
+    that ties an earlier one.  Winners, t and the image bit for bit."""
+    _cuda()
+    scene, _ = cases.prefix_scene(case)
+    scene = scene.to("cuda")
+    cl = scene.clusters
+    rays = cases.prefix_rays(cl).to("cuda")
+    for cull in (True, False):
+        ref = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
+                                                cull)
+        for fn in (cluster_ops.cluster_nearest, cluster_ops.cluster_worklist_nearest):
+            got = fn(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX, cull)
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        page = cl.pages[0]
+        got = cluster_ops.cluster_worklist_nearest(rays, *_tables(page), cl.n_sph_slots, T_MIN,
+                                                   T_MAX, cull, page.sph_slot_base,
+                                                   page.tri_slot_base)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert (ref[1] >= 0).sum() > rays.shape[1] // 4
+    above = make_camera((3.0, -6.0, 6.0), (3.0, 0.0, 0.5), (0, 0, 1), focus_distance=8.0,
+                        defocus_angle=0.0, image_width=W, image_height=H, vertical_fov=60.0)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=2, max_depth=6)
+    ref = megakernel.render_megakernel_plain(scene, above, cfg, 2, 0, 0)
+    got = megakernel.render_megakernel(scene, above, cfg, 2, 0, 0)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert float(ref.mean()) > 0.01

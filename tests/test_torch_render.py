@@ -122,7 +122,7 @@ def test_import_loads_no_jax():
         "import rt_tpu_torch.debug, rt_tpu_torch.viewer, rt_tpu_torch.term_preview\n"
         "import rt_tpu_torch.parallel, rt_tpu_torch.graft_entry\n"
         "import bench_cuda, bench_grad_cuda, bench_scenes_cuda, cluster_bench_cuda\n"
-        "import bench_scaling_cuda\n"
+        "import bench_scaling_cuda, walk_counts_cuda\n"
         "from rt_tpu_torch.bvh import native\n"
         "assert native.available(), 'the port builds its own BVH library'\n"
         "bad = sorted(m for m in sys.modules\n"

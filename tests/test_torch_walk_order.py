@@ -6,7 +6,9 @@ lane slab-tests boxes ``lane, lane + 32, ...`` ignoring the ray's best t, a
 ballot gives the admitted boxes, and they are visited in ascending order,
 each entered only if its entry distance is below the best t at that moment;
 an entered cluster's 128 slots are tested 4 a lane (lane l takes slots 4l
-to 4l + 3), and the winner is the least packed key (order(t), slot) over a
+to 4l + 3, and only when 4l is below the cluster's live count, the index of
+its last live slot plus one: the other lanes load nothing and hold no
+key), and the winner is the least packed key (order(t), slot) over a
 lane's 4 slots, then over 32 lanes, which replaces the best only when its t
 is below it.  ``warp_walk`` below
 is a plain-PyTorch model of exactly that, vectorized over rays; the tests
@@ -18,7 +20,11 @@ sphere-and-triangle scene and a tie scene built here: a triangulated grid
 another within its cluster, and a new super whose clusters repeat the
 first cluster of each kind, so that equal t occur within a cluster and
 across clusters and supers.  Its rays run down through the grid's
-vertices, edges and diagonals and along the planes of its boxes.
+vertices, edges and diagonals and along the planes of its boxes.  The
+prefix scenes of tests/torch_cluster_cases.py fill their clusters to live
+counts 1, 3, 4, 5, 64, 127 and 128, put a cluster with no live slot where
+its predecessor's rays enter it, and make the last live slot tie an
+earlier one; their rays go onto every live slot.
 
 The kernels themselves are held against the plain version on the card
 (tests/test_torch_cluster_cuda.py, chip_smoke.py), on this tie scene too.
@@ -30,6 +36,7 @@ import pytest
 import torch
 
 from rt_tpu_torch import cluster_ops
+from rt_tpu_torch.cluster import build_clusters, pack_sphere_slots, pack_triangle_slots
 from rt_tpu_torch import scene as tscene
 from rt_tpu_torch.cluster_ops import BIG, CLUSTER_SLOTS, SUPER_CLUSTERS
 from rt_tpu_torch.elementwise import div
@@ -54,22 +61,25 @@ def order_key(t: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 1 << 31, ~bits & 0xFFFFFFFF, bits | (1 << 31))
 
 
-def lane_minimum(cand: torch.Tensor, stats: dict):
+def lane_minimum(cand: torch.Tensor, live: int, stats: dict):
     """The warp's winner of one cluster for each ray: ``cand`` [K, 128]
-    holds each slot's t (BIG where the slot is not a valid hit).  Lane l
-    keeps its least key over slots 4l + q, q ascending with a strict
-    ``<``; the warp takes the least key, then the least slot among the
-    lanes that hold it, then that slot's t.  Returns (t, slot, valid)."""
+    holds each slot's t (BIG where the slot is not a valid hit), ``live``
+    is the cluster's live count.  Lane l takes part only when 4l < live,
+    and then keeps its least key over slots 4l + q, q ascending with a
+    strict ``<``; the warp takes the least key, then the least slot among
+    the lanes that hold it, then that slot's t.  Returns (t, slot, valid)."""
     valid = cand < BIG
     keys = torch.where(valid, order_key(cand), NO_KEY)
     k = cand.shape[0]
     lane = torch.arange(LANES)
+    per_lane = CLUSTER_SLOTS // LANES
+    part = per_lane * lane < live
+    stats["idle_lanes"] = stats.get("idle_lanes", 0) + k * int((~part).sum())
     lane_key = torch.full((k, LANES), NO_KEY, dtype=torch.int64)
     lane_slot = torch.zeros((k, LANES), dtype=torch.int64)
-    per_lane = CLUSTER_SLOTS // LANES
     for q in range(per_lane):
         kq = keys[:, q::per_lane]  # lane l's slot 4l + q
-        take = kq < lane_key
+        take = (kq < lane_key) & part
         lane_key = torch.where(take, kq, lane_key)
         lane_slot = torch.where(take, per_lane * lane + q, lane_slot)
     least = lane_key.min(dim=1).values
@@ -98,16 +108,20 @@ def warp_walk(rays, tables, n_sph_slots: int, t_min: float, t_max: float, cull: 
     f32[>=6, N] over whole tables: (t f32[N], slot id int32[N]).
     ``stats`` counts the equal-t decisions it makes ("slot_ties": a
     cluster with two valid slots of its least key; "best_ties": a
-    cluster winner equal to the best so far, which it leaves alone)."""
+    cluster winner equal to the best so far, which it leaves alone) and
+    the lanes that sat out an entered cluster ("idle_lanes").  The live
+    counts are the kernels' (``cluster_ops.live_counts``)."""
     stats = {} if stats is None else stats
     r = walk_rays(rays)
     n = rays.shape[1]
     best_t = torch.full((n,), BIG)
     best_i = torch.full((n,), -1, dtype=torch.int32)
-    kinds = ((tables[0:3], 0, lambda rr, s: cluster_ops._sphere_pairs(rr, s, t_min, t_max)),
-             (tables[3:6], n_sph_slots,
+    kinds = ((tables[0:3], 0, "sphere",
+              lambda rr, s: cluster_ops._sphere_pairs(rr, s, t_min, t_max)),
+             (tables[3:6], n_sph_slots, "triangle",
               lambda rr, s: cluster_ops._triangle_pairs(rr, s, t_min, t_max, cull)))
-    for (supers, clusters, slots), id_base, pairs in kinds:
+    for (supers, clusters, slots), id_base, kind, pairs in kinds:
+        live = cluster_ops.live_counts(slots, kind).tolist()
         for s0 in range(0, supers.shape[0], LANES):
             # One slab test a lane, ignoring the best; the ballot's bits.
             tn_s, adm_s = cluster_ops._enters(supers[s0 : s0 + LANES], r, None)
@@ -128,7 +142,7 @@ def warp_walk(rays, tables, n_sph_slots: int, t_min: float, t_max: float, cull: 
                     ci = c0 + k
                     cand = pairs({key: v[hit] for key, v in sub.items()},
                                  slots[:, ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS])
-                    t, slot, found = lane_minimum(cand, stats)
+                    t, slot, found = lane_minimum(cand, live[ci], stats)
                     g = rows[hit]
                     stats["best_ties"] = stats.get("best_ties", 0) + int((found & (t == best_t[g])).sum())
                     better = found & (t < best_t[g])
@@ -251,20 +265,31 @@ def tie_rays(grid: int = GRID) -> torch.Tensor:
 
 
 def _scenes():
-    return {
+    scenes = {
         "tri_cloud": lambda: cases.tri_cloud(tscene, n_tris=3000).build(),
         "spheres_and_triangles": lambda: cases.cluster_scene(tscene, np.random.default_rng(4)),
         "ties": tie_scene,
     }
+    for case in cases.PREFIX_CASES:
+        scenes[case] = lambda case=case: cases.prefix_scene(case)[0]
+    return scenes
+
+
+def _rays(name, cl):
+    if name == "ties":
+        return tie_rays()
+    if name in cases.PREFIX_CASES:
+        return cases.prefix_rays(cl)
+    return torch.from_numpy(cases.random_rays(np.random.default_rng(5), n=1024, extent=4.0))
 
 
 @pytest.mark.parametrize("cull", [True, False])
-@pytest.mark.parametrize("name", ["tri_cloud", "spheres_and_triangles", "ties"])
+@pytest.mark.parametrize("name", ["tri_cloud", "spheres_and_triangles", "ties",
+                                  *cases.PREFIX_CASES])
 def test_warp_walk_matches_sequential_walk(name, cull):
     scene = _scenes()[name]()
     cl = scene.clusters
-    rays = tie_rays() if name == "ties" else torch.from_numpy(
-        cases.random_rays(np.random.default_rng(5), n=1024, extent=4.0))
+    rays = _rays(name, cl)
     tables = cluster_ops.cluster_tables(cl)
     stats = {}
     got = warp_walk(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, cull, stats)
@@ -274,6 +299,87 @@ def test_warp_walk_matches_sequential_walk(name, cull):
     if name == "ties":
         # The data holds the ties the proof is about.
         assert stats["slot_ties"] > 10 and stats["best_ties"] > 50, stats
+    if name == "last_slot_tie":
+        assert stats["slot_ties"] > 10, stats
+    if name in cases.PREFIX_CASES and name != "live_128":
+        # Lanes past the live counts sat out clusters that rays entered.
+        assert stats["idle_lanes"] > 0, stats
+
+
+@pytest.mark.parametrize("name", list(cases.PREFIX_CASES))
+def test_prefix_scene_last_live_slots_win(name):
+    """On a prefix scene the ray straight down onto each cluster's last
+    live slot is won by that slot, unless the slot repeats an earlier one,
+    which then wins: so a walk that left out a live lane, or the live part
+    of the last one, would not match."""
+    scene, lasts = cases.prefix_scene(name)
+    cl = scene.clusters
+    rays = cases.prefix_rays(cl)
+    for cull in (True, False):
+        _, slot = cluster_ops.cluster_nearest_plain(rays, *cluster_ops.cluster_tables(cl),
+                                                    cl.n_sph_slots, T_MIN, T_MAX, cull)
+        won = set(slot.tolist())
+        for kind, base in (("sphere", 0), ("triangle", cl.n_sph_slots)):
+            for ci, last, source in lasts[kind]:
+                if source is None:
+                    assert last in won, (kind, ci, last)
+                else:
+                    assert last not in won and base + ci * CLUSTER_SLOTS + source in won
+
+
+def test_live_counts_and_row_bytes():
+    """The live counts of a table whose clusters hold live slots at their
+    front, with gaps, and none; they follow an in-place change of it."""
+    slots = torch.zeros((16, 4 * CLUSTER_SLOTS))
+    slots[9, 0:5] = 1.0  # slots 0-4
+    slots[9, CLUSTER_SLOTS + 3] = slots[9, CLUSTER_SLOTS + 126] = 1.0  # slots 3 and 126
+    slots[9, 3 * CLUSTER_SLOTS :] = 1.0  # all 128
+    assert cluster_ops.live_counts(slots, "triangle").tolist() == [5, 127, 0, 128]
+    assert cluster_ops.live_counts(slots, "triangle").dtype == torch.int32
+    slots[9, 2 * CLUSTER_SLOTS] = 1.0
+    assert cluster_ops.live_counts(slots, "triangle").tolist() == [5, 127, 1, 128]
+    spheres = torch.zeros((8, CLUSTER_SLOTS))
+    spheres[3, 0:64] = 0.5  # radii
+    assert cluster_ops.live_counts(spheres, "sphere").tolist() == [64]
+    assert cluster_ops.row_bytes(5, "triangle") == (2 * 10 * 16, 32 * 10 * 16)
+    assert cluster_ops.row_bytes(3, "sphere") == (4 * 16, 32 * 4 * 16)
+    assert cluster_ops.row_bytes(128, "triangle") == (5120, 5120)
+    assert cluster_ops.row_bytes(0, "sphere") == (0, 2048)
+
+
+def test_walk_counts_row_bytes_of_a_two_cluster_scene():
+    """The plain walk's slot-row bytes on a scene of one sphere cluster (3
+    live slots: one lane of 4 rows) and one triangle cluster (5 live slots:
+    two lanes of 10 rows), worked out by hand: 16 bytes a row a lane."""
+    centers = np.asarray([(-5.0 + k, 0.0, 0.5) for k in range(3)], np.float32)
+    radius = np.full(3, 0.3, np.float32)
+    _, sph, sph_cl, sph_sup = build_clusters(centers - 0.3, centers + 0.3)
+    x = np.arange(4.0, 9.0, dtype=np.float32)[:, None]
+    a = np.c_[x, np.full_like(x, -0.4), np.full_like(x, 0.5)]
+    b, c = a + np.float32([0.8, 0.0, 0.0]), a + np.float32([0.4, 0.8, 0.0])
+    _, tri, tri_cl, tri_sup = build_clusters(np.minimum(np.minimum(a, b), c),
+                                             np.maximum(np.maximum(a, b), c))
+    tables = tuple(torch.from_numpy(t) for t in (
+        sph_sup, sph_cl, pack_sphere_slots(sph, centers, radius), tri_sup, tri_cl,
+        pack_triangle_slots(tri, a, b, c)))
+    n_sph_slots = tables[2].shape[1]
+    assert cluster_ops.live_counts(tables[2], "sphere").tolist() == [3] + [0] * 63
+    assert cluster_ops.live_counts(tables[5], "triangle").tolist() == [5] + [0] * 63
+    # Straight down onto each sphere (3 rays), each triangle (5), and one
+    # ray that meets no box.
+    xs = [-5.0, -4.0, -3.0, 4.4, 5.4, 6.4, 7.4, 8.4, 0.0]
+    rays = torch.zeros((8, len(xs)))
+    rays[0] = torch.tensor(xs)
+    rays[2], rays[5] = 3.0, -1.0
+    work = {}
+    t, slot = cluster_ops.cluster_nearest_plain(rays, *tables, n_sph_slots, T_MIN, T_MAX, True,
+                                                work=work)
+    assert (slot[:8] >= 0).all() and slot[8] == -1
+    assert work["sphere_row_bytes"] == 3 * (1 * 4 * 16)
+    assert work["sphere_row_bytes_whole"] == 3 * (32 * 4 * 16)
+    assert work["triangle_row_bytes"] == 5 * (2 * 10 * 16)
+    assert work["triangle_row_bytes_whole"] == 5 * (32 * 10 * 16)
+    assert work["sphere_pairs"] == 3 * 3 and work["triangle_pairs"] == 5 * 5
 
 
 def test_tie_scene_winners_are_the_first_copies():

@@ -160,3 +160,155 @@ def random_rays(rng, n=256, extent=10.0):
     rays[0:3] = rng.uniform(-extent, extent, (3, n))
     rays[3:6] = rng.normal(size=(3, n))
     return rays
+
+
+# Cluster fills for the warp walk's live counts (csrc/cluster_walk.cuh: lane
+# l loads and tests slots 4l..4l+3 of an entered cluster only when 4l is
+# below the cluster's last live slot + 1).  Each case is a pattern of
+# (live count, source) that ``prefix_scene`` repeats over a scene's
+# primitives: one slot, part of a lane, one lane, a lane and a slot, half
+# the lanes, all but the last slot, all of them; a count 0 is a cluster with
+# a live box (its predecessor's) and no live slot; a source s makes the
+# last live slot a copy of slot s, so that the two tie.
+PREFIX_CASES = {
+    "live_1": ((1, None),),
+    "live_3": ((3, None),),
+    "live_4": ((4, None),),
+    "live_5": ((5, None),),
+    "live_64": ((64, None),),
+    "live_127": ((127, None),),
+    "live_128": ((128, None),),
+    "all_dead": ((5, None), (0, None), (127, None)),
+    "last_slot_tie": ((5, 1), (127, 2), (128, 0)),
+}
+
+
+def _regroup(slots, shade, alive, pattern, kind: str):
+    """One kind's live slot columns, in slot order, regrouped into clusters
+    filled as ``pattern`` says -> (supers, clusters, slots, shade columns,
+    [(cluster, last live slot, source)])."""
+    import torch
+
+    n = 128
+    cols = torch.nonzero(alive)[:, 0]
+    groups, k, at = [], 0, 0
+    while at < cols.numel():
+        count, source = pattern[k % len(pattern)]
+        k += 1
+        want = count - (source is not None)
+        take = min(want, cols.numel() - at)
+        if take < want:
+            source = None  # the last cluster takes what is left, with no copy
+        groups.append((cols[at : at + take], source))
+        at += take
+    m = -(-len(groups) // 64) * 64
+    new_slots = torch.zeros((slots.shape[0], m * n))
+    new_shade = torch.zeros((shade.shape[0], m * n))
+    boxes = torch.zeros((m, 8))
+    boxes[:, 0:3], boxes[:, 3:6] = float("inf"), float("-inf")
+    last = []
+    for ci, (g, source) in enumerate(groups):
+        base = ci * n
+        new_slots[:, base : base + g.numel()] = slots[:, g]
+        new_shade[:, base : base + g.numel()] = shade[:, g]
+        live = g.numel()
+        if source is not None:
+            new_slots[:, base + live] = new_slots[:, base + source]
+            new_shade[:, base + live] = new_shade[:, base + source]
+            live += 1
+        if live == 0:  # a cluster with no live slot, entered where its predecessor is
+            boxes[ci] = boxes[ci - 1]
+            continue
+        s = new_slots[:, base : base + live]
+        if kind == "sphere":
+            lo, hi = s[0:3] - s[3], s[0:3] + s[3]
+        else:
+            verts = torch.stack([s[0:3], s[0:3] + s[3:6], s[0:3] + s[6:9]])
+            lo, hi = verts.amin(dim=0), verts.amax(dim=0)
+        boxes[ci, 0:3], boxes[ci, 3:6] = lo.amin(dim=1) - 1e-3, hi.amax(dim=1) + 1e-3
+        last.append((ci, base + live - 1, source))
+    supers = torch.zeros((m // 64, 8))
+    for si in range(m // 64):
+        block = boxes[si * 64 : (si + 1) * 64]
+        block = block[block[:, 0] <= block[:, 3]]
+        supers[si, 0:3], supers[si, 3:6] = block[:, 0:3].amin(dim=0), block[:, 3:6].amax(dim=0)
+    return supers, boxes, new_slots, new_shade, last
+
+
+def prefix_scene(case: str, grid: int = 12):
+    """A scene (port only) whose cluster tables are filled as
+    ``PREFIX_CASES[case]`` says: a grid x grid height field of triangles
+    over [-3, 3]^2 (heights 0.5 to 0.75, facing up) and a grid x grid
+    field of spheres of radius 0.12 at z 0.6 over [4, 9.5] x [-3, 3], so
+    that a ray straight down onto a primitive hits it first.  Returns
+    (scene, {kind: [(cluster, last live slot id, source)]}), the slot ids
+    global as the kernels return them."""
+    import torch
+
+    from rt_tpu_torch import cluster_ops
+    from rt_tpu_torch.scene import ClusterData, ClusterPage, SceneBuilder
+
+    b = SceneBuilder()
+    tile = b.lambertian(b.checker(0.5, b.solid_color((0.2, 0.3, 0.4)),
+                                  b.solid_color((0.9, 0.8, 0.7))))
+    ball = b.lambertian_rgb(0.8, 0.5, 0.3)
+    step = 6.0 / grid
+
+    def vertex(i, j):
+        return (-3.0 + step * i, -3.0 + step * j, 0.5 + 0.125 * ((i * i + j) % 3))
+
+    for i in range(grid):
+        for j in range(grid):
+            b.add_triangle(vertex(i, j), vertex(i + 1, j), vertex(i + 1, j + 1), tile)
+            b.add_triangle(vertex(i, j), vertex(i + 1, j + 1), vertex(i, j + 1), tile)
+            b.add_sphere((4.0 + 5.5 * i / (grid - 1), -3.0 + 6.0 * j / (grid - 1), 0.6), 0.12, ball)
+    scene = b.build()
+    cl = scene.clusters
+    ns = cl.n_sph_slots
+    pattern = PREFIX_CASES[case]
+    out, lasts = {}, {}
+    for kind, slots, shade in (("sphere", cl.sph_slots, cl.shade_table[:, :ns]),
+                               ("triangle", cl.tri_slots, cl.shade_table[:, ns:])):
+        alive = slots[cluster_ops.LIVE_ROW[kind]] > cluster_ops.LIVE_MIN[kind]
+        out[kind] = _regroup(slots, shade[:, : slots.shape[1]], alive, pattern, kind)
+    n_sph_slots = out["sphere"][2].shape[1]
+    for kind, base in (("sphere", 0), ("triangle", n_sph_slots)):
+        lasts[kind] = [(ci, base + slot, source) for ci, slot, source in out[kind][4]]
+    tables = dict(sph_super=out["sphere"][0], sph_cluster=out["sphere"][1],
+                  sph_slots=out["sphere"][2], tri_super=out["triangle"][0],
+                  tri_cluster=out["triangle"][1], tri_slots=out["triangle"][2])
+    scene.clusters = ClusterData(
+        pages=[ClusterPage(**tables)], n_sph_slots=n_sph_slots, inline_ok=cl.inline_ok,
+        chord_clusters=cl.chord_clusters,
+        shade_table=torch.cat([out["sphere"][3], out["triangle"][3]], dim=1),
+        checker_table=cl.checker_table, **tables)
+    return scene, lasts
+
+
+def prefix_rays(clusters, seed: int = 0, n: int = 2048):
+    """Rays f32[8, n] on the CPU (n a multiple of 256, at least two a live
+    slot) at a prefix scene's tables: one straight down onto each live slot's
+    primitive (a sphere's centre, a triangle's centroid) from z 4, one
+    slanted onto it, and random rays for the rest."""
+    import torch
+
+    from rt_tpu_torch import cluster_ops
+
+    targets = []
+    for kind, slots in (("sphere", clusters.sph_slots.cpu()),
+                        ("triangle", clusters.tri_slots.cpu())):
+        alive = slots[cluster_ops.LIVE_ROW[kind]] > cluster_ops.LIVE_MIN[kind]
+        s = slots[:, alive]
+        targets.append(s[0:3] if kind == "sphere" else s[0:3] + (s[3:6] + s[6:9]) / 3.0)
+    targets = torch.cat(targets, dim=1)
+    rng = np.random.default_rng(seed)
+    k = targets.shape[1]
+    n = max(n, -(-2 * k // 256) * 256)
+    rays = torch.from_numpy(random_rays(rng, n=n, extent=4.0))
+    org = targets.clone()
+    org[2] = 4.0
+    rays[0:3, :k], rays[3:6, :k] = org, targets - org
+    org = targets + torch.from_numpy(rng.uniform(-0.5, 0.5, (3, k)).astype(np.float32))
+    org[2] = 3.0
+    rays[0:3, k : 2 * k], rays[3:6, k : 2 * k] = org, targets - org
+    return rays
