@@ -11,7 +11,10 @@ scene's generator (``load_generator``), and a per-layer metric is read by
 ``rtbench/metrics/<metric>.py``.  All are found by name.
 
 The loop is closed: one user, each unit (a frame or a sweep)
-starting when the one before has ended.  Every unit's render seed
+starting when the one before has ended.  A unit ends when its call has
+returned and the card has finished the work it was given (a device
+synchronize), so a program that returns before its kernels and copies
+are done is still timed whole.  Every unit's render seed
 comes from ``--seed`` and the unit's index; the scene is the
 configuration's.
 """
@@ -183,6 +186,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start
         s = time.monotonic()
         try:
             w, bad, answer = driver.unit(unit_seed(seed, k))
+            if cuda:  # the card's work is the unit's, whatever the program waited for
+                torch.cuda.synchronize(dev)
         except Exception:  # a unit that raises is counted, and the run goes on
             failed += 1
             first_error = first_error or traceback.format_exc()
@@ -233,8 +238,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, t_start
 
         tr = trace_mod.from_profiler(prof, attempted)
         del prof
-        ctx = {"trace": tr, "timings": timings, "units": attempted,
-               "unit_seconds": [e - s for s, e in zip(starts, ends)], "config": config,
+        ctx = {"trace": tr, "timings": timings, "units": attempted, "config": config,
                "traffic": traffic, "cell": cell, "device": dev}
         for m in cell["per_layer"]:
             value = load_metric(m["name"]).read(ctx)

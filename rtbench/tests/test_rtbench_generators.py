@@ -1,9 +1,10 @@
-"""Scene generators are found by name: what the two configurations give is
+"""Scene generators are found by name: what the configurations give is
 pinned, and a new generator runs end to end as new files only.
 
-The pinned hashes were computed from the code before generators were
-looked up by name; a numpy whose float64 ``sin`` rounds otherwise reads
-other hashes.
+The descriptions' hashes were computed from the code before generators
+were looked up by name, the scene tables' from the program as it stood
+when the pin was limited to the tables it renders from; a numpy whose
+float64 ``sin`` rounds otherwise reads other hashes.
 """
 
 import hashlib
@@ -28,9 +29,10 @@ DESCRIPTIONS = {  # the configurations' descriptions at their published sizes
     "cover-final": "d234872bcf060ac4c39033528b92e3208a83f3be1c00d01c5b4cf42647eedee6",
     "car-preview": "cad81fca2665ad3e593c23c8ac4a50f633be60a62c7bfabc67f460b85eff839c",
 }
-TINY_TABLES = {  # the program's scene tables at ``tiny_cell``'s size
-    "cover-final": "6448dc3e4709457df5b4a964e5f478e99ebbf0986a6a5c83ddb47d293714a3e7",
-    "car-preview": "33ebfcea59999b7514e95acee30646ce1e55f93849af905b5c391a821709586d",
+TINY_TABLES = {  # the program's scene tables (``scene_tables``) at ``tiny_cell``'s size
+    "blob-frames": "0c9ba5ecb7baa3cbcf01ffefd6e50349a61aeeb24db8ec61457857ef23e5c9fd",
+    "car-preview": "8fbcc6d9f7eb60c78f48e85c0164787bb73bc14cd1745a6391c09f5e68009748",
+    "cover-final": "6823dd8ee93ec26e8c80d53816282c8e62a9273e16bab64b8ec819252eae656f",
 }
 
 
@@ -59,18 +61,43 @@ def digest(obj, h=None):
     return h.hexdigest() if top else None
 
 
+# What the port renders from, by name: SceneData's tables and sizes, the
+# whole cluster tables that K5 and the wavefront's K4 walk, and the BVH.
+# Not the JAX package's parity payload (the cluster pages and their slot
+# bases, ``checker_table``, ``inline_ok``, ``chord_clusters``), which no
+# kernel of the port reads; a buffer added beside these is not pinned either.
+SCENE_TABLES = (
+    "sph_center", "sph_radius", "sph_front_dir", "sph_material",
+    "tri_a", "tri_b", "tri_c", "tri_normal", "tri_uv", "tri_material",
+    "mat_kind", "mat_texture", "mat_fuzz", "mat_ior",
+    "tex_kind", "tex_color", "tex_inv_scale", "tex_children", "tex_rect",
+    "atlas", "shade_table", "sph_packed", "tri_packed",
+    "num_spheres", "num_triangles", "has_image_textures",
+)
+CLUSTER_TABLES = ("sph_super", "sph_cluster", "sph_slots", "tri_super", "tri_cluster",
+                  "tri_slots", "shade_table", "n_sph_slots")
+BVH_TABLES = ("node_min", "node_max", "hit_next", "miss_next", "leaf_start", "leaf_count",
+              "prim_order")
+PARITY_PAYLOAD = ("pages", "checker_table", "inline_ok", "chord_clusters")
+
+
 def scene_tables(scene) -> dict:
-    """Every buffer and plain attribute of a SceneData and its submodules
-    (cluster tables, pages, BVH), and its sky's fields."""
-    out = {}
-    for name, mod in scene.named_modules():
-        for k, b in mod.named_buffers(recurse=False):
-            out[f"{name}.{k}"] = b
-        for k, v in vars(mod).items():
-            if not k.startswith("_") and isinstance(v, (bool, int, float, str)):
-                out[f"{name}.{k}"] = v
+    """The tables and sizes of a SceneData that the port renders from, its
+    sky's fields, and those of its cluster tables and BVH (None where the
+    scene has none)."""
+    out = {k: getattr(scene, k) for k in SCENE_TABLES}
     out["sky"] = dict(vars(scene.sky))
+    for part, names in (("clusters", CLUSTER_TABLES), ("bvh", BVH_TABLES)):
+        sub = getattr(scene, part)
+        out[part] = None if sub is None else {k: getattr(sub, k) for k in names}
     return out
+
+
+def tiny_scene(cell: str):
+    config = tiny_cell(cell)["config_spec"]
+    drivers.ensure_inputs(config)
+    scene, _, _ = drivers.build_scene(config, check.describe(config), {})
+    return scene
 
 
 @pytest.mark.parametrize("cell", sorted(DESCRIPTIONS))
@@ -80,10 +107,26 @@ def test_description_is_pinned(cell):
 
 @pytest.mark.parametrize("cell", sorted(TINY_TABLES))
 def test_program_scene_tables_are_pinned(cell):
-    config = tiny_cell(cell)["config_spec"]
-    drivers.ensure_inputs(config)
-    scene, _, _ = drivers.build_scene(config, check.describe(config), {})
-    assert digest(scene_tables(scene)) == TINY_TABLES[cell]
+    assert digest(scene_tables(tiny_scene(cell))) == TINY_TABLES[cell]
+
+
+@pytest.mark.parametrize("table", ["sph_slots", "shade_table"])
+def test_pin_sees_one_changed_cluster_value(table):
+    scene = tiny_scene("car-preview")
+    before = digest(scene_tables(scene))
+    flat = getattr(scene.clusters, table).view(-1)
+    flat[0] = 0.25 if flat[0] != 0.25 else 0.5
+    assert digest(scene_tables(scene)) != before
+
+
+@pytest.mark.parametrize("payload", PARITY_PAYLOAD + ("all",))
+def test_pin_leaves_out_the_parity_payload(payload):
+    scene = tiny_scene("car-preview")
+    before = digest(scene_tables(scene))
+    for name in PARITY_PAYLOAD if payload == "all" else (payload,):
+        delattr(scene.clusters, name)
+        assert not hasattr(scene.clusters, name)
+    assert digest(scene_tables(scene)) == before
 
 
 def test_unknown_generator_is_refused():

@@ -1,7 +1,9 @@
-"""The harness: its files are found by name, its arithmetic, its refusal
-without a card, and what it loads."""
+"""The harness: its files are found by name, its arithmetic, its timing of a
+unit, its refusal without a card, and what it loads."""
 
 import ast
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -113,6 +115,75 @@ def test_reservoir_keeps_a_uniform_sample():
         for i in r.kept:
             counts[i] += 1
     assert counts.min() > 40 and counts.max() < 120
+
+
+@pytest.mark.parametrize("device,trace", [("cuda", False), ("cuda", True), ("cpu", False)],
+                         ids=["card-timed", "card-traced", "cpu"])
+def test_a_unit_ends_after_the_card_is_synchronized(monkeypatch, device, trace):
+    """A run on a card (faked: the program, the check and every call of
+    ``torch.cuda`` the run makes are stand-ins) reads each unit's end from
+    the clock only after ``torch.cuda.synchronize``; on the CPU there is
+    nothing to synchronize."""
+    import torch
+
+    from rtbench import check, drivers
+    from rtbench import trace as trace_mod
+
+    events = []
+
+    class Clock:
+        now = 0.0
+
+        @classmethod
+        def monotonic(cls):
+            cls.now += 1.0
+            events.append("clock")
+            return cls.now
+
+    class Driver:
+        def __init__(self, name):
+            self.name = name
+
+        def unit(self, seed):
+            events.append(self.name)
+            return 1, 0, (seed, None)
+
+        def close(self):
+            return 0, None
+
+    class Scene:
+        def to(self, dev):
+            return self
+
+    drivers_made = iter(["warm-up unit", "unit"])
+    monkeypatch.setattr(harness, "time", Clock)
+    monkeypatch.setattr(harness, "forbidden_modules", lambda: [])
+    monkeypatch.setattr(drivers, "ensure_inputs", lambda config: None)
+    monkeypatch.setattr(drivers, "build_scene", lambda config, desc, timings: (Scene(), None, None))
+    monkeypatch.setattr(drivers, "make_driver", lambda *a: Driver(next(drivers_made)))
+    monkeypatch.setattr(check, "describe", lambda config: {})
+    monkeypatch.setattr(check, "compare", lambda *a, **k: {"px_err_max": 0.0, "px_err_mean": 0.0})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: events.append("synchronize"))
+    for name, value in (("reset_peak_memory_stats", None), ("max_memory_allocated", 0),
+                        ("empty_cache", None), ("get_device_name", "a stand-in card")):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, v=value: v)
+    monkeypatch.setattr(torch.profiler, "profile", lambda **k: contextlib.nullcontext())
+    monkeypatch.setattr(trace_mod, "from_profiler", lambda prof, units: trace_mod.Trace(
+        ops=[], spans=[], units=units, window=(0.0, 1.0)))
+    cell = dict(harness.load_cell("cover-final"), per_layer=[])
+
+    res = harness.run_cell(cell, 2**31 + 11, 7.0, trace, device, 0.0, log=io.StringIO())
+    assert res["correct"] and res["failed"] == 0
+    at = [i for i, e in enumerate(events) if e == "unit"]
+    expected = cell["traffic_spec"]["trace_units"] if trace else 4
+    assert len(at) == res["attempted"] == expected
+    for i in at:
+        if device == "cuda":
+            assert events[i - 1:i + 3] == ["clock", "unit", "synchronize", "clock"], events[i - 1:]
+        else:
+            assert events[i - 1:i + 2] == ["clock", "unit", "clock"]
+    if device == "cpu":
+        assert "synchronize" not in events
 
 
 def test_run_exits_without_a_card(root):
