@@ -916,7 +916,8 @@ def mesh_scene(path: str, dev):
     cl = scene.clusters
     live = int((cl.tri_cluster[:, 0] <= cl.tri_cluster[:, 3]).sum())
     print(f"[mesh] {path}: {scene.num_triangles} triangles, built in {seconds:.2f} s: "
-          f"{live} triangle clusters in {cl.tri_super.shape[0]} supers, {len(cl.pages)} pages, "
+          f"{live} triangle clusters in {cl.tri_super.shape[0]} supers, "
+          f"{len(cluster_pages(cl))} pages of 512 clusters, "
           f"slot table {tuple(cl.shade_table.shape)}, BVH {scene.bvh.node_min.shape[0]} nodes")
     return scene.to(dev)
 
@@ -994,6 +995,13 @@ def tie_cases():
     return walk_order.tie_scene, walk_order.tie_rays
 
 
+def cluster_pages(cl, size: int = 512) -> list:
+    """The JAX package's pages of a clustered scene's whole tables, as
+    K4 takes them: [(tables, sph_slot_base, tri_slot_base)]
+    (tests/torch_cluster_cases.py, port only, no JAX)."""
+    return tests_module("torch_cluster_cases").cluster_pages(cl, size)
+
+
 def equal(got, ref) -> bool:
     """Two tuples of tensors equal bit for bit."""
     import torch
@@ -1044,7 +1052,7 @@ def cluster_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
 
     cl = scene.clusters
     k4, rays, whole, work = k4_rays_phase(dev, scene, camera, cfg, timer, n)
-    pages = [(cluster_ops.cluster_tables(p), p.sph_slot_base, p.tri_slot_base) for p in cl.pages]
+    pages = cluster_pages(cl)
     ns = cl.n_sph_slots
     tie_scene, tie_rays = tie_cases()
     tie = tie_scene().clusters.to(dev)
@@ -2012,7 +2020,7 @@ def sphere_cluster_phase(dev, card: str, timer) -> dict:
               f"scene on the host {scene_s:.2f} s, of which SceneBuilder.build {build_s:.2f} s; "
               f"tables {nbytes / 1e6:.1f} MB on {card} ({cl.sph_cluster.shape[0]} sphere and "
               f"{cl.tri_cluster.shape[0]} triangle cluster rows, {cl.shade_table.shape[1]} slots, "
-              f"{len(cl.pages)} pages)")
+              f"{len(cluster_pages(cl))} pages)")
         check(mk.eligible_clustered(scene, cfg), f"{name}: no cluster tables")
         mk.LAUNCHES_CLUSTERED = 0
         img, m = render_image(scene, camera, cfg, device=dev)

@@ -258,9 +258,9 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tr
 
 
 def cluster_tables(cl) -> tuple:
-    """The whole two-level tables of ``ClusterData`` (or one of its pages)
-    in the order the wrappers take them: (sph_super, sph_cluster,
-    sph_slots, tri_super, tri_cluster, tri_slots)."""
+    """The whole two-level tables of ``ClusterData`` in the order the
+    wrappers take them: (sph_super, sph_cluster, sph_slots, tri_super,
+    tri_cluster, tri_slots)."""
     return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
             cl.tri_slots)
 

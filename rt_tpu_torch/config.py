@@ -1,17 +1,18 @@
-"""Configuration layer (field-for-field the same as ``rt_tpu.config``).
+"""Configuration layer (``rt_tpu.config`` without its TPU-only fields).
 
 The reference has no config system at all — resolution, spp, depth, scene
 choice and asset paths are hardcoded constants and commented-out lines
 (reference: window.rs:29-30, scenes.rs:15, main.rs:50-55).  Frozen
 dataclasses are shared by the library, CLI and tests.
 
-``RenderConfig`` keeps every field of the JAX package so one configuration
-drives both.  Fields that only steered TPU mechanisms (``sort_rays``,
-``sort_every``, ``bin_lanes``, ``expand_sweep``) are accepted and ignored
-here: the CUDA megakernel has no ray pool to sort, no lane rows to bin and
-no sweep to expand, and its image does not depend on them in the JAX
-package either.  ``max_rays_per_batch`` sizes the chunked route's calls,
-as in the JAX package.
+``RenderConfig`` is the JAX package's minus its four fields that only
+steer TPU mechanisms: the sort of the wavefront's ray pool and its
+cadence, and the lane binning and expansion sweep of the clustered TPU
+megakernel.  The CUDA kernels have no ray pool to sort, no lane rows to
+bin and no sweep to expand, and the JAX package's image does not depend
+on them either.  Every other field has the JAX package's name and default.
+``max_rays_per_batch`` sizes the chunked route's calls, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -89,14 +90,6 @@ class RenderConfig:
     # pass of the generic bounce (integrator._bounce_step); False lets
     # gradients flow through its 1/p, as the fast-shade bounce always does.
     detach_sampling: bool = True
-    # Accepted, no effect: sorted the JAX wavefront's ray pool.
-    sort_rays: bool = False
-    # Accepted, no effect: cadence of ``sort_rays``.
-    sort_every: int = 4
-    # Accepted, no effect: lane binning of the clustered TPU megakernel.
-    bin_lanes: str = "auto"
-    # Accepted, no effect: expansion sweep of the clustered TPU megakernel.
-    expand_sweep: str = "auto"
     # Renderer of render_pixel_colors(wavefront=True): "megakernel" (K1),
     # "wavefront" (the persistent wavefront, K3), or "auto" (K1 where it
     # is eligible, else the wavefront).

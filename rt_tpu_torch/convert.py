@@ -15,8 +15,7 @@ import torch
 from rt_tpu_torch.camera import Camera
 from rt_tpu_torch.grad import SceneParams
 from rt_tpu_torch.scene import (
-    BVH_TABLES, CLUSTER_TABLES, PAGE_TABLES, TABLES, BvhArrays, ClusterData, ClusterPage,
-    SceneData,
+    BVH_TABLES, CLUSTER_TABLES, TABLES, BvhArrays, ClusterData, SceneData,
 )
 from rt_tpu_torch.sky import SkyParams
 
@@ -62,13 +61,9 @@ def _tables(obj, names) -> dict:
 
 
 def clusters_from_arrays(cl) -> ClusterData:
-    """The port's ClusterData holding the JAX ClusterData's tables, pages
-    and slot bases."""
-    pages = [ClusterPage(sph_slot_base=int(page.sph_slot_base),
-                         tri_slot_base=int(page.tri_slot_base), **_tables(page, PAGE_TABLES))
-             for page in cl.pages]
-    return ClusterData(pages=pages, n_sph_slots=int(cl.n_sph_slots), inline_ok=bool(cl.inline_ok),
-                       chord_clusters=float(cl.chord_clusters), **_tables(cl, CLUSTER_TABLES))
+    """The port's ClusterData holding the JAX ClusterData's whole tables,
+    shade table and ``n_sph_slots``."""
+    return ClusterData(n_sph_slots=int(cl.n_sph_slots), **_tables(cl, CLUSTER_TABLES))
 
 
 def scene_from_arrays(scene) -> SceneData:

@@ -1,5 +1,5 @@
 // The warp-cooperative two-level cluster walk: the nearest hit of a ray over
-// a clustered scene's tables (cluster.py, scene.ClusterData / ClusterPage),
+// a clustered scene's tables (cluster.py, scene.ClusterData),
 // walked by a whole warp, 32 lanes wide, one ray at a time.
 //
 // Shared by K4/K4b (cluster_nearest.cu) and K5 (megakernel.cu).  It

@@ -45,13 +45,6 @@ TEX_SOLID = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
 
-# Clusters per page (rt_tpu/scene.py:55): larger cluster sets are split
-# into pages, as the JAX package splits them for its K4 launches (tests
-# shrink it to exercise paged tables).  The port's wavefront walks the
-# whole tables in one K4 launch; the pages are kept for parity and for K4
-# on one page.
-CLUSTER_PAGE = 512
-
 # Names of the table buffers, in the JAX SceneData's field order.
 TABLES = (
     "sph_center", "sph_radius", "sph_front_dir", "sph_material",
@@ -85,48 +78,26 @@ class BvhArrays(nn.Module):
         _buffers(self, BVH_TABLES, dict(zip(BVH_TABLES, arrays, strict=True)))
 
 
-PAGE_TABLES = ("sph_cluster", "sph_slots", "tri_cluster", "tri_slots", "sph_super", "tri_super")
-
-
-class ClusterPage(nn.Module):
-    """One page of clustered primitive tables (rt_tpu/scene.py:76-94): the
-    JAX package's clustered wavefront launches K4 once per page and merges
-    the pages' winners.  sph_cluster f32[Ms_pad, 8] and tri_cluster f32[Mt_pad, 8] are
-    cluster AABBs (lo xyz, hi xyz, pad), sph_super and tri_super those of
-    each 64-cluster group, sph_slots f32[8, Ms_pad*128] and tri_slots
-    f32[16 or 24, Mt_pad*128] the slot tables (cluster.pack_*_slots).
-    Winner slot ids are globalized by the bases, so every page indexes the
-    one slot-ordered shade table."""
-
-    def __init__(self, *, sph_slot_base: int = 0, tri_slot_base: int = 0, **tables):
-        super().__init__()
-        _buffers(self, PAGE_TABLES, tables)
-        self.sph_slot_base = int(sph_slot_base)
-        self.tri_slot_base = int(tri_slot_base)
-
-
-CLUSTER_TABLES = PAGE_TABLES + ("shade_table", "checker_table")
+CLUSTER_TABLES = ("sph_cluster", "sph_slots", "tri_cluster", "tri_slots", "sph_super",
+                  "tri_super", "shade_table")
 
 
 class ClusterData(nn.Module):
     """Clustered primitive tables (rt_tpu/scene.py:97-125; cluster.py):
     fixed-stride clusters of 128 primitive slots in 64-cluster supers, the
-    whole tables (which K5 and the wavefront's K4 walk) and their
-    ``pages`` (which the JAX package's K4 walks), and ``shade_table`` f32[40, slots_pad]
-    ordered by slot, so that the kernels' winner slot ids index it
-    directly.  ``n_sph_slots`` is the first triangle slot id.
-    ``checker_table``, ``inline_ok`` and ``chord_clusters`` are the JAX
-    package's inline-fetch table and routing probe, carried for parity;
-    the port's kernels read the full shade table and do not use them."""
+    whole tables that K5 and the wavefront's K4 walk.  sph_cluster
+    f32[Ms_pad, 8] and tri_cluster f32[Mt_pad, 8] are cluster AABBs (lo
+    xyz, hi xyz, pad), sph_super and tri_super those of each 64-cluster
+    group, sph_slots f32[8, Ms_pad*128] and tri_slots f32[16 or 24,
+    Mt_pad*128] the slot tables (cluster.pack_*_slots).  ``shade_table``
+    f32[40, slots_pad] is ordered by slot, so that the kernels' winner
+    slot ids index it directly; ``n_sph_slots`` is the first triangle
+    slot id."""
 
-    def __init__(self, *, pages, n_sph_slots: int, inline_ok: bool, chord_clusters: float,
-                 **tables):
+    def __init__(self, *, n_sph_slots: int, **tables):
         super().__init__()
         _buffers(self, CLUSTER_TABLES, tables)
-        self.pages = nn.ModuleList(pages)
         self.n_sph_slots = int(n_sph_slots)
-        self.inline_ok = bool(inline_ok)
-        self.chord_clusters = float(chord_clusters)
 
 
 class SceneData(nn.Module):
@@ -197,44 +168,6 @@ class _Material:
         self.texture = texture
         self.fuzz = fuzz
         self.ior = ior
-
-
-def _chord_proxy(*sets, n_rays: int = 256, seed: int = 0) -> float:
-    """Mean clusters entered by random SURFACE-ORIGIN chords (origins at
-    random live-cluster centers, isotropic directions) — a host-side
-    proxy for bounce-ray incoherence, prim-weighted over the sets.
-
-    Closed bodies score high (every interior bounce ray crosses the
-    shell: blob 4.2, armor 3.8, car 4.7); open/sparse layouts score low
-    (heightfield 2.5, sphere covers 1.1).  The clustered megakernel's
-    expand_sweep="auto" switches the intersect architecture on it."""
-    rng = np.random.default_rng(seed)
-    tot = w = 0.0
-    for cl, n_prims in sets:
-        if not n_prims:
-            continue
-        cl = np.asarray(cl, np.float32)
-        live = cl[:, 0] <= cl[:, 3]
-        if not live.any():
-            continue
-        clv = cl[live]
-        if len(clv) > 4096:
-            # bound the (n_rays, M, 3) slab transients (~1 GB at 16k
-            # clusters otherwise); a 4k sample keeps the mean stable
-            clv = clv[rng.choice(len(clv), 4096, replace=False)]
-        ctr = (clv[:, 0:3] + clv[:, 3:6]) * 0.5
-        o = ctr[rng.integers(0, len(clv), n_rays)]
-        d = rng.standard_normal((n_rays, 3)).astype(np.float32)
-        d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-9)
-        inv = 1.0 / np.where(np.abs(d) > 1e-20, d, 1e-20)
-        t0 = (clv[None, :, 0:3] - o[:, None, :]) * inv[:, None, :]
-        t1 = (clv[None, :, 3:6] - o[:, None, :]) * inv[:, None, :]
-        tn = np.maximum(np.minimum(t0, t1).max(2), 0.0)
-        tf = np.maximum(t0, t1).min(2)
-        ent = ((tn <= tf) & (tf >= 0)).sum(1)
-        tot += float(ent.mean()) * n_prims
-        w += n_prims
-    return tot / w if w else 0.0
 
 
 def _cluster_capacity_split(ns: int, nt: int) -> tuple[int, int]:
@@ -489,8 +422,8 @@ class SceneBuilder:
 
     def _build_cluster_data(self, shade_np, sph_center, sph_radius, tri_a, tri_b, tri_c
                             ) -> ClusterData:
-        """Two-level cluster tables, their pages and the slot-ordered shade
-        table (rt_tpu/scene.py:555-690)."""
+        """Two-level cluster tables and the slot-ordered shade table
+        (rt_tpu/scene.py:555-690)."""
         from rt_tpu_torch.cluster import (
             build_clusters, build_essentials, pack_sphere_slots, pack_triangle_slots,
         )
@@ -507,7 +440,7 @@ class SceneBuilder:
         t_max_ = np.maximum(np.maximum(tri_a[:nt], tri_b[:nt]), tri_c[:nt])
         _, t_slots, t_cl, t_sup = build_clusters(t_min_, t_max_, cap_t)
 
-        ess, chk_table, inline_ok = build_essentials(shade_np)
+        ess, _, _ = build_essentials(shade_np)
         sph_slot_tab = pack_sphere_slots(s_slots, sph_center, sph_radius, ess[:, :ns])
         has_img_tris = bool(
             ((shade_np[F_IS_SPHERE, ns:] < 0.5) & (shade_np[F_TEX_KIND, ns:] > 1.5)).any()
@@ -527,47 +460,11 @@ class SceneBuilder:
         live_t = t_slots >= 0
         shade_slots[:, n_sph_slots + np.nonzero(live_t)[0]] = shade_np[:, ns + t_slots[live_t]]
 
-        # Pages of at most CLUSTER_PAGE clusters of one type each; the
-        # other type's tables are an empty dummy.
         t = torch.from_numpy
-        dummy_cl = np.zeros((64, 8), np.float32)
-        dummy_cl[:, 0:3] = np.inf
-        dummy_cl[:, 3:6] = -np.inf
-        dummy_sph = np.zeros((8, 64 * 128), np.float32)
-        dummy_tri = np.zeros((16, 64 * 128), np.float32)
-        dummy_sup = np.zeros((1, 8), np.float32)
-        dummy_sup[:, 0:3] = np.inf
-        dummy_sup[:, 3:6] = -np.inf
-        ms, mt = s_cl.shape[0], t_cl.shape[0]
-        s_pages = [(p, min(p + CLUSTER_PAGE, ms)) for p in range(0, ms, CLUSTER_PAGE)]
-        t_pages = [(p, min(p + CLUSTER_PAGE, mt)) for p in range(0, mt, CLUSTER_PAGE)]
-        if len(s_pages) <= 1 and len(t_pages) <= 1:
-            pages = [ClusterPage(sph_cluster=t(s_cl), sph_slots=t(sph_slot_tab),
-                                 tri_cluster=t(t_cl), tri_slots=t(tri_slot_tab),
-                                 sph_super=t(s_sup), tri_super=t(t_sup))]
-        else:
-            pages = [
-                ClusterPage(sph_cluster=t(s_cl[lo:hi]),
-                            sph_slots=t(sph_slot_tab[:, lo * 128 : hi * 128]),
-                            tri_cluster=t(dummy_cl), tri_slots=t(dummy_tri),
-                            sph_super=t(s_sup[lo // 64 : -(-hi // 64)]), tri_super=t(dummy_sup),
-                            sph_slot_base=lo * 128)
-                for lo, hi in s_pages
-            ] + [
-                ClusterPage(sph_cluster=t(dummy_cl), sph_slots=t(dummy_sph),
-                            tri_cluster=t(t_cl[lo:hi]),
-                            tri_slots=t(tri_slot_tab[:, lo * 128 : hi * 128]),
-                            sph_super=t(dummy_sup), tri_super=t(t_sup[lo // 64 : -(-hi // 64)]),
-                            tri_slot_base=lo * 128)
-                for lo, hi in t_pages
-            ]
         return ClusterData(
-            pages=pages,
             sph_super=t(s_sup), sph_cluster=t(s_cl), sph_slots=t(sph_slot_tab),
             tri_super=t(t_sup), tri_cluster=t(t_cl), tri_slots=t(tri_slot_tab),
-            shade_table=t(shade_slots), checker_table=t(chk_table),
-            n_sph_slots=n_sph_slots, inline_ok=inline_ok,
-            chord_clusters=_chord_proxy((s_cl, ns), (t_cl, nt)),
+            shade_table=t(shade_slots), n_sph_slots=n_sph_slots,
         )
 
     def _prim_bounds(self) -> tuple[np.ndarray, np.ndarray]:

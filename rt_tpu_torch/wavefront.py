@@ -38,10 +38,7 @@ lanes each iteration claims (the idle count and the queue position), so the
 only device-to-host read per iteration is the count of lanes still active,
 which decides whether to go on.  ``COUNTS`` accumulates the iterations
 (one K3 launch each on a flat scene's fast path, one K4 launch on a
-clustered scene's) and the ray segments intersected.  The JAX fast
-path's ray sorting on its cluster path (``sort_pool``, ``cfg.sort_rays``)
-orders lanes for its tile-granular kernel; the port's kernel walks each
-ray on its own, so ``sort_rays`` is accepted and does nothing.
+clustered scene's) and the ray segments intersected.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ package.
 
 - Tables: ``build_bvh`` (both builders), ``build_clusters``,
   ``build_essentials``, ``pack_*_slots`` and the scenes' ``clusters``
-  (tables, pages, slot bases) must equal the JAX package's bit for bit:
+  (the whole tables; the JAX package's pages, with their slot bases, cut
+  from them) must equal the JAX package's bit for bit:
   the kernels' winner ids are slot ids, so a different table is a
   different image.  The port's native builder is its own copy of the C++
   source, built by the port; the tests assert that it ran, because the
@@ -14,9 +15,12 @@ package.
   slot.  Hit masks must be equal; slot ids equal on at least 99.9% of the
   rays; t within rtol 2e-4, the JAX tests' own tolerance (XLA:CPU fuses
   multiply-adds, PyTorch rounds each product).
-- Paging: the per-page launches merged with a strict ``<`` must equal the
-  walk over the whole tables bit for bit.
+- Paging: the per-page launches (the JAX package's pages, cut from the
+  whole tables by ``torch_cluster_cases.cluster_pages``) merged with a
+  strict ``<`` must equal the walk over the whole tables bit for bit.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -124,18 +128,33 @@ SCENES = {
 
 @pytest.mark.parametrize("name", list(SCENES))
 def test_scene_cluster_tables_identical(name, monkeypatch):
-    """SceneData.clusters (tables, pages, slot bases) and the rest of the
-    scene; the 16,500-sphere scene with pages of 64 clusters."""
+    """SceneData.clusters (the whole tables) and the rest of the scene; on
+    the 16,500-sphere scene, the JAX package's pages of 64 clusters equal
+    those cut from the port's whole tables, slot bases included."""
     if name.endswith("paged"):
         monkeypatch.setattr(jscene, "CLUSTER_PAGE", 64)
-        monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
     got, ref = SCENES[name](tscene).build(), SCENES[name](jscene).build()
     assert got.clusters is not None
     cases.assert_same_scene(got, ref)
     if name.endswith("paged"):
-        assert len(got.clusters.pages) > 2
+        pages = cases.cluster_pages(got.clusters, 64)
+        assert len(pages) == len(ref.clusters.pages) > 2
+        for k, ((tables, s_base, t_base), rp) in enumerate(zip(pages, ref.clusters.pages)):
+            page = SimpleNamespace(**dict(zip(cases.WALK_TABLES, tables)))
+            cases.assert_same_tables(page, rp, cases.WALK_TABLES, f"pages[{k}].")
+            assert (s_base, t_base) == (rp.sph_slot_base, rp.tri_slot_base)
     if name == "image_tris_140":
         assert got.clusters.tri_slots.shape[0] == 24
+
+
+def test_cluster_data_holds_only_the_walked_tables():
+    """A clustered scene's ClusterData is the whole two-level tables and
+    the slot-ordered shade table, with no submodules: nothing that no path
+    of the port reads is built or moved to the card."""
+    cl = cases.tri_cloud(tscene).build().clusters
+    names = [name for name, _ in cl.named_buffers()]
+    assert sorted(names) == sorted([*cases.WALK_TABLES, "shade_table"])
+    assert not list(cl.children())
 
 
 def test_convert_carries_clusters_and_bvh():
@@ -181,7 +200,7 @@ def test_worklist_plain_matches_pallas(cull):
     jc, tc = js.clusters, ts.clusters
     ref = j_worklist(jnp.asarray(rays), *_tables(jc), jc.n_sph_slots, T_MIN, T_MAX, cull,
                      interpret=True)
-    got = cluster_ops.cluster_worklist_nearest(torch.from_numpy(rays), *_tables(tc.pages[0]),
+    got = cluster_ops.cluster_worklist_nearest(torch.from_numpy(rays), *_tables(tc),
                                                tc.n_sph_slots, T_MIN, T_MAX, cull)
     hit = _assert_k4_parity(got, ref)
     s = got[1].numpy()
@@ -230,43 +249,41 @@ def test_plain_matches_brute_force_over_live_slots(name):
         assert hit.mean() > 0.3
 
 
-def test_paged_merge_equals_single_page(monkeypatch):
+def test_paged_merge_equals_single_page():
     """Pages of 64 clusters launched one by one and merged with a strict
-    ``<``, as the wavefront merges them, against the walk over the whole
-    tables: t and slot ids bit for bit."""
-    monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
+    ``<``, as the JAX package's wavefront merges them, against the walk
+    over the whole tables: t and slot ids bit for bit."""
     scene = cases.spheres_16500(tscene).build()
     cl = scene.clusters
-    assert len(cl.pages) > 2 and cl.sph_cluster.shape[0] > 128
+    pages = cases.cluster_pages(cl, 64)
+    assert len(pages) > 2 and cl.sph_cluster.shape[0] > 128
     rays = torch.from_numpy(cases.random_rays(np.random.default_rng(1234), extent=8.0))
     whole = cluster_ops.cluster_nearest(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX, True)
     t_best = torch.full((256,), 3e38)
     s_best = torch.full((256,), -1, dtype=torch.int32)
-    for page in cl.pages:
+    for tables, s_base, t_base in pages:
         t_p, s_p = cluster_ops.cluster_worklist_nearest(
-            rays, *_tables(page), cl.n_sph_slots, T_MIN, T_MAX, True, page.sph_slot_base,
-            page.tri_slot_base)
+            rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, True, s_base, t_base)
         better = t_p < t_best
         t_best, s_best = torch.where(better, t_p, t_best), torch.where(better, s_p, s_best)
     assert torch.equal(t_best, whole[0]) and torch.equal(s_best, whole[1])
     assert (whole[1] >= 0).sum() > 20 and (whole[1] >= 64 * 128).any()
 
 
-def test_walk_work_names_entered_clusters_globally(monkeypatch):
+def test_walk_work_names_entered_clusters_globally():
     """The plain walk's work counts name the clusters and supers some ray
     entered by their index in the unpaged tables: every winner's cluster is
     among them, each is a live cluster, and the pages' walks (each from a
     fresh best t) enter at least the clusters the whole tables' walk does."""
-    monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
     cl = cases.spheres_16500(tscene).build().clusters
     rays = torch.from_numpy(cases.random_rays(np.random.default_rng(1234), extent=8.0))
     whole = {}
     _, slot = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
                                                 True, work=whole)
     paged = {}
-    for page in cl.pages:
-        cluster_ops.cluster_nearest_plain(rays, *_tables(page), cl.n_sph_slots, T_MIN, T_MAX, True,
-                                          page.sph_slot_base, page.tri_slot_base, work=paged)
+    for tables, s_base, t_base in cases.cluster_pages(cl, 64):
+        cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, True,
+                                          s_base, t_base, work=paged)
     entered = whole["sphere_clusters"]
     live = (cl.sph_cluster[:, 0] <= cl.sph_cluster[:, 3]).numpy()
     winners = {s // 128 for s in slot[slot >= 0].tolist()}

@@ -68,14 +68,14 @@ def test_plain_walk_does_not_depend_on_its_chunks(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_cluster_kernel_matches_plain_version(monkeypatch):
-    """K4 on the whole tables and per page and K4b on the whole tables,
-    culling on and off, on a scene paged at 64 clusters:
-    winners and t bit for bit."""
+def test_cuda_cluster_kernel_matches_plain_version():
+    """K4 on the whole tables and per page (the JAX package's pages of 64
+    clusters, with their slot bases) and K4b on the whole tables, culling
+    on and off: winners and t bit for bit."""
     _cuda()
-    monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
     cl = cases.tri_cloud(tscene, n_tris=9000).build().clusters.to("cuda")
-    assert len(cl.pages) > 2
+    pages = cases.cluster_pages(cl, 64)
+    assert len(pages) > 2
     rays = _rays(4096, 3, "cuda")
     for cull in (True, False):
         ref = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX,
@@ -89,9 +89,8 @@ def test_cuda_cluster_kernel_matches_plain_version(monkeypatch):
                 == before["cluster_worklist_nearest"] + 1)
         for a, b in zip((*got, *whole), (*ref, *ref)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-        for page in cl.pages:
-            args = (rays, *_tables(page), cl.n_sph_slots, T_MIN, T_MAX, cull, page.sph_slot_base,
-                    page.tri_slot_base)
+        for tables, s_base, t_base in pages:
+            args = (rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull, s_base, t_base)
             got = cluster_ops.cluster_worklist_nearest(*args)
             for a, b in zip(got, cluster_ops.cluster_nearest_plain(*args)):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -159,10 +158,9 @@ def test_cuda_cluster_kernels_on_partly_filled_clusters(case):
             got = fn(rays, *_tables(cl), cl.n_sph_slots, T_MIN, T_MAX, cull)
             for a, b in zip(got, ref):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
-        page = cl.pages[0]
-        got = cluster_ops.cluster_worklist_nearest(rays, *_tables(page), cl.n_sph_slots, T_MIN,
-                                                   T_MAX, cull, page.sph_slot_base,
-                                                   page.tri_slot_base)
+        [(tables, s_base, t_base)] = cases.cluster_pages(cl)
+        got = cluster_ops.cluster_worklist_nearest(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX,
+                                                   cull, s_base, t_base)
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert (ref[1] >= 0).sum() > rays.shape[1] // 4

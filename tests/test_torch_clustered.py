@@ -157,17 +157,17 @@ def test_wavefront_on_k4_matches_render_fast_and_k5():
     assert within.mean() >= 0.999
 
 
-def test_wavefront_pages_merge_like_one_page(monkeypatch):
-    """A scene paged at 64 clusters renders through one K4 call per
-    iteration over its whole tables (slot bases 0), and its image equals
-    that of the same scene built unpaged, bit for bit."""
+def test_wavefront_walks_the_whole_tables_once_an_iteration():
+    """The 9,000-triangle cloud (several pages of 64 clusters, each a K4
+    launch an iteration on the JAX package's wavefront) renders through
+    one K4 call per iteration over the scene's whole tables, with both
+    slot bases left at 0, and its image equals that of the wavefront's own
+    intersect, bit for bit."""
     _, cfg = _cfgs(spp=1, max_depth=3)
     cam = _camera(make_camera)
     pix = torch.arange(W * H, dtype=torch.int32)
-    whole = cases.tri_cloud(tscene, n_tris=9000, with_materials=False).build()
-    monkeypatch.setattr(tscene, "CLUSTER_PAGE", 64)
-    paged = cases.tri_cloud(tscene, n_tris=9000, with_materials=False).build()
-    assert len(whole.clusters.pages) == 1 and len(paged.clusters.pages) > 2
+    scene = cases.tri_cloud(tscene, n_tris=9000, with_materials=False).build()
+    assert len(cases.cluster_pages(scene.clusters, 64)) > 2
     calls = []
 
     def counting(*args):
@@ -175,11 +175,11 @@ def test_wavefront_pages_merge_like_one_page(monkeypatch):
         return cluster_ops.cluster_worklist_nearest(*args)
 
     wavefront.COUNTS.update(iterations=0, segments=0)
-    img = wavefront.render_wavefront(paged, cam, pix, cfg, 1, 0, rng.key(0), cluster_nearest=counting)
+    img = wavefront.render_wavefront(scene, cam, pix, cfg, 1, 0, rng.key(0), cluster_nearest=counting)
     assert len(calls) == wavefront.COUNTS["iterations"] > 0
-    tables = cluster_ops.cluster_tables(paged.clusters)
+    tables = cluster_ops.cluster_tables(scene.clusters)
     assert all(len(a) == 11 and all(x is y for x, y in zip(a[1:7], tables)) for a in calls)
-    ref = wavefront.render_wavefront(whole, cam, pix, cfg, 1, 0, rng.key(0))
+    ref = wavefront.render_wavefront(scene, cam, pix, cfg, 1, 0, rng.key(0))
     assert torch.equal(img, ref)
 
 
@@ -218,7 +218,7 @@ def test_bvh_scenes_refuse_the_unported_traversal():
     got = render_pixel_colors(ts, _camera(make_camera), cfg, device="cpu", wavefront=False)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-3, rtol=1e-3)
     names = {name for name, _ in ts.named_buffers()}
-    assert {"clusters.shade_table", "clusters.pages.0.tri_slots", "bvh.prim_order"} <= names
+    assert {"clusters.shade_table", "clusters.tri_slots", "bvh.prim_order"} <= names
 
 
 def test_cli_obj_writes_png(tmp_path):

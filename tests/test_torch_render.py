@@ -5,6 +5,7 @@ Tolerance for images: atol 1e-3, rtol 1e-3, the JAX package's own
 megakernel parity tolerance (tests/test_megakernel.py).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -106,6 +107,22 @@ def test_cli_writes_png(tmp_path, capsys, monkeypatch):
     captured = capsys.readouterr()
     assert "\x1b[38;2;" in captured.out and "preview at http://localhost:" in captured.err
     assert Image.open(prog).size == (32, 18)
+
+
+def test_config_is_the_jax_config_without_its_tpu_fields():
+    """The port's RenderConfig has the JAX RenderConfig's fields, in its
+    order and with its defaults, minus exactly the four that steer only
+    TPU mechanisms."""
+    jax_fields = [f.name for f in dataclasses.fields(JConfig)]
+    fields = [f.name for f in dataclasses.fields(RenderConfig)]
+    assert set(jax_fields) - set(fields) == {"sort_rays", "sort_every", "bin_lanes", "expand_sweep"}
+    assert fields == [name for name in jax_fields if name in fields]
+    jax_cfg, cfg = JConfig(), RenderConfig()
+    for name in fields:
+        if name == "compat":
+            assert dataclasses.asdict(cfg.compat) == dataclasses.asdict(jax_cfg.compat)
+        else:
+            assert getattr(cfg, name) == getattr(jax_cfg, name), name
 
 
 def test_import_loads_no_jax():

@@ -40,7 +40,7 @@ from rt_tpu_torch.cluster import build_clusters, pack_sphere_slots, pack_triangl
 from rt_tpu_torch import scene as tscene
 from rt_tpu_torch.cluster_ops import BIG, CLUSTER_SLOTS, SUPER_CLUSTERS
 from rt_tpu_torch.elementwise import div
-from rt_tpu_torch.scene import ClusterData, ClusterPage
+from rt_tpu_torch.scene import ClusterData
 import torch_cluster_cases as cases  # tests/torch_cluster_cases.py
 
 torch.set_num_threads(2)
@@ -218,9 +218,7 @@ def tie_scene(grid: int = GRID):
     tables = dict(sph_super=sph[0], sph_cluster=sph[1], sph_slots=sph[2], tri_super=tri[0],
                   tri_cluster=tri[1], tri_slots=tri[2])
     scene.clusters = ClusterData(
-        pages=[ClusterPage(**tables)], n_sph_slots=n_sph_slots, inline_ok=cl.inline_ok,
-        chord_clusters=cl.chord_clusters, shade_table=torch.cat([sph_shade, tri_shade], dim=1),
-        checker_table=cl.checker_table, **tables)
+        n_sph_slots=n_sph_slots, shade_table=torch.cat([sph_shade, tri_shade], dim=1), **tables)
     return scene
 
 

@@ -1,15 +1,18 @@
 """Shared by the port's tests of clustered scenes: the scenes of
 tests/test_megakernel_cluster.py and tests/test_cluster.py, built with
-either package's SceneBuilder from the same seeds, and a table-by-table
+either package's SceneBuilder from the same seeds, a table-by-table
 comparison of a port scene with a JAX package scene (every table, the
-cluster tables with their pages and slot bases, the BVH arrays and the sky
-equal bit for bit)."""
+whole cluster tables, the BVH arrays and the sky equal bit for bit), and
+the JAX package's cluster pages cut from a port scene's whole tables."""
 
 import time
 
 import numpy as np
 
-from rt_tpu_torch.scene import BVH_TABLES, CLUSTER_TABLES, PAGE_TABLES, TABLES
+from rt_tpu_torch.scene import BVH_TABLES, CLUSTER_TABLES, TABLES
+
+# The walk's tables in the order cluster_ops.cluster_tables gives them.
+WALK_TABLES = ("sph_super", "sph_cluster", "sph_slots", "tri_super", "tri_cluster", "tri_slots")
 
 
 def load_jax_native(seconds: float = 120.0) -> bool:
@@ -46,12 +49,40 @@ def assert_same_clusters(got, ref):
     if ref is None:
         return
     assert_same_tables(got, ref, CLUSTER_TABLES, "clusters.")
-    assert (got.n_sph_slots, got.inline_ok, got.chord_clusters) == (
-        ref.n_sph_slots, ref.inline_ok, ref.chord_clusters)
-    assert len(got.pages) == len(ref.pages)
-    for k, (gp, rp) in enumerate(zip(got.pages, ref.pages)):
-        assert_same_tables(gp, rp, PAGE_TABLES, f"pages[{k}].")
-        assert (gp.sph_slot_base, gp.tri_slot_base) == (rp.sph_slot_base, rp.tri_slot_base)
+    assert got.n_sph_slots == ref.n_sph_slots
+
+
+def cluster_pages(cl, size: int = 512):
+    """The JAX package's pages of a port ClusterData's whole tables
+    (rt_tpu/scene.py:617-676): per kind, slices of at most ``size``
+    clusters with their supers beside the other kind's empty dummy tables,
+    sphere pages first; or one page of the whole tables where neither kind
+    needs more than one.  Returns [(tables, sph_slot_base, tri_slot_base)]
+    a page, the tables contiguous on the clusters' device in
+    ``WALK_TABLES`` order, as K4 takes them with the page's slot bases."""
+    import torch
+
+    from rt_tpu_torch import cluster_ops
+
+    whole = cluster_ops.cluster_tables(cl)
+    spans = [[(lo, min(lo + size, table.shape[0])) for lo in range(0, table.shape[0], size)]
+             for table in (cl.sph_cluster, cl.tri_cluster)]
+    if all(len(kind) <= 1 for kind in spans):
+        return [(whole, 0, 0)]
+    dev = cl.sph_cluster.device
+    inf = float("inf")
+    empty_box = torch.tensor([inf, inf, inf, -inf, -inf, -inf, 0.0, 0.0], device=dev)
+    no_super, no_clusters = empty_box.repeat(1, 1), empty_box.repeat(64, 1)
+    no_sph, no_tri = (torch.zeros((rows, 64 * 128), device=dev) for rows in (8, 16))
+
+    def cut(sup, clusters, slots, lo, hi):
+        return (sup[lo // 64 : -(-hi // 64)].contiguous(), clusters[lo:hi].contiguous(),
+                slots[:, lo * 128 : hi * 128].contiguous())
+
+    return ([((*cut(*whole[0:3], lo, hi), no_super, no_clusters, no_tri), lo * 128, 0)
+             for lo, hi in spans[0]]
+            + [((no_super, no_clusters, no_sph, *cut(*whole[3:6], lo, hi)), 0, lo * 128)
+               for lo, hi in spans[1]])
 
 
 def assert_same_scene(got, ref):
@@ -246,7 +277,7 @@ def prefix_scene(case: str, grid: int = 12):
     import torch
 
     from rt_tpu_torch import cluster_ops
-    from rt_tpu_torch.scene import ClusterData, ClusterPage, SceneBuilder
+    from rt_tpu_torch.scene import ClusterData, SceneBuilder
 
     b = SceneBuilder()
     tile = b.lambertian(b.checker(0.5, b.solid_color((0.2, 0.3, 0.4)),
@@ -278,10 +309,8 @@ def prefix_scene(case: str, grid: int = 12):
                   sph_slots=out["sphere"][2], tri_super=out["triangle"][0],
                   tri_cluster=out["triangle"][1], tri_slots=out["triangle"][2])
     scene.clusters = ClusterData(
-        pages=[ClusterPage(**tables)], n_sph_slots=n_sph_slots, inline_ok=cl.inline_ok,
-        chord_clusters=cl.chord_clusters,
-        shade_table=torch.cat([out["sphere"][3], out["triangle"][3]], dim=1),
-        checker_table=cl.checker_table, **tables)
+        n_sph_slots=n_sph_slots,
+        shade_table=torch.cat([out["sphere"][3], out["triangle"][3]], dim=1), **tables)
     return scene, lasts
 
 
