@@ -12,7 +12,9 @@ fresh process that imports only that checkout's package, and times, with
 this checkout's ``chip_smoke.timed_cuda``, at the bench configuration:
 
 - K1 (``megakernel.render_megakernel``) on the cover frame at 400x225, 10
-  and 640 spp, and at 1600x900, 10 spp;
+  and 640 spp, and at 1600x900, 10 spp, and on the scene, camera and depth
+  (100) of rtbench's cover-final cell at 640 spp, built as rtbench builds
+  it;
 - K3 and K3b (``prim_ops.prim_nearest_shaded`` / ``_packed``) on the
   65,536 rays of ``chip_smoke.prim_rays``;
 - K2 and K2b (``nearest_ops.sphere_nearest`` / ``_packed``) on the 90,000
@@ -99,6 +101,9 @@ def run(root: str, tag: str) -> None:
         lambda: mk.render_megakernel(scene, camera, cfg, 640, 0, cfg.seed), 2)
     outs["k1_wide"], ms["k1_1600x900_ms"] = timed(
         lambda: mk.render_megakernel(wide, wide_cam, wide_cfg, 10, 0, wide_cfg.seed), 3)
+    cover, cover_cam, cover_cfg = cell_scene("cover-final", dev)
+    outs["k1_cover_final"], ms["k1_cover_final_640spp_ms"] = timed(
+        lambda: mk.render_megakernel(cover, cover_cam, cover_cfg, 640, 0, 1), 3)
     outs["k3"], ms["k3_ms"] = timed(
         lambda: po.prim_nearest_shaded(*args, scene.shade_table, ns, 1e-3, 3e38), 20)
     outs["k3b"], ms["k3b_ms"] = timed(lambda: po.prim_nearest_packed(*args, ns, 1e-3, 3e38), 20)

@@ -15,8 +15,8 @@ version on the card, and drives each path at the bench configuration, with
 the launch counts set to 0 just before and read just after:
 
 - the forward megakernel path (``render_image`` and the CLI), K1, held
-  bit for bit against its plain version on the test scenes (also cut into
-  several sample chunks) and the bench frame, and timed at 10 and 640 spp
+  bit for bit against its plain version on the test scenes (also with its
+  ring's pixel slots reused) and the bench frame, and timed at 10 and 640 spp
   and on a 1600x900 frame;
 - the gradient path (``grad.pixel_grad`` at 400x225, 1 spp), K2: finite
   gradients that agree with the same path run on K2's plain version,
@@ -164,34 +164,40 @@ def small_scenes():
     return out
 
 
-def k1_chunk_phase(dev, spps=(5, 9)):
-    """K1 against its plain version, bit for bit, where a launch cuts its
-    samples into several chunks: three of the 32x24 scenes (defocus, a
-    pixel range with a sample offset, the cover crop) with the scratch cap
-    lowered to two samples of the whole frame."""
+def k1_ring_phase(dev, spps=(5, 9)):
+    """K1 against its plain version, bit for bit, where a launch reuses its
+    ring's pixel slots: three of the 32x24 scenes (defocus, a pixel range
+    with a sample offset, the cover crop) with the scratch cap lowered to
+    two samples of the whole frame, so that each slot serves 2-5 pixels and
+    lanes wait for slots (``K1_RING['waits']`` > 0 over the phase)."""
     import torch
 
     from rt_tpu_torch import megakernel as mk
 
     cap = mk.SCRATCH_CAP
     mk.SCRATCH_CAP = 12 * 32 * 24 * 2
+    waits = 0
     try:
         for name, scene, camera, cfg, off, base, n in small_scenes():
             if name not in ("defocus", "offsets_half", "cover_4x4"):
                 continue
             scene.to(dev)
             for spp in spps:
-                chunks = mk.chunk_schedule(n or 32 * 24, spp)
                 got = mk.render_megakernel(scene, camera, cfg, spp, off, cfg.seed, pixel_base=base,
                                            n_pixels=n)
+                ring = dict(mk.K1_RING, waits=int(mk.K1_RING["waits"]))
                 ref = mk.render_megakernel_plain(scene, camera, cfg, spp, off, cfg.seed,
                                                  pixel_base=base, n_pixels=n)
                 same = bool(torch.equal(got, ref))
-                print(f"[parity] {name:17s} 32x24 {spp}spp in {len(chunks)} chunks "
-                      f"{[c for _, c in chunks]}: equal to plain {same}")
-                check(same and len(chunks) > 1, f"{name} {spp} spp: chunked K1 and plain disagree")
+                waits += ring["waits"]
+                print(f"[parity] {name:17s} 32x24 {spp}spp, {ring['launches']} launch, "
+                      f"{ring['slots']} slots x {ring['generations']} generations, "
+                      f"{ring['waits']} waited steps: equal to plain {same}")
+                check(same and ring["generations"] > 1 and ring["launches"] == 1,
+                      f"{name} {spp} spp: K1 with reused slots and plain disagree")
     finally:
         mk.SCRATCH_CAP = cap
+    check(waits > 0, "no lane waited for a slot: the lowered cap did not exercise the ring")
 
 
 def k1_wide_phase(dev, card: str, spp: int = 10, block: int = 256):
@@ -212,8 +218,9 @@ def k1_wide_phase(dev, card: str, spp: int = 10, block: int = 256):
     scene = scenes.cover_scene(11, 11, camera, z=-0.2, seed=0).to(dev)
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp, max_depth=50)
     img, ms = timed_cuda(lambda: mk.render_megakernel(scene, camera, cfg, spp, 0, cfg.seed), 3)
-    chunks = mk.chunk_schedule(w * h, spp)
-    print(f"[time] K1 cover 1600x900 {spp} spp depth 50 ({len(chunks)} chunks) on {card}: kernel "
+    ring = mk.K1_RING
+    print(f"[time] K1 cover 1600x900 {spp} spp depth 50 ({ring['launches']} launch, "
+          f"{ring['slots']} slots x {ring['generations']} generations) on {card}: kernel "
           f"{ms:.3f} ms, {spp * w * h / ms / 1e3:.2f} Mray/s (CUDA events, mean of 3 after a "
           f"warm-up)")
     check(img.shape == (w * h, 3) and bool(torch.isfinite(img).all()), "1600x900: non-finite image")
@@ -2434,7 +2441,7 @@ def main() -> int:
         same = bool(torch.equal(got, ref))
         print(f"[parity] {name:17s} 32x24 2spp: equal to plain {same}, max|d| {err:.3e}")
         check(same, f"{name}: kernel and plain version disagree")
-    k1_chunk_phase(dev)
+    k1_ring_phase(dev)
 
     scene, camera, cfg = bench_cover_config()
     scene.to(dev)
@@ -2455,10 +2462,12 @@ def main() -> int:
     k1_frame = got.reshape(225, 400, 3).cpu().numpy()
     k1_640, k1_640_ms = timed_cuda(
         lambda: mk.render_megakernel(scene, camera, cfg, 640, 0, cfg.seed), 2)
-    chunks = mk.chunk_schedule(400 * 225, 640)
-    print(f"[time] K1 bench frame 640 spp (one render_megakernel call, {len(chunks)} chunks) on "
-          f"{card}: kernel {k1_640_ms:.3f} ms, {640 * 400 * 225 / k1_640_ms / 1e3:.2f} Mray/s "
-          f"(CUDA events, mean of 2 after a warm-up)")
+    ring = mk.K1_RING
+    print(f"[time] K1 bench frame 640 spp (one render_megakernel call: {ring['launches']} launch, "
+          f"{ring['slots']} slots x {ring['generations']} generations, {int(ring['waits'])} "
+          f"waited steps) on {card}: kernel {k1_640_ms:.3f} ms, "
+          f"{640 * 400 * 225 / k1_640_ms / 1e3:.2f} Mray/s (CUDA events, mean of 2 after a "
+          f"warm-up)")
     k1_wide_ms, k1_wide_bound = k1_wide_phase(dev, card)
 
     # -- 4. the main path through render_image ----------------------------------

@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
         i64, f32 = ctypes.c_longlong, ctypes.c_float
         fn = lib.rt_megakernel_flat
         fn.argtypes = ([ptr] + [i32] * 4 + [ctypes.c_uint] + [i32] * 8 + [ptr] * 4
-                       + [i32, i32] + [ptr] * 4)
+                       + [i32] + [ptr] * 4)
         fn.restype = i32
         fn = lib.rt_sphere_nearest
         fn.argtypes = [ptr, i64, i64, ptr, i64, i64, i32, ptr, i32, f32, f32, ptr, ptr, ptr]

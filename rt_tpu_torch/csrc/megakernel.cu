@@ -28,21 +28,30 @@
 // functions.  One bounce after the search (`bounce`: shading, scatter,
 // Russian roulette, the next segment) is one device function that both
 // kernels call, and both claim their work with one atomicAdd a warp
-// (`warp_claim`).
+// (`warp_claim`; K1's 64-bit counter `warp_claim_items`).
 //
 // K1 is a persistent grid of converged warps over (pixel, sample) work
-// items.  The wrapper cuts the launch's samples into chunks
-// (megakernel.chunk_schedule); a chunk's items are numbered sample-major,
-// k = s_local * n_pixels + i, so neighbouring lanes trace neighbouring
-// pixels of one sample.  Each step, the lanes without a live path claim the
-// next items, then every live lane searches its own ray, brute force over
-// every primitive with the shared late-sqrt pair tests (brute_force.cuh;
-// the lanes of a warp test the same sphere at once, a broadcast load), and
-// shades its hit.  A finished path writes its radiance to the chunk's
-// scratch f32[S, n_pixels, 3]; `accumulate` then adds the chunk's samples
-// into the pixel sums in sample order and scales by 1/spp after the last
-// chunk: acc = acc + c_s, out = acc * inv_spp, as the plain version and the
-// first port's thread-per-pixel loop compute it.  What bounds it on this
+// items, one launch a call.  Items are numbered pixel-major, k = i * spp +
+// s, by a 64-bit counter, so a warp's claim is mostly neighbouring samples
+// of one pixel, whose camera rays lie close together.  Each step, the lanes
+// without an item claim the next ones, then every live lane searches its
+// own ray, brute force over every primitive with the shared late-sqrt pair
+// tests (brute_force.cuh; the lanes of a warp test the same sphere at
+// once, a broadcast load), and shades its hit.  A finished path writes its
+// radiance to a ring of P pixel slots, scratch f32[P, spp, 3] within the
+// wrapper's SCRATCH_CAP (megakernel.ring_slots).  The slots go round a
+// queue in pixel order: pixel i takes the slot at place i, which the
+// (i - P)-th pixel summed put there, whichever pixel that was, so a pixel
+// whose last path runs long holds one slot and no later pixel waits on it
+// in particular.  A lane whose path ended before its pixel has a slot
+// keeps the radiance and stores it on a later step; it never spins while
+// its warp has live paths.  The queue cannot stall: the lowest pixel
+// without a slot has every earlier item claimed, and every earlier pixel
+// holds a slot, so all of them are summed and hand theirs on, and a slot
+// handed on waits only for an earlier place to be taken.  The lane that
+// counts a pixel's last sample sums the slot in sample order, acc = acc +
+// c_s from 0, writes out = acc * inv_spp, as the plain version computes
+// it, and hands the slot on.  What bounds it on this
 // card: ~18 operations for each (ray segment, sphere) pair the
 // discriminant rejects, ~24 for one it admits, ~46 for a triangle, from the
 // issue slots of 132 SMs.  The first port gave a pixel to one thread, which
@@ -50,7 +59,9 @@
 // half-filled it, and each thread ran its pixel's paths in series), and
 // each warp waited for its longest path; here the resident lanes stay busy
 // as long as items are left, and the primitive loop, the same for every
-// lane, does not diverge.
+// lane, does not diverge.  One launch a call leaves one drain, at the
+// end, where the last long paths hold few warps; a launch a chunk of
+// samples drained once a chunk (~1.4 ms each on the 640-spp cover).
 //
 // K5 drops the TPU's clustered machinery (row sweep, streamed DMA ring,
 // expansion sweep, lane binning, winner fetch) and keeps its persistent
@@ -79,7 +90,6 @@ namespace {
 
 constexpr int kFlatBlock = 256;       // K1: eight warps a block
 constexpr int kClusteredBlock = 256;  // K5: eight warps a block
-constexpr int kSumBlock = 256;        // accumulate: a thread a pixel channel
 
 struct Hit {
   float t;
@@ -430,60 +440,142 @@ __device__ __forceinline__ int warp_claim(bool need, int* __restrict__ counter, 
   return need ? first + __popc(need_m & ((1u << lane) - 1u)) : -1;
 }
 
-// K1: a persistent grid of warps in a converged step loop over the items
-// of one chunk, samples [s0, s0 + n_items / n_pixels) (see the top of this
-// file).  `next_item` is a device int, 0 at launch: the claim counter.
-// Item k's radiance goes to scratch[3k..3k+2].
+// The next items of the 64-bit `counter` for the lanes with `need` set,
+// as `warp_claim` takes them; -1 for the other lanes.
+__device__ __forceinline__ long long warp_claim_items(bool need,
+                                                      unsigned long long* __restrict__ counter,
+                                                      int lane) {
+  const unsigned need_m = __ballot_sync(kFullMask, need);
+  if (need_m == 0u) return -1;
+  const int leader = __ffs(need_m) - 1;
+  unsigned long long first = 0;
+  if (lane == leader) first = atomicAdd(counter, (unsigned long long)__popc(need_m));
+  first = __shfl_sync(kFullMask, first, leader);
+  return need ? (long long)first + __popc(need_m & ((1u << lane) - 1u)) : -1;
+}
+
+// K1's ring in device memory, zero at launch.  Pixel i takes the slot at
+// place i of a queue of P cells: cell i % P in round i / P (round 0's cells
+// hold slots 0..P-1).  The t-th pixel summed hands its slot on to place
+// t + P, once pixel t has taken that cell's slot of the round before.
+struct Ring {
+  unsigned long long* next_item;  // the claim counter
+  unsigned int* waits;            // steps lanes waited for a slot, or to hand one on
+  unsigned int* summed;           // pixels summed so far
+  int* done;                      // per slot: samples stored
+  int* turn;                      // per cell: 2r while it holds round r's slot, 2r + 1 once taken
+  int* cell;                      // per cell: that slot (rounds from 1)
+  int* slot_of;                   // per pixel of the range: its slot + 1; 0 before it has one
+};
+
+// Pixel i's slot, or -1 while its place in the queue is empty.  The first
+// lane to find the slot records it in slot_of and frees the cell.
+__device__ __forceinline__ int pixel_slot(const Ring& ring, int n_slots, int i) {
+  const int known = *(const volatile int*)(ring.slot_of + i);
+  if (known > 0) return known - 1;
+  const int c = i % n_slots, r = i / n_slots;
+  if (*(const volatile int*)(ring.turn + c) != 2 * r) return -1;
+  __threadfence();  // the cell is read after its turn
+  const int slot = r == 0 ? c : *(const volatile int*)(ring.cell + c);
+  const int prev = atomicCAS(ring.slot_of + i, 0, slot + 1);
+  if (prev != 0) return prev - 1;  // another lane took it first (the cell may have moved on)
+  __threadfence();
+  atomicExch(ring.turn + c, 2 * r + 1);
+  return slot;
+}
+
+// Puts `slot`, freed by the t-th pixel summed, at place t + P of the queue:
+// false while pixel t has not taken the cell's slot of the round before.
+__device__ __forceinline__ bool hand_on(const Ring& ring, int n_slots, unsigned int t, int slot) {
+  const int c = (int)(t % (unsigned int)n_slots), r = (int)(t / (unsigned int)n_slots) + 1;
+  if (*(const volatile int*)(ring.turn + c) != 2 * r - 1) return false;
+  *(volatile int*)(ring.cell + c) = slot;
+  __threadfence();  // the slot's sum, its reset count and the cell come before the turn
+  atomicExch(ring.turn + c, 2 * r);
+  return true;
+}
+
+// A lane's state in K1's step loop.
+enum : int { kIdle, kLive, kStore, kHandOn, kDone };
+
+// K1: a persistent grid of warps in a converged step loop over the launch's
+// n_pixels * spp items (see the top of this file).  Item k = i * spp + s
+// traces sample s of pixel i into row s of the pixel's slot.
 __global__ void __launch_bounds__(kFlatBlock)
-    megakernel_flat(const Params p, const Ints q, int s0, int n_items,
+    megakernel_flat(const Params p, const Ints q, long long n_items, int n_slots,
                     const float4* __restrict__ sph, const float4* __restrict__ tri,
                     const float* __restrict__ table, const float* __restrict__ atlas,
-                    float* __restrict__ scratch, int* __restrict__ next_item) {
+                    float* __restrict__ scratch, const Ring ring, float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   Path ps{};
-  bool alive = false;  // a path is in flight
-  bool done = false;   // no item is left to claim
-  int k = 0;           // the live path's item
+  int state = kIdle;
+  int i = 0, s = 0;       // the item's pixel in the range and sample
+  float3 c;               // its radiance, once the path has ended
+  int slot = 0;           // the slot of a summed pixel, to hand on ...
+  unsigned int t = 0;     // ... to place t + P of the queue
+  unsigned int waited = 0;
   for (;;) {
-    const bool need = !alive && !done;
-    const int claimed = warp_claim(need, next_item, lane);
+    const bool need = state == kIdle;
+    const long long claimed = warp_claim_items(need, ring.next_item, lane);
     if (need) {
       if (claimed < n_items) {
-        k = claimed;
-        const int s_local = k / q.n_pixels;
-        const int i = k - s_local * q.n_pixels;
-        ps = camera_path(p, q, (uint32_t)(q.pixel_base + i), s0 + s_local);
-        alive = true;
+        i = (int)(claimed / q.spp);
+        s = (int)(claimed - (long long)i * q.spp);
+        ps = camera_path(p, q, (uint32_t)(q.pixel_base + i), s);
+        state = kLive;
       } else {
-        done = true;
+        state = kDone;
       }
     }
-    if (!__any_sync(kFullMask, alive)) break;
-    if (alive) {
-      const Hit hit = nearest(p, q, sph, tri, pair_ray(ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz));
-      float3 c;
-      if (bounce(p, q, table, atlas, hit, ps, c)) {
-        scratch[3 * (long long)k + 0] = c.x;
-        scratch[3 * (long long)k + 1] = c.y;
-        scratch[3 * (long long)k + 2] = c.z;
-        alive = false;
+    if (!__any_sync(kFullMask, state != kDone)) break;
+    if (__any_sync(kFullMask, state == kLive)) {
+      if (state == kLive) {
+        const Hit hit =
+            nearest(p, q, sph, tri, pair_ray(ps.ox, ps.oy, ps.oz, ps.dx, ps.dy, ps.dz));
+        if (bounce(p, q, table, atlas, hit, ps, c)) state = kStore;
+      }
+    } else {
+      __nanosleep(256);  // every lane waits on the queue: let the other warps run
+    }
+    if (state == kStore) {
+      const int got = pixel_slot(ring, n_slots, i);
+      if (got < 0) {
+        ++waited;
+      } else {
+        float* row = scratch + 3LL * q.spp * got;
+        __stcg(row + 3 * s + 0, c.x);
+        __stcg(row + 3 * s + 1, c.y);
+        __stcg(row + 3 * s + 2, c.z);
+        __threadfence();  // the sample is in L2 before it is counted
+        state = kIdle;
+        if (atomicAdd(ring.done + got, 1) == q.spp - 1) {  // the pixel's last sample
+          __threadfence();
+          float r = 0.0f, g = 0.0f, b = 0.0f;
+          for (int k = 0; k < q.spp; ++k) {  // sample order, from L2
+            r = r + __ldcg(row + 3 * k + 0);
+            g = g + __ldcg(row + 3 * k + 1);
+            b = b + __ldcg(row + 3 * k + 2);
+          }
+          out[3LL * i + 0] = r * p.inv_spp;
+          out[3LL * i + 1] = g * p.inv_spp;
+          out[3LL * i + 2] = b * p.inv_spp;
+          atomicExch(ring.done + got, 0);
+          slot = got;
+          t = atomicAdd(ring.summed, 1u);
+          state = kHandOn;
+        }
+      }
+    }
+    if (state == kHandOn) {
+      if (hand_on(ring, n_slots, t, slot)) {
+        state = kIdle;
+      } else {
+        ++waited;
       }
     }
   }
-}
-
-// Adds a chunk's `count` samples of scratch f32[count, n_pixels, 3] to the
-// pixel sums `out` f32[n_pixels, 3] in sample order: from 0 on the first
-// chunk, scaled by inv_spp on the last.
-__global__ void __launch_bounds__(kSumBlock)
-    accumulate(const float* __restrict__ scratch, int n_pixels, int count, bool first, bool last,
-               float inv_spp, float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * kSumBlock + threadIdx.x;
-  const long long n = 3 * (long long)n_pixels;
-  if (e >= n) return;
-  float acc = first ? 0.0f : out[e];
-  for (int s = 0; s < count; ++s) acc = acc + scratch[s * n + e];
-  out[e] = last ? acc * inv_spp : acc;
+  const unsigned int warp_waited = __reduce_add_sync(kFullMask, waited);
+  if (lane == 0 && warp_waited != 0u) atomicAdd(ring.waits, warp_waited);
 }
 
 // K5: a persistent grid of warps in a converged step loop (see the top of
@@ -550,25 +642,20 @@ Params load_params(const float* params) {
 std::atomic<int> resident_flat[kMaxDevices];       // megakernel_flat's grid per device
 std::atomic<int> resident_clustered[kMaxDevices];  // megakernel_clustered's grid per device
 
-// K1 over one chunk of samples [s0, s0 + count), then its accumulation.
-cudaError_t launch_flat(const Params& p, const Ints& q, int s0, int count, const float4* sph,
+// K1 over every sample of the range in one launch.
+cudaError_t launch_flat(const Params& p, const Ints& q, int n_slots, const float4* sph,
                         const float4* tri, const float* table, const float* atlas, float* scratch,
-                        int* next_item, float* out, cudaStream_t stream) {
+                        const Ring& ring, float* out, cudaStream_t stream) {
   int fit = 0;
-  cudaError_t e = resident_blocks(megakernel_flat, kFlatBlock, resident_flat, fit);
+  const cudaError_t e = resident_blocks(megakernel_flat, kFlatBlock, resident_flat, fit);
   if (e != cudaSuccess) return e;
-  const long long items = (long long)count * q.n_pixels;
-  if (count < 1 || s0 < 0 || s0 + count > q.spp || items > 0x7fffffffLL) {
+  if (q.spp < 1 || q.n_pixels < 1 || n_slots < 1 || n_slots > q.n_pixels) {
     return cudaErrorInvalidValue;
   }
+  const long long items = (long long)q.n_pixels * q.spp;
   const long long want = (items + kFlatBlock - 1) / kFlatBlock;
   megakernel_flat<<<(int)(want < fit ? want : fit), kFlatBlock, 0, stream>>>(
-      p, q, s0, (int)items, sph, tri, table, atlas, scratch, next_item);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const long long elems = 3LL * q.n_pixels;
-  accumulate<<<(int)((elems + kSumBlock - 1) / kSumBlock), kSumBlock, 0, stream>>>(
-      scratch, q.n_pixels, count, s0 == 0, s0 + count == q.spp, p.inv_spp, out);
+      p, q, items, n_slots, sph, tri, table, atlas, scratch, ring, out);
   return cudaGetLastError();
 }
 
@@ -593,24 +680,31 @@ cudaError_t launch_clustered(const Params& p, const Ints& q, const ClusterSet& s
 // is device memory.  Each launches on `stream` and returns
 // cudaGetLastError().
 
-// K1 over one chunk, samples [chunk_first, chunk_first + chunk_count) of
-// the launch's spp, then their sum into `out` f32[n_pixels, 3] (the mean
-// after the last chunk; chunks go in order, the first from chunk_first 0).
-// `table` is the per-primitive shade table, one row per primitive;
-// `scratch` holds f32[chunk_count, n_pixels, 3]; `next_item` is one int, 0
-// at launch.
+// K1 over samples [0, spp) of pixels [0, n_pixels) of the range, their
+// mean into `out` f32[n_pixels, 3].  `table` is the per-primitive shade
+// table, one row per primitive; `scratch` holds the ring f32[n_slots, spp,
+// 3], 1 <= n_slots <= n_pixels; `ring` is int32[4 + 3 * n_slots +
+// n_pixels], zero at launch: the 64-bit claim counter, the waited steps,
+// the pixels summed, then per slot the samples stored, per queue cell its
+// turn and its slot, and per pixel its slot + 1 (struct rt::Ring).
 extern "C" int rt_megakernel_flat(const float* params, int n_pixels, int pixel_base, int spp,
                                   int sample_offset, unsigned int seed, int width, int n_global,
                                   int max_depth, int n_spheres, int n_tris, int atlas_h,
                                   int atlas_w, int flags, const float* sph, const float* tri,
-                                  const float* table, const float* atlas, int chunk_first,
-                                  int chunk_count, float* scratch, int* next_item, float* out,
-                                  void* stream) {
+                                  const float* table, const float* atlas, int n_slots,
+                                  float* scratch, int* ring, float* out, void* stream) {
   const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
                    n_spheres, n_tris, atlas_h, atlas_w, flags};
+  const rt::Ring r{reinterpret_cast<unsigned long long*>(ring),
+                   reinterpret_cast<unsigned int*>(ring + 2),
+                   reinterpret_cast<unsigned int*>(ring + 3),
+                   ring + 4,
+                   ring + 4 + n_slots,
+                   ring + 4 + 2LL * n_slots,
+                   ring + 4 + 3LL * n_slots};
   return static_cast<int>(rt::launch_flat(
-      rt::load_params(params), q, chunk_first, chunk_count, reinterpret_cast<const float4*>(sph),
-      reinterpret_cast<const float4*>(tri), table, atlas, scratch, next_item, out,
+      rt::load_params(params), q, n_slots, reinterpret_cast<const float4*>(sph),
+      reinterpret_cast<const float4*>(tri), table, atlas, scratch, r, out,
       static_cast<cudaStream_t>(stream)));
 }
 

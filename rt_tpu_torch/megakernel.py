@@ -10,10 +10,11 @@ range, like the JAX function of the same name, through K1 where
 
 - on a CUDA device it launches the hand-written CUDA kernel
   (csrc/megakernel.cu): K1 a persistent grid of warps whose lanes claim
-  (pixel, sample) items as their paths finish, over the samples in chunks
-  (``chunk_schedule``), each chunk's radiance summed into the pixels in
-  sample order by a second small kernel; K5 a persistent grid of warps
-  that walk their lanes' rays together and claim pixels as they finish;
+  (pixel, sample) items as their paths finish, every sample in one launch,
+  each pixel's samples held in a bounded ring of pixel slots
+  (``ring_slots``) and summed in sample order by the lane that finishes
+  the pixel; K5 a persistent grid of warps that walk their lanes' rays
+  together and claim pixels as they finish;
 - on the CPU it runs ``render_megakernel_plain``, the same computation in
   plain PyTorch, which the tests hold against the JAX package and the
   kernel is held against on the card.
@@ -79,10 +80,16 @@ WHITE_SCALE = 1.0 / color.uncharted2_tonemap(11.2)
 # temporaries (a few hundred MB at the cover scene's ~480 prims).
 _PLAIN_CHUNK = 1 << 15
 
-# K1's sample chunks: the per-sample scratch f32[S, n_pixels, 3] of a chunk
-# stays within SCRATCH_CAP bytes (5,592,405 items, 41 for each of the
-# 135,168 lanes K1 keeps resident on an H100, so a chunk fills the card).
+# K1's ring of pixel slots: its per-sample scratch f32[P, spp, 3] stays
+# within SCRATCH_CAP bytes (5,592,405 samples, 41 for each of the 135,168
+# lanes K1 keeps resident on an H100, so the slots in flight fill the card).
 SCRATCH_CAP = 64 << 20
+
+# K1's last call: its kernel launches, ring slots (P), generations (the
+# rounds of the slot queue, ceil(n_pixels / P)), and ``waits``, a device
+# int32 holding the steps its lanes waited for a slot or to hand one on
+# (read it only off the main path: it syncs).
+K1_RING = {"launches": 0, "slots": 0, "generations": 0, "waits": None}
 
 
 def eligible(scene: SceneData, cfg: RenderConfig) -> bool:
@@ -187,27 +194,20 @@ def kernel_params(scene: SceneData, camera: Camera, cfg: RenderConfig, spp: int)
     return pf
 
 
-def chunk_schedule(n_pixels: int, spp: int) -> list[tuple[int, int]]:
-    """K1's chunks of a launch's ``spp`` samples, as (first sample, count),
-    in order: as many samples a chunk as the scratch cap allows (always at
-    least one), then evened out, the first chunks a sample longer.  The
-    image does not depend on the schedule: each pixel sums its samples in
-    sample order whatever the chunks."""
-    per = max(1, min(spp, SCRATCH_CAP // (12 * n_pixels)))
-    n_chunks = -(-spp // per)
-    size, longer = divmod(spp, n_chunks)
-    chunks, first = [], 0
-    for j in range(n_chunks):
-        count = size + (j < longer)
-        chunks.append((first, count))
-        first += count
-    return chunks
+def ring_slots(n_pixels: int, spp: int) -> int:
+    """K1's pixel slots for a launch of ``n_pixels`` pixels at ``spp``: as
+    many pixels' samples, f32[P, spp, 3], as SCRATCH_CAP holds, at least one
+    and at most ``n_pixels``.  Pixel i takes the slot at place i of a queue
+    of P cells, which the (i - P)-th pixel summed freed.  The image does not
+    depend on P: each pixel sums its samples in sample order."""
+    return min(n_pixels, max(1, SCRATCH_CAP // (12 * spp)))
 
 
 def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) -> torch.Tensor:
-    """Wrapper of K1: checks its inputs, allocates the output, the chunk
-    scratch and the claim counters, and launches each chunk on the current
-    stream (one count of LAUNCHES for the call).  Raises on any failure."""
+    """Wrapper of K1: checks its inputs, allocates the output, the ring's
+    scratch and its zeroed state, and launches once on the current stream
+    (one count of LAUNCHES; K1_RING describes the call).  Raises on any
+    failure."""
     global LAUNCHES
     with profiling.span("megakernel.prepare"):
         n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
@@ -226,23 +226,27 @@ def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) 
         pf = kernel_params(scene, camera, cfg, spp)
         out = torch.empty((n_pixels, 3), dtype=torch.float32, device=device)
         lib = _build.library()
-        chunks = chunk_schedule(n_pixels, spp)
         flags = _flags(scene, camera, cfg)
-        scratch = torch.empty((chunks[0][1], n_pixels, 3), dtype=torch.float32, device=device)
-        next_item = torch.zeros((len(chunks),), dtype=torch.int32, device=device)
+        n_slots = ring_slots(n_pixels, spp)
+        K1_RING["waits"] = None  # frees the last call's ring state before this call's
+        scratch = torch.empty((n_slots, spp, 3), dtype=torch.float32, device=device)
+        # The 64-bit claim counter, the waited steps, the pixels summed; per
+        # slot its stored samples; per queue cell its turn and slot; per
+        # pixel its slot + 1 (csrc/megakernel.cu struct Ring).
+        ring = torch.zeros((4 + 3 * n_slots + n_pixels,), dtype=torch.int32, device=device)
     with profiling.span("megakernel.launch"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        for j, (first, count) in enumerate(chunks):
-            err = lib.rt_megakernel_flat(
-                pf.ctypes.data, n_pixels, pixel_base, spp, sample_offset, seed & 0xFFFFFFFF,
-                camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
-                scene.num_spheres, scene.num_triangles, atlas.shape[0], atlas.shape[1], flags,
-                sph.data_ptr(), tri.data_ptr(), table.data_ptr(), atlas.data_ptr(), first, count,
-                scratch.data_ptr(), next_item[j].data_ptr(), out.data_ptr(), stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"megakernel launch failed with CUDA error {err}")
+        err = lib.rt_megakernel_flat(
+            pf.ctypes.data, n_pixels, pixel_base, spp, sample_offset, seed & 0xFFFFFFFF,
+            camera.image_width, camera.image_width * camera.image_height, cfg.max_depth,
+            scene.num_spheres, scene.num_triangles, atlas.shape[0], atlas.shape[1], flags,
+            sph.data_ptr(), tri.data_ptr(), table.data_ptr(), atlas.data_ptr(), n_slots,
+            scratch.data_ptr(), ring.data_ptr(), out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed with CUDA error {err}")
     LAUNCHES += 1
+    K1_RING.update(launches=1, slots=n_slots, generations=-(-n_pixels // n_slots), waits=ring[2])
     return out
 
 
@@ -612,8 +616,7 @@ def render_megakernel_plain(
     per-primitive table, or for a clustered scene K5's: the cluster walk
     and the slot-ordered table.  ``search(scene, cfg, rays)``, when given,
     replaces the search and must give the same winners.  Samples are summed
-    per pixel in sample order, as K1's accumulation and K5's lanes sum
-    them."""
+    per pixel in sample order, as K1's ring and K5's lanes sum them."""
     n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
     device = scene.device
     if eligible_clustered(scene, cfg):

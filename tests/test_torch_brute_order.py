@@ -27,12 +27,20 @@ the tie scene's rays that way and hold ``group_nearest`` with an empty
 triangle table against ``sphere_nearest_plain`` and
 ``sphere_nearest_packed_plain``, bit for bit.
 
-K1 (csrc/megakernel.cu) renders a launch's samples in chunks
-(``megakernel.chunk_schedule``), each chunk's per-sample radiance summed
-into the pixels in sample order.  The tests check that the schedule covers
-the samples in order within the scratch cap, and that summing
-``trace_paths``' per-sample radiance chunk by chunk, as the kernels do,
-gives ``render_megakernel_plain``'s image bit for bit.
+K1 (csrc/megakernel.cu) renders every sample of a launch at once: items
+k = i * spp + s, claimed pixel-major by warps, write their radiance to a
+ring of P pixel slots (``megakernel.ring_slots``).  Pixel i takes the slot
+at place i of a queue of P cells, which the (i - P)-th pixel summed put
+there; the lane that counts a pixel's last sample sums the slot in sample
+order and hands it on.  ``ring_model`` below is a plain-PyTorch model of
+that protocol, step by step: warps of lanes that claim, run each path for
+a number of steps set by a completion policy (seeded random, or
+adversarial), wait for their pixel's slot, store, count, sum and hand the
+slot on.  The tests check that it gives ``render_megakernel_plain``'s
+image bit for bit from ``trace_paths``' per-sample radiance, with caps that
+send each slot round the queue many times; that it never stalls with one
+or two slots under adversarial completion orders; and that P keeps the
+scratch within the cap and the 64-bit item numbers decode past 2**31.
 
 The kernels themselves are held against the plain versions on the card
 (tests/test_torch_prim.py, tests/test_torch_megakernel.py, chip_smoke.py),
@@ -224,7 +232,7 @@ def test_order_key_packs_ties_by_id():
     assert keys[1] < keys[0] < keys[5] and int(keys.max()) < NO_KEY
 
 
-def _chunk_case():
+def _ring_case():
     b = SceneBuilder()
     b.add_sphere((0, 0, -1000), 1000, b.lambertian(b.solid_color((0.5, 0.5, 0.5))))
     b.add_sphere((0, 0, 1), 1, b.dielectric(1.5))
@@ -236,51 +244,181 @@ def _chunk_case():
     return b.build(), camera, cfg
 
 
-@pytest.mark.parametrize("cap_samples", [1, 5, 1 << 20])
-@pytest.mark.parametrize("spp", [1, 3, 17])
-def test_chunked_sum_is_the_plain_image(spp, cap_samples, monkeypatch):
-    """K1's chunks, summed as its accumulation kernel sums them, give the
-    plain version's image bit for bit (a pixel range, defocus, sample
-    offset 2), with the scratch cap lowered to ``cap_samples`` samples of
-    the range."""
-    scene, camera, cfg = _chunk_case()
-    base, n, offset, seed = 100, 300, 2, 5
-    monkeypatch.setattr(megakernel, "SCRATCH_CAP", 12 * n * cap_samples)
-    chunks = megakernel.chunk_schedule(n, spp)
-    assert [f for f, _ in chunks] == list(np.cumsum([0] + [c for _, c in chunks])[:-1])
-    assert sum(c for _, c in chunks) == spp and all(1 <= c <= cap_samples for _, c in chunks)
-    assert len(chunks) == -(-spp // cap_samples)  # the cap does cut the samples
+def _duration(policy: str, rng, i: int, s: int, n_slots: int) -> int:
+    """Steps a path runs under a completion policy: seeded random lengths;
+    every pixel's first sample held back; or the paths of every P-th pixel
+    held back (under a fixed slot i % P, each would block the next)."""
+    if policy == "random":
+        return int(rng.integers(1, 9))
+    if policy == "first_held":
+        return 40 if s == 0 else 1
+    return 40 if i % n_slots == 0 else int(rng.integers(1, 3))
+
+
+IDLE, LIVE, STORE, HAND_ON, DONE = range(5)  # a lane's states (csrc/megakernel.cu)
+
+
+def ring_model(rad: torch.Tensor, n_slots: int, policy: str = "random", warps: int = 4,
+               lanes: int = 8, seed: int = 0) -> tuple[torch.Tensor, int]:
+    """K1's ring over the items' radiance ``rad`` f32[n, spp, 3]: (the image
+    f32[n, 3], the steps lanes waited for a slot or to hand one on).  Each
+    step, the warps in a seeded order, each as the kernel's step loop: lanes
+    without an item claim the next ones in lane order (pixel-major, k = i *
+    spp + s) and start their paths; a warp whose lanes are all done exits;
+    live paths advance one step; a lane whose path has ended stores it once
+    its pixel has a slot, the slot at place i of the queue (cell i % P,
+    round i // P; round 0 holds slot i % P), taken by the first lane that
+    finds it; the lane that counts a pixel's last sample sums the slot in
+    sample order from 0, writes the pixel, and hands the slot on to place t
+    + P, t the pixels summed before it, once pixel t has taken that cell.
+    Fails on a slot taken while another pixel holds it, a store into a slot
+    the pixel does not hold, and a step that changes nothing (a stall)."""
+    n, spp, _ = rad.shape
+    n_items = n * spp
+    rng = np.random.default_rng(seed)
+    inv_spp = float(np.float32(1.0 / spp))
+    scratch = torch.full((n_slots, spp, 3), float("nan"))
+    holder = np.full((n_slots, spp), -1)  # the pixel whose sample each row holds
+    owner = np.full(n_slots, -1)  # the pixel holding each slot, -1: free or in the queue
+    stored = np.zeros(n_slots, np.int64)
+    turn = np.zeros(n_slots, np.int64)  # per cell: 2r holds round r's slot, 2r + 1 taken
+    cell = np.zeros(n_slots, np.int64)
+    slot_of = np.zeros(n, np.int64)  # per pixel: its slot + 1
+    out = torch.full((n, 3), float("nan"))
+    state = np.full((warps, lanes), IDLE)
+    item = np.zeros((warps, lanes), np.int64)
+    left = np.zeros((warps, lanes), np.int64)  # steps the live path still runs
+    freed = np.zeros((warps, lanes), np.int64)  # a summed pixel's slot, to hand on ...
+    place = np.zeros((warps, lanes), np.int64)  # ... to place + P
+    next_item = summed = waits = 0
+    while (state != DONE).any():
+        moved = False
+        for w in rng.permutation(warps):
+            if (state[w] == DONE).all():
+                continue
+            for ln in range(lanes):  # one counter add a warp, in lane order
+                if state[w, ln] == IDLE:
+                    if next_item < n_items:
+                        item[w, ln], next_item = next_item, next_item + 1
+                        i, s = divmod(int(item[w, ln]), spp)
+                        state[w, ln], left[w, ln] = LIVE, _duration(policy, rng, i, s, n_slots)
+                    else:
+                        state[w, ln] = DONE
+                    moved = True
+            live = state[w] == LIVE
+            left[w] -= live
+            state[w][live & (left[w] == 0)] = STORE
+            moved = moved or bool(live.any())
+            for ln in rng.permutation(lanes):
+                if state[w, ln] == STORE:
+                    i, s = divmod(int(item[w, ln]), spp)
+                    if slot_of[i] == 0:
+                        c, r = i % n_slots, i // n_slots
+                        if turn[c] == 2 * r:
+                            slot = c if r == 0 else int(cell[c])
+                            assert owner[slot] == -1, "a slot taken while another pixel holds it"
+                            owner[slot], slot_of[i], turn[c] = i, slot + 1, 2 * r + 1
+                    if slot_of[i] == 0:
+                        waits += 1
+                        continue
+                    slot = int(slot_of[i]) - 1
+                    assert owner[slot] == i, "a path stored into a slot its pixel does not hold"
+                    scratch[slot, s], holder[slot, s] = rad[i, s], i
+                    state[w, ln], stored[slot], moved = IDLE, stored[slot] + 1, True
+                    if stored[slot] == spp:
+                        assert (holder[slot] == i).all()
+                        acc = torch.zeros(3)
+                        for k in range(spp):
+                            acc = acc + scratch[slot, k]
+                        out[i] = acc * inv_spp
+                        stored[slot] = 0
+                        state[w, ln], freed[w, ln], place[w, ln] = HAND_ON, slot, summed
+                        summed += 1
+                if state[w, ln] == HAND_ON:
+                    t = int(place[w, ln])
+                    c, r = t % n_slots, t // n_slots + 1
+                    if turn[c] == 2 * r - 1:
+                        owner[freed[w, ln]] = -1
+                        cell[c], turn[c], state[w, ln], moved = freed[w, ln], 2 * r, IDLE, True
+                    else:
+                        waits += 1
+        assert moved, "the ring stalled: lanes wait and no path runs"
+    assert summed == n and next_item == n_items
+    return out, waits
+
+
+def _per_sample_radiance(scene, camera, cfg, spp, offset, seed, base, n):
+    """f32[n, spp, 3]: trace_paths' radiance of every (pixel, sample) item."""
     sky_k = frame_scalars(scene.sky)
     pix = torch.arange(base, base + n)
-    inv_spp = float(np.float32(1.0 / spp))
-    acc = None
-    for first, count in chunks:
-        scratch = []
-        for s_local in range(count):
-            sample = torch.full_like(pix, offset + first + s_local)
-            org, dirn, gwork = generate_rays(camera, pix, sample, seed, cfg.compat)
-            scratch.append(megakernel.trace_paths(scene, cfg, seed, sky_k, org, dirn, gwork))
-        acc = torch.zeros((n, 3)) if first == 0 else acc
-        for c in scratch:
-            acc = acc + c
-    got = acc * inv_spp
+    rows = []
+    for s in range(spp):
+        sample = torch.full_like(pix, offset + s)
+        org, dirn, gwork = generate_rays(camera, pix, sample, seed, cfg.compat)
+        rows.append(megakernel.trace_paths(scene, cfg, seed, sky_k, org, dirn, gwork))
+    return torch.stack(rows, dim=1)
+
+
+@pytest.mark.parametrize("cap_slots", [1, 7, 1 << 20])
+@pytest.mark.parametrize("spp", [1, 3, 17])
+def test_ring_sum_is_the_plain_image(spp, cap_slots, monkeypatch):
+    """K1's ring, as ``ring_model`` runs it with seeded random completion,
+    gives the plain version's image bit for bit (a pixel range, defocus,
+    sample offset 2), with the scratch cap lowered to ``cap_slots`` pixels'
+    samples: one slot (300 rounds of the queue), 7 (43), or every pixel
+    (1)."""
+    scene, camera, cfg = _ring_case()
+    base, n, offset, seed = 100, 300, 2, 5
+    monkeypatch.setattr(megakernel, "SCRATCH_CAP", 12 * spp * cap_slots)
+    n_slots = megakernel.ring_slots(n, spp)
+    assert n_slots == min(n, cap_slots)
+    rad = _per_sample_radiance(scene, camera, cfg, spp, offset, seed, base, n)
+    got, waits = ring_model(rad, n_slots, seed=spp * cap_slots)
     ref = megakernel.render_megakernel_plain(scene, camera, cfg, spp, offset, seed,
                                              pixel_base=base, n_pixels=n)
     assert torch.equal(got, ref) and ref.abs().max() > 0.05
+    if n_slots * spp < 32:  # the 32 lanes claim more samples than the ring holds
+        assert waits > 0
+
+
+@pytest.mark.parametrize("policy", ["random", "first_held", "slot_held"])
+@pytest.mark.parametrize("n_slots", [1, 2])
+def test_ring_makes_progress(n_slots, policy):
+    """With one or two slots, under completion orders that hold back every
+    pixel's first sample or every P-th pixel's paths, the ring never
+    stalls, writes every pixel once, and each pixel is its samples' in-order
+    sum."""
+    n, spp = 40, 3
+    rad = torch.from_numpy(np.random.default_rng(7).random((n, spp, 3), dtype=np.float32))
+    got, waits = ring_model(rad, n_slots, policy, seed=n_slots)
+    acc = torch.zeros((n, 3))
+    for s in range(spp):
+        acc = acc + rad[:, s]
+    assert torch.equal(got, acc * float(np.float32(1.0 / spp))) and waits > 0
 
 
 @pytest.mark.parametrize("n_pixels, spp", [(90_000, 640), (1_440_000, 10), (768, 7_000),
-                                           (5_000_000, 64), (8_294_400, 3)])
-def test_chunk_schedule_bounds_scratch(n_pixels, spp):
-    """Chunks cover [0, spp) in order, evenly, as few as the cap allows,
-    and their scratch f32[S, n_pixels, 3] stays under the cap, or is one
-    sample's where a sample alone passes it (above 5,592,405 pixels)."""
-    chunks = megakernel.chunk_schedule(n_pixels, spp)
-    firsts = [f for f, _ in chunks]
-    counts = [c for _, c in chunks]
-    assert firsts == sorted(firsts) and firsts[0] == 0 and sum(counts) == spp
-    assert all(f + c == g for (f, c), g in zip(chunks, firsts[1:] + [spp]))
-    assert max(counts) - min(counts) <= 1
-    assert max(counts) * n_pixels * 12 <= max(megakernel.SCRATCH_CAP, 12 * n_pixels)
-    per_cap = max(1, megakernel.SCRATCH_CAP // (12 * n_pixels))
-    assert (len(chunks) - 1) * per_cap < spp  # one chunk fewer could not hold the samples
+                                           (5_000_000, 64), (8_294_400, 3), (8_294_400, 1_024)])
+def test_ring_slots_bound_scratch(n_pixels, spp):
+    """The ring's scratch f32[P, spp, 3] stays under the cap, or is one
+    pixel's where one pixel's samples alone pass it, with as many slots as
+    fit and no more than the pixels; the generations cover the pixels; and
+    the 64-bit item numbers k = i * spp + s decode to a pixel of the range
+    and a row of the ring, past 2**31 too (4K at 1,024 spp: 8.5e9 items)."""
+    cap = megakernel.SCRATCH_CAP
+    p = megakernel.ring_slots(n_pixels, spp)
+    assert 1 <= p <= n_pixels
+    assert p * spp * 12 <= max(cap, 12 * spp)
+    assert p == n_pixels or p == 1 or (p + 1) * spp * 12 > cap  # as many slots as fit
+    generations = -(-n_pixels // p)
+    assert (generations - 1) * p < n_pixels <= generations * p
+    n_items = n_pixels * spp
+    ks = torch.tensor(sorted({k for k in (0, p * spp - 1, p * spp, 2**31 - 1, 2**31, n_items - 1)
+                              if k < n_items}), dtype=torch.int64)
+    i = ks // spp
+    s = ks - i * spp
+    assert bool(((0 <= i) & (i < n_pixels) & (0 <= s) & (s < spp)).all())
+    assert torch.equal(i * spp + s, ks)
+    assert bool(((i % p) * spp + s < p * spp).all())
+    if (n_pixels, spp) == (8_294_400, 1_024):
+        assert n_items > 2**31 and int(ks.max()) == n_items - 1

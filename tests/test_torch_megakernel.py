@@ -98,12 +98,15 @@ def test_plain_megakernel_matches_generic(name):
 def test_cuda_kernel_matches_plain_version(monkeypatch):
     """Hand-written CUDA kernel against its plain version on the card, on
     every case above (defocus among them), the whole frame and a pixel range
-    with a sample offset, bit for bit, at spp values whose samples the
-    launch cuts into several chunks: the scratch cap is lowered to two
-    samples of the whole frame."""
+    with a sample offset, bit for bit, with the scratch cap lowered to two
+    samples of the whole frame: the ring then holds 307 of the frame's 768
+    pixels at 5 spp and 170 of the range's 384 at 9 spp, three generations
+    of each slot, and lanes wait for them (each lane claims an item at
+    once)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     monkeypatch.setattr(megakernel, "SCRATCH_CAP", 12 * W * H * 2)
+    waits = 0
     for name in CASES:
         scene, camera, cfg = _port_case(name)
         scene.to("cuda")
@@ -113,9 +116,14 @@ def test_cuda_kernel_matches_plain_version(monkeypatch):
             got = megakernel.render_megakernel(scene, camera, cfg, spp, off, 0, pixel_base=base,
                                                n_pixels=n)
             assert megakernel.LAUNCHES == before + 1
+            ring = megakernel.K1_RING
+            assert ring["launches"] == 1
+            assert ring["generations"] == (3 if spp in (5, 9) else 1), (name, spp, ring)
+            waits += int(ring["waits"])
             ref = megakernel.render_megakernel_plain(scene, camera, cfg, spp, off, 0,
                                                      pixel_base=base, n_pixels=n)
             assert torch.equal(got, ref), (name, spp, off, base)
+    assert waits > 0
 
 
 @pytest.mark.cuda
