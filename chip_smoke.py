@@ -1040,7 +1040,7 @@ def k4_rays_phase(dev, scene, camera, cfg, timer, n: int = 65_536):
           f"{equal(got, ref)}, hits {hits}; walk work {walk_counts(work)}; {row_share(work)}")
     check(equal(got, ref) and hits > n // 4, "K4: kernel and plain version disagree")
     k4 = (0.0, ms, plain_ms,
-          *walk_bound(work, walk_bytes(work, n, whole[0].shape[0] + whole[3].shape[0])))
+          *walk_bound(work, walk_bytes(work, n, whole[0].shape[0] + whole[4].shape[0])))
     return k4, rays, whole, work
 
 

@@ -6,6 +6,7 @@ Examples:
     python -m rt_tpu_torch.cli --scene textured --camera cam2 --device cpu --out t.ppm
     python -m rt_tpu_torch.cli --scene obj:model.obj --size 200x112 --spp 2 --out m.png
     python -m rt_tpu_torch.cli --scene gltf:model.glb --camera widecam --spp 8 --out g.png
+    python -m rt_tpu_torch.cli --scene default:model.glb --spp 64 --out d.png
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --progressive --passes 4 \
         --checkpoint cover.npz --out cover.png
     python -m rt_tpu_torch.cli --scene cover --progressive --serve 8000 --term-preview
@@ -55,6 +56,8 @@ def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
         b = SceneBuilder()
         add_gltf_to_scene(b, spec[5:])
         return b.build()
+    if spec.startswith("default:"):
+        return scenes.default_scene(camera, spec[8:], seed=seed)
     raise SystemExit(f"unknown scene: {spec!r}")
 
 
@@ -62,7 +65,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="rt_tpu_torch", description=__doc__)
     parser.add_argument("--scene", default="cover",
                         help="cover | cover-large | earth | checkered | textured | triangles | "
-                        "obj:PATH | gltf:PATH")
+                        "obj:PATH | gltf:PATH | default:PATH (the upstream's main.rs scene: the "
+                        "cover-large lattice, a checkered ground and the glTF at PATH)")
     parser.add_argument("--camera", default="cam1", choices=["cam1", "cam2", "widecam", "topdown"])
     parser.add_argument("--size", default="800x600", help="WIDTHxHEIGHT")
     parser.add_argument("--spp", type=int, default=32)

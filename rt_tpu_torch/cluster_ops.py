@@ -49,6 +49,15 @@ TINY = 1e-20
 # (rt_tpu/megakernel.py:922).
 PAD_MUL = float(np.float32(1.0 + 6e-7))
 PAD_ADD = float(np.float32(1e-6))
+# Sphere boxes are widened by the reach of the sphere pair test's rounding
+# past a sphere (csrc/cluster_walk.cuh admits), so that the walk finds
+# what a brute-force search over every sphere finds: by the lesser of
+# SPHERE_REACH * l1 and l1 * l1 * sphere_reach(slots), l1 the L1 distance
+# from the ray's origin to the box's farthest corner.  SPHERE_K is the K of
+# both: sqrt(K) and K / (2 * the set's least radius).  cluster_args hands
+# both to the kernels.
+SPHERE_K = 2e-6
+SPHERE_REACH = float(np.float32(1.4142136e-3))  # sqrt(SPHERE_K)
 # Rays per pass of the plain walk: bounds its [rays, 128] temporaries.
 _PLAIN_CHUNK = 1 << 16
 
@@ -59,8 +68,10 @@ LIVE_ROW = {"sphere": 3, "triangle": 9}  # the radius; the valid flag
 LIVE_MIN = {"sphere": 0.0, "triangle": 0.5}
 PAIR_ROWS = {"sphere": 4, "triangle": 10}
 LANE_SLOTS = 4  # slots a lane of the warp walk tests: one 16-byte load a row
-# live_counts' results by slot table: (the table's version, the counts).
+# live_counts' and sphere_reach's results by slot table: (the table's
+# version, the result).
 _LIVE_COUNTS = WeakIdKeyDictionary()
+_REACH = WeakIdKeyDictionary()
 
 # Launches of the CUDA kernel per wrapper since the last reset.  Only the
 # wrappers change them, once per launch; callers read and reset them to
@@ -85,6 +96,22 @@ def live_counts(slots: torch.Tensor, kind: str) -> torch.Tensor:
     return counts
 
 
+def sphere_reach(slots: torch.Tensor) -> float:
+    """The reach factor of a sphere slot table's boxes: SPHERE_K over twice
+    its least live radius, as an f32 value (0 for a table with no live
+    slot).  Computed once per table (again only after an in-place change to
+    it) and kept while the table lives."""
+    got = _REACH.get(slots)
+    if got is not None and got[0] == slots._version:
+        return got[1]
+    radius = slots[LIVE_ROW["sphere"]]
+    live = radius > LIVE_MIN["sphere"]
+    least = float(radius[live].min()) if bool(live.any()) else float("inf")
+    reach = float(np.float32(SPHERE_K / (2.0 * least)))
+    _REACH[slots] = (slots._version, reach)
+    return reach
+
+
 def row_bytes(live: int, kind: str) -> tuple[int, int]:
     """Slot-row bytes the warp walk loads for one ray entering a cluster of
     live count ``live``: (the lanes below the live count, all 32 lanes)."""
@@ -92,14 +119,24 @@ def row_bytes(live: int, kind: str) -> tuple[int, int]:
     return -(-live // LANE_SLOTS) * lane_bytes, CLUSTER_SLOTS // LANE_SLOTS * lane_bytes
 
 
-def _enters(box, r, best):
+def _enters(box, r, best, reach: float | None = None):
     """The padded slab test of rt_tpu/megakernel.py:903-923 for rays r
     (component tensors [K]) against boxes ``box`` f32[B, 8] -> (tn [K, B],
-    entered ignoring best [K, B]); a ray enters when also tn < its best."""
+    entered ignoring best [K, B]); a ray enters when also tn <= its best.
+    With a ``reach`` (sphere boxes: ``sphere_reach``) each box is first
+    widened by the sphere test's reach, as SPHERE_REACH says."""
+    live = box[:, 0][None] <= box[:, 3][None]
     lx, ly, lz = box[:, 0][None], box[:, 1][None], box[:, 2][None]
     hx, hy, hz = box[:, 3][None], box[:, 4][None], box[:, 5][None]
     ox, oy, oz = r["ox"][:, None], r["oy"][:, None], r["oz"][:, None]
     idx, idy, idz = r["idx"][:, None], r["idy"][:, None], r["idz"][:, None]
+    if reach is not None:
+        ex = torch.maximum(torch.abs(lx - ox), torch.abs(hx - ox))
+        ey = torch.maximum(torch.abs(ly - oy), torch.abs(hy - oy))
+        ez = torch.maximum(torch.abs(lz - oz), torch.abs(hz - oz))
+        l1 = ex + ey + ez
+        pad = torch.minimum(l1 * SPHERE_REACH, l1 * l1 * reach)
+        lx, ly, lz, hx, hy, hz = lx - pad, ly - pad, lz - pad, hx + pad, hy + pad, hz + pad
     t0x, t1x = (lx - ox) * idx, (hx - ox) * idx
     t0y, t1y = (ly - oy) * idy, (hy - oy) * idy
     t0z, t1z = (lz - oz) * idz, (hz - oz) * idz
@@ -108,7 +145,7 @@ def _enters(box, r, best):
     tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
                        torch.maximum(t0z, t1z))
     tf = tf * PAD_MUL + PAD_ADD
-    return tn, (tn <= tf) & (tf >= 0.0) & (lx <= hx)
+    return tn, (tn <= tf) & (tf >= 0.0) & live
 
 
 def _sphere_pairs(r, s, t_min: float, t_max: float):
@@ -156,11 +193,13 @@ def _triangle_pairs(r, s, t_min: float, t_max: float, cull: bool):
     return torch.where(ok, t, BIG)
 
 
-def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_base: int, pairs,
-              work: dict | None, kind: str):
+def _walk_set(r, best_t, best_i, best_r, supers, clusters, slots, prim, id_base: int,
+              slot_base: int, pairs, work: dict | None, kind: str):
     """One kind's walk for all rays r, in the kernel's order: supers in
     turn, each entered super's clusters in turn, each entered cluster's
-    slots; ``best_t``/``best_i`` [N] are updated in place.  ``work``, when
+    slots; ``best_t``/``best_i`` [N] and the best's rank ``best_r`` [N]
+    are updated in place.  Among equal t the lowest primitive id ``prim``
+    (int32[slots]) wins, then the lowest slot.  ``work``, when
     given, counts the slab tests and the pair tests the walk makes on live
     boxes and slots, as the kernel makes them, and the slot-row bytes the
     kernel loads for the clusters it enters (``row_bytes``:
@@ -168,6 +207,9 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_bas
     "<kind>_row_bytes_whole" for all 32 lanes), and gathers the supers and
     clusters some ray entered (by their index in the unpaged tables,
     ``slot_base`` / CLUSTER_SLOTS + the page's own index)."""
+    reach = sphere_reach(slots) if kind == "sphere" else None
+    ranks = prim.to(device=slots.device, dtype=torch.int64)
+    no_rank = torch.iinfo(torch.int64).max
     sup_live = (supers[:, 0] <= supers[:, 3]).tolist()
     cl_live = (clusters[:, 0] <= clusters[:, 3]).tolist()
     n_clusters = clusters.shape[0]
@@ -184,14 +226,14 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_bas
     for si, live in enumerate(sup_live):
         if not live:
             continue
-        tn, ent = _enters(supers[si : si + 1], r, best_t)
-        rays_s = torch.nonzero(ent[:, 0] & (tn[:, 0] < best_t))[:, 0]
+        tn, ent = _enters(supers[si : si + 1], r, best_t, reach)
+        rays_s = torch.nonzero(ent[:, 0] & (tn[:, 0] <= best_t))[:, 0]
         if rays_s.numel() == 0:
             continue
         sub = {k: v[rays_s] for k, v in r.items()}
-        bt, bi = best_t[rays_s], best_i[rays_s]
+        bt, bi, br = best_t[rays_s], best_i[rays_s], best_r[rays_s]
         c_lo, c_hi = si * SUPER_CLUSTERS, min(n_clusters, (si + 1) * SUPER_CLUSTERS)
-        tn_c, ent_c = _enters(clusters[c_lo:c_hi], sub, bt)
+        tn_c, ent_c = _enters(clusters[c_lo:c_hi], sub, bt, reach)
         if work is not None:
             work["slab"] += rays_s.numel() * sum(cl_live[c_lo:c_hi])
             entered_supers.add((first + c_lo) // SUPER_CLUSTERS)
@@ -199,7 +241,7 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_bas
             if not cl_live[ci]:
                 continue
             k = ci - c_lo
-            rows = torch.nonzero(ent_c[:, k] & (tn_c[:, k] < bt))[:, 0]
+            rows = torch.nonzero(ent_c[:, k] & (tn_c[:, k] <= bt))[:, 0]
             if rows.numel() == 0:
                 continue
             if work is not None:
@@ -209,25 +251,31 @@ def _walk_set(r, best_t, best_i, supers, clusters, slots, id_base: int, slot_bas
                 entered_clusters.add(first + ci)
             cand = pairs({key: v[rows] for key, v in sub.items()},
                          slots[:, ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS])
-            c_t, c_k = torch.min(cand, dim=1)  # the first minimum: the lowest slot
-            better = c_t < bt[rows]
+            c_t = cand.min(dim=1).values
+            rk = ranks[ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS][None]
+            tie = (cand == c_t[:, None]) & (cand < BIG)
+            c_r = torch.where(tie, rk, no_rank).min(dim=1).values
+            c_k = (tie & (rk == c_r[:, None])).to(torch.int8).argmax(dim=1)  # the first of them
+            better = (c_t < bt[rows]) | ((c_t == bt[rows]) & (c_r < br[rows]))
             bt[rows] = torch.where(better, c_t, bt[rows])
             bi[rows] = torch.where(better, (c_k + (id_base + ci * CLUSTER_SLOTS)).to(torch.int32),
                                    bi[rows])
-        best_t[rays_s], best_i[rays_s] = bt, bi
+            br[rows] = torch.where(better, c_r, br[rows])
+        best_t[rays_s], best_i[rays_s], best_r[rays_s] = bt, bi, br
 
 
-def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_cluster,
-                          tri_slots, n_sph_slots: int, t_min: float, t_max: float,
-                          backface_cull: bool = True, sph_slot_base: int = 0,
+def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, sph_prim, tri_super,
+                          tri_cluster, tri_slots, tri_prim, n_sph_slots: int, t_min: float,
+                          t_max: float, backface_cull: bool = True, sph_slot_base: int = 0,
                           tri_slot_base: int = 0, work: dict | None = None):
     """K4's plain version: the arguments and result of
     ``cluster_worklist_nearest`` (``rays`` f32[>=6, N], any N).  The walk of
     csrc/cluster_walk.cuh vectorized over rays: the entered masks per (ray,
     super) and per (ray, cluster) come from the same padded slab test and
-    the same ``tn < best`` rule, in the kernel's order, with pair tests over
-    each ray's entered clusters only.  ``work``, when given, accumulates the
-    walk's slab tests ("slab") and pair tests ("sphere_pairs",
+    the same ``tn <= best`` rule, in the kernel's order, with pair tests over
+    each ray's entered clusters only.  Ties of t go to the lowest primitive
+    id ``sph_prim`` / ``tri_prim`` (ClusterData's).  ``work``, when given,
+    accumulates the walk's slab tests ("slab") and pair tests ("sphere_pairs",
     "triangle_pairs"), the slot-row bytes the kernel loads under the live
     counts and under whole clusters ("sphere_row_bytes",
     "sphere_row_bytes_whole", "triangle_row_bytes",
@@ -250,36 +298,39 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, tri_super, tr
         for axis, d in (("idx", dx), ("idy", dy), ("idz", dz)):
             r[axis] = div(1.0, torch.where(torch.abs(d) > tiny, d, tiny.to(device)))
         best_t, best_i = t_out[lo : lo + _PLAIN_CHUNK], i_out[lo : lo + _PLAIN_CHUNK]
-        _walk_set(r, best_t, best_i, sph_super, sph_cluster, sph_slots, sph_slot_base,
-                  sph_slot_base, sph_pairs, work, "sphere")
-        _walk_set(r, best_t, best_i, tri_super, tri_cluster, tri_slots,
+        best_r = torch.full_like(best_i, -1, dtype=torch.int64)
+        _walk_set(r, best_t, best_i, best_r, sph_super, sph_cluster, sph_slots, sph_prim,
+                  sph_slot_base, sph_slot_base, sph_pairs, work, "sphere")
+        _walk_set(r, best_t, best_i, best_r, tri_super, tri_cluster, tri_slots, tri_prim,
                   n_sph_slots + tri_slot_base, tri_slot_base, tri_pairs, work, "triangle")
     return t_out, i_out
 
 
 def cluster_tables(cl) -> tuple:
-    """The whole two-level tables of ``ClusterData`` in the order the
-    wrappers take them: (sph_super, sph_cluster, sph_slots, tri_super,
-    tri_cluster, tri_slots)."""
-    return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
-            cl.tri_slots)
+    """The whole two-level tables of ``ClusterData`` and its slots'
+    primitive ids in the order the wrappers take them: (sph_super,
+    sph_cluster, sph_slots, sph_prim, tri_super, tri_cluster, tri_slots,
+    tri_prim)."""
+    return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.sph_prim, cl.tri_super,
+            cl.tri_cluster, cl.tri_slots, cl.tri_prim)
 
 
 def check_tables(name: str, tables) -> None:
-    """Raise unless ``tables`` (sph_super, sph_cluster, sph_slots,
-    tri_super, tri_cluster, tri_slots) have the two-level layout."""
-    def kind_ok(sup, cl, slots, rows):
+    """Raise unless ``tables`` (``cluster_tables``' order) have the
+    two-level layout and an int32 primitive id for every slot."""
+    def kind_ok(sup, cl, slots, prim, rows):
         return (sup.dim() == 2 and sup.shape[1] == 8 and cl.dim() == 2 and cl.shape[1] == 8
                 and cl.shape[0] % SUPER_CLUSTERS == 0
                 and sup.shape[0] * SUPER_CLUSTERS >= cl.shape[0]
                 and slots.dim() == 2 and slots.shape[0] >= rows
-                and slots.shape[1] == cl.shape[0] * CLUSTER_SLOTS)
+                and slots.shape[1] == cl.shape[0] * CLUSTER_SLOTS
+                and prim.dtype == torch.int32 and prim.shape == (slots.shape[1],))
 
-    if not (kind_ok(*tables[0:3], 4) and kind_ok(*tables[3:6], 10)):
+    if not (kind_ok(*tables[0:4], 4) and kind_ok(*tables[4:8], 10)):
         raise ValueError(
-            f"{name}: need per kind supers [S, 8] covering clusters [k*{SUPER_CLUSTERS}, 8] and "
-            f"slots [>=4 or >=10, clusters*{CLUSTER_SLOTS}], got "
-            + ", ".join(str(tuple(t.shape)) for t in tables))
+            f"{name}: need per kind supers [S, 8] covering clusters [k*{SUPER_CLUSTERS}, 8], "
+            f"slots [>=4 or >=10, clusters*{CLUSTER_SLOTS}] and int32 ids [clusters*"
+            f"{CLUSTER_SLOTS}], got " + ", ".join(str(tuple(t.shape)) for t in tables))
 
 
 def _check_rays(name: str, rays) -> None:
@@ -287,13 +338,15 @@ def _check_rays(name: str, rays) -> None:
         raise ValueError(f"{name}: need rays [8, k*{RAY_TILE}], got {tuple(rays.shape)}")
 
 
-def cluster_worklist_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_cluster,
-                             tri_slots, n_sph_slots: int, t_min: float, t_max: float,
-                             backface_cull: bool = True, sph_slot_base: int = 0,
+def cluster_worklist_nearest(rays, sph_super, sph_cluster, sph_slots, sph_prim, tri_super,
+                             tri_cluster, tri_slots, tri_prim, n_sph_slots: int, t_min: float,
+                             t_max: float, backface_cull: bool = True, sph_slot_base: int = 0,
                              tri_slot_base: int = 0):
     """K4: (t f32[N], slot int32[N]) over the whole cluster tables, or
-    over one page of them with its slot bases."""
-    tables = (sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots)
+    over one page of them with its slot bases; ties of t as
+    ``cluster_nearest_plain`` breaks them."""
+    tables = (sph_super, sph_cluster, sph_slots, sph_prim, tri_super, tri_cluster, tri_slots,
+              tri_prim)
     _check_rays("cluster_worklist_nearest", rays)
     check_tables("cluster_worklist_nearest", tables)
     if rays.device.type == "cpu":
@@ -303,10 +356,12 @@ def cluster_worklist_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super,
                    n_sph_slots + tri_slot_base, t_min, t_max, backface_cull)
 
 
-def cluster_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots,
-                    n_sph_slots: int, t_min: float, t_max: float, backface_cull: bool = True):
+def cluster_nearest(rays, sph_super, sph_cluster, sph_slots, sph_prim, tri_super, tri_cluster,
+                    tri_slots, tri_prim, n_sph_slots: int, t_min: float, t_max: float,
+                    backface_cull: bool = True):
     """K4b: (t f32[N], slot int32[N]) over unpaged cluster tables."""
-    tables = (sph_super, sph_cluster, sph_slots, tri_super, tri_cluster, tri_slots)
+    tables = (sph_super, sph_cluster, sph_slots, sph_prim, tri_super, tri_cluster, tri_slots,
+              tri_prim)
     _check_rays("cluster_nearest", rays)
     check_tables("cluster_nearest", tables)
     if rays.device.type == "cpu":
@@ -315,16 +370,23 @@ def cluster_nearest(rays, sph_super, sph_cluster, sph_slots, tri_super, tri_clus
 
 
 def cluster_args(tables, device, name: str = "cluster tables") -> list:
-    """The C arguments of one clustered scene's tables for the kernels of
-    csrc/cluster_walk.cuh: per kind (supers, count, clusters, count,
-    slots, live counts), each table checked to be a contiguous f32 on
-    ``device``, the live counts ``live_counts``' int32."""
+    """The C arguments of one clustered scene's tables (``cluster_tables``'
+    order) for the kernels of csrc/cluster_walk.cuh: per kind (supers,
+    count, clusters, count, slots, live counts, slot primitive ids, the two
+    widening factors), each table checked to be a contiguous f32 on
+    ``device`` and the ids an int32, the live counts ``live_counts``'
+    int32, the factors SPHERE_REACH and ``sphere_reach``'s for spheres and 0
+    for triangles."""
     out = []
-    for kind, (sup, cl, slots) in (("sphere", tables[0:3]), ("triangle", tables[3:6])):
+    for kind, (sup, cl, slots, prim) in (("sphere", tables[0:4]), ("triangle", tables[4:8])):
         for t, what in ((sup, "super"), (cl, "cluster"), (slots, "slots")):
             _build.require(t, f"{name}: {kind[:3]}_{what}", device)
+        _build.require(prim, f"{name}: {kind[:3]}_prim", device, torch.int32)
+        if prim.shape != (slots.shape[1],):
+            raise ValueError(f"{name}: {kind[:3]}_prim needs [{slots.shape[1]}]")
+        widen = (SPHERE_REACH, sphere_reach(slots)) if kind == "sphere" else (0.0, 0.0)
         out += [sup.data_ptr(), sup.shape[0], cl.data_ptr(), cl.shape[0], slots.data_ptr(),
-                live_counts(slots, kind).data_ptr()]
+                live_counts(slots, kind).data_ptr(), prim.data_ptr(), *widen]
     return out
 
 
@@ -336,8 +398,7 @@ def _launch(name: str, rays, tables, sph_base: int, tri_base: int, t_min: float,
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     _build.require(rays, f"{name}: rays", device)
-    s_sup, s_n_sup, s_cl, s_n_cl, s_slots, s_live, t_sup, t_n_sup, t_cl, t_n_cl, t_slots, t_live = (
-        cluster_args(tables, device, name))
+    args = cluster_args(tables, device, name)  # 9 a kind
     n = rays.shape[1]
     t_out = torch.empty((n,), dtype=torch.float32, device=device)
     idx = torch.empty((n,), dtype=torch.int32, device=device)
@@ -345,9 +406,8 @@ def _launch(name: str, rays, tables, sph_base: int, tri_base: int, t_min: float,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rt_cluster_nearest(
-            rays.data_ptr(), n, s_sup, s_n_sup, s_cl, s_n_cl, s_slots, s_live, int(sph_base),
-            t_sup, t_n_sup, t_cl, t_n_cl, t_slots, t_live, int(tri_base), t_min, t_max,
-            int(bool(backface_cull)), t_out.data_ptr(), idx.data_ptr(), stream,
+            rays.data_ptr(), n, *args[:9], int(sph_base), *args[9:], int(tri_base), t_min,
+            t_max, int(bool(backface_cull)), t_out.data_ptr(), idx.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")

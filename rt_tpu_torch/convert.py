@@ -15,7 +15,7 @@ import torch
 from rt_tpu_torch.camera import Camera
 from rt_tpu_torch.grad import SceneParams
 from rt_tpu_torch.scene import (
-    BVH_TABLES, CLUSTER_TABLES, TABLES, BvhArrays, ClusterData, SceneData,
+    BVH_TABLES, CLUSTER_TABLES, TABLES, BvhArrays, ClusterData, SceneData, slot_ids,
 )
 from rt_tpu_torch.sky import SkyParams
 
@@ -62,8 +62,12 @@ def _tables(obj, names) -> dict:
 
 def clusters_from_arrays(cl) -> ClusterData:
     """The port's ClusterData holding the JAX ClusterData's whole tables,
-    shade table and ``n_sph_slots``."""
-    return ClusterData(n_sph_slots=int(cl.n_sph_slots), **_tables(cl, CLUSTER_TABLES))
+    shade table and ``n_sph_slots``; its slots' primitive ids are their slot
+    ids (``scene.slot_ids``), so the walks keep the JAX kernels' ties."""
+    tables = _tables(cl, CLUSTER_TABLES)
+    sph_prim, tri_prim = slot_ids(tables["sph_slots"].shape[1], tables["tri_slots"].shape[1])
+    return ClusterData(n_sph_slots=int(cl.n_sph_slots), sph_prim=sph_prim, tri_prim=tri_prim,
+                       **tables)
 
 
 def scene_from_arrays(scene) -> SceneData:

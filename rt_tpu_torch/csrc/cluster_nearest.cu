@@ -64,9 +64,11 @@ cluster_nearest_kernel(const float* __restrict__ rays, int n, int per_warp, rt::
 }
 
 rt::ClusterSet make_set(const float* supers, int n_supers, const float* clusters,
-                        int n_clusters, const float* slots, const int* live, int id_base) {
-  return rt::ClusterSet{supers, clusters, slots, live, n_supers, n_clusters,
-                        (long long)n_clusters * rt::kClusterSlots, id_base};
+                        int n_clusters, const float* slots, const int* live, const int* prim,
+                        float reach_lin, float reach_sq, int id_base) {
+  return rt::ClusterSet{supers, clusters, slots, live, prim, n_supers, n_clusters,
+                        (long long)n_clusters * rt::kClusterSlots, id_base, reach_lin,
+                        reach_sq};
 }
 
 std::atomic<int> resident[rt::kMaxDevices];  // cluster_nearest_kernel's grid per device
@@ -91,23 +93,32 @@ cudaError_t launch(const float* rays, int n, const rt::ClusterSet& sph, const rt
 
 // C entry point (ctypes).  Every pointer is device memory: rays f32[8, n];
 // per kind the super and cluster AABBs f32[., 8] (16-byte aligned), the
-// slot table f32[rows, n_clusters * 128] and each cluster's live count
-// i32[n_clusters] (its last live slot + 1).  Launches on `stream` and
+// slot table f32[rows, n_clusters * 128], each cluster's live count
+// i32[n_clusters] (its last live slot + 1), each slot's primitive id
+// i32[n_clusters * 128] (ties of t go to the lowest) and the two widening
+// factors of its boxes (cluster_ops.cluster_args: SPHERE_REACH and
+// sphere_reach for spheres, 0 for triangles).  Launches on `stream` and
 // returns the CUDA error of the launch (0 on success); it neither allocates
 // nor synchronizes.
 extern "C" int rt_cluster_nearest(const float* rays, int n, const float* sph_super,
                                   int n_sph_super, const float* sph_cluster, int n_sph_cluster,
-                                  const float* sph_slots, const int* sph_live, int sph_base,
+                                  const float* sph_slots, const int* sph_live,
+                                  const int* sph_prim, float sph_reach_lin,
+                                  float sph_reach_sq, int sph_base,
                                   const float* tri_super, int n_tri_super,
                                   const float* tri_cluster, int n_tri_cluster,
-                                  const float* tri_slots, const int* tri_live, int tri_base,
+                                  const float* tri_slots, const int* tri_live,
+                                  const int* tri_prim, float tri_reach_lin,
+                                  float tri_reach_sq, int tri_base,
                                   float t_min, float t_max, int backface_cull, float* t_out,
                                   int* idx_out, cudaStream_t stream) {
   if (n <= 0) return 0;
   const rt::ClusterSet sph = make_set(sph_super, n_sph_super, sph_cluster, n_sph_cluster,
-                                      sph_slots, sph_live, sph_base);
+                                      sph_slots, sph_live, sph_prim, sph_reach_lin, sph_reach_sq,
+                                      sph_base);
   const rt::ClusterSet tri = make_set(tri_super, n_tri_super, tri_cluster, n_tri_cluster,
-                                      tri_slots, tri_live, tri_base);
+                                      tri_slots, tri_live, tri_prim, tri_reach_lin, tri_reach_sq,
+                                      tri_base);
   return static_cast<int>(
       launch(rays, n, sph, tri, t_min, t_max, backface_cull, t_out, idx_out, stream));
 }

@@ -43,20 +43,27 @@
 // and returns the same t and id, bit for bit (a lane that loads nothing
 // holds only slots past the last live one, which are never valid):
 //   - a box is admitted ignoring the best t, then entered only if its entry
-//     distance tn < best_t when it is reached: that is the padded slab test
+//     distance tn <= best_t when it is reached: that is the padded slab test
 //     with the current best, since nothing else in it depends on best;
 //   - boxes are reached in ascending order, spheres first;
-//   - a cluster's winner is the smallest key (order(t), slot) over its
+//   - a cluster's winner is the smallest key (order(t), id, slot) over its
 //     valid slots, taken over a lane's 4 slots then 32 lanes, and replaces the
-//     best only when t < best_t.  A sequential strict-`<` scan in ascending
-//     slot order returns exactly the first slot of least t below the
-//     entry best, which is that key's minimum.  order() maps a float's bits
-//     to an unsigned that orders like the float (the usual flip for signed
+//     best when t < best_t, or t == best_t and its id is lower (ids are the
+//     slots' primitive ids, s.prim, read only when t ties; a scene that has
+//     none gives each slot its global slot id, so that the first slot
+//     visited keeps a tie).  A sequential
+//     scan in ascending slot order with that rule returns the least t and,
+//     among equal t, the least id: what a brute-force search over the
+//     primitives in id order returns.  order() maps a float's bits to an
+//     unsigned that orders like the float (the usual flip for signed
 //     values), with -0 taken as +0 so that the two tie as they do under `<`;
 //     the winning t itself comes from the lane that tested it.
 // The slab test pads its exit distance outward (rt_tpu/megakernel.py:918-922),
-// so rounding never culls a true hit on a flat box.  Inverted (dummy) boxes
-// and dead slots (radius 0, live flag 0) are never admitted or valid.  The
+// so rounding never culls a true hit on a flat box; sphere boxes are also
+// widened by the reach of the sphere test's rounding (admits), so the
+// walk finds what a brute-force search over every sphere finds.  Inverted
+// (dummy) boxes and dead slots (radius 0, live flag 0) are never admitted or
+// valid.  The
 // plain PyTorch version is cluster_ops.cluster_nearest_plain, which walks
 // in the sequential order; with -fmad=false and IEEE division and sqrt the
 // two agree bit for bit.
@@ -85,9 +92,12 @@ struct ClusterSet {
   const float* clusters;  // [n_clusters, 8]
   const float* slots;     // [rows, stride] field-row-major, global memory
   const int* live;        // [n_clusters]: last live slot + 1 (cluster_ops.live_counts)
+  const int* prim;        // [stride]: each slot's primitive id (ties of t go to the lowest)
   int n_supers, n_clusters;
   long long stride;       // n_clusters * 128
   int id_base;
+  float reach_lin;        // spheres: sqrt(K) (cluster_ops.SPHERE_REACH); see admits
+  float reach_sq;         // spheres: K / (2 * least radius) (cluster_ops.sphere_reach)
 };
 
 // A ray with the reciprocals the slab test needs.
@@ -107,14 +117,43 @@ __device__ __forceinline__ WalkRay walk_ray(float ox, float oy, float oz, float 
 
 // The padded slab test of rt_tpu/megakernel.py:903-923 without its best-t
 // condition: is box b live and does the ray's line meet it ahead of the
-// origin?  Sets tn, the entry distance; the ray enters b when also tn <
+// origin?  Sets tn, the entry distance; the ray enters b when also tn <=
 // its best t.
-__device__ __forceinline__ bool admits(const float* __restrict__ b, const WalkRay& r, float& tn) {
+// With kWiden (sphere boxes) the box is first widened by how far the sphere
+// pair test's rounding reaches past a sphere.  For a ray whose closest
+// approach to a sphere's centre (at distance D from its origin) is p, the
+// float32 discriminant h*h - a*c may cancel to >= 0 up to p^2 - r^2 ~
+// 4.3e-7 D^2, so a brute-force search (K1, the reference) takes a hit
+// there, up to sqrt(r^2 + 2 * 4.3e-7 D^2) - r outside the sphere's box.
+// With K = 2e-6 over that 2 * 4.3e-7, that reach is below both sqrt(K) D
+// and K D^2 / (2 r); the box is widened by the lesser of the two
+// (s.reach_lin = sqrt(K), s.reach_sq = K / (2 r_min)), with D bounded by
+// the L1 distance from the origin to its farthest corner and r by the set's
+// least radius r_min, so that the walk enters every box that holds such a
+// hit.  The bound holds where it was checked: radii 0.005 to 1000 and
+// distances D 3 to 4000 (random grazing rays on the CPU, the largest reach
+// under half the widening); outside that range it is not shown.  The
+// scenes that walk spheres lie inside it: main_default_scene's lattice
+// (radius 0.2, D up to ~850) is tested at its extremes
+// (tests/test_torch_walk_order.py).
+template <bool kWiden>
+__device__ __forceinline__ bool admits(const float* __restrict__ b, const WalkRay& r,
+                                       const ClusterSet& s, float& tn) {
   const float4 lo = __ldg(reinterpret_cast<const float4*>(b));      // lx ly lz hx
   const float2 hi = __ldg(reinterpret_cast<const float2*>(b + 4));  // hy hz
-  const float t0x = (lo.x - r.ox) * r.idx, t1x = (lo.w - r.ox) * r.idx;
-  const float t0y = (lo.y - r.oy) * r.idy, t1y = (hi.x - r.oy) * r.idy;
-  const float t0z = (lo.z - r.oz) * r.idz, t1z = (hi.y - r.oz) * r.idz;
+  float lx = lo.x, ly = lo.y, lz = lo.z, hx = lo.w, hy = hi.x, hz = hi.y;
+  if (kWiden) {
+    const float ex = fmaxf(fabsf(lx - r.ox), fabsf(hx - r.ox));
+    const float ey = fmaxf(fabsf(ly - r.oy), fabsf(hy - r.oy));
+    const float ez = fmaxf(fabsf(lz - r.oz), fabsf(hz - r.oz));
+    const float l1 = ex + ey + ez;
+    const float pad = fminf(l1 * s.reach_lin, l1 * l1 * s.reach_sq);
+    lx = lx - pad, ly = ly - pad, lz = lz - pad;
+    hx = hx + pad, hy = hy + pad, hz = hz + pad;
+  }
+  const float t0x = (lx - r.ox) * r.idx, t1x = (hx - r.ox) * r.idx;
+  const float t0y = (ly - r.oy) * r.idy, t1y = (hy - r.oy) * r.idy;
+  const float t0z = (lz - r.oz) * r.idz, t1z = (hz - r.oz) * r.idz;
   tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), 0.0f));
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   tf = tf * (float)(1.0 + 6e-7) + (float)1e-6;
@@ -123,6 +162,9 @@ __device__ __forceinline__ bool admits(const float* __restrict__ b, const WalkRa
 
 // Component q (0..3, known when compiled) of v.
 __device__ __forceinline__ float component(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+__device__ __forceinline__ int component(const int4& v, int q) {
   return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
 }
 
@@ -167,10 +209,27 @@ __device__ __forceinline__ bool pair_test(const float* v, const WalkRay& r, floa
          t >= t_min && t < t_max && t > (float)1e-7;
 }
 
+// The key of one slot (its column in the slot table), order(t) of its
+// pair test or kNoKey, its fields loaded one by one.
+template <bool kSpheres>
+__device__ __forceinline__ unsigned slot_key(const ClusterSet& s, long long col, const WalkRay& r,
+                                             float t_min, float t_max, bool cull) {
+  constexpr int kRows = kSpheres ? 4 : 10;
+  float v[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) v[k] = __ldg(s.slots + k * s.stride + col);
+  float t;
+  return pair_test<kSpheres>(v, r, t_min, t_max, cull, t) ? order_key(t) : kNoKey;
+}
+
 // The pair tests of entered cluster ci, lane l taking slots 4l..4l+3 (one
 // 16-byte load a field row: all of a cluster's rows are in flight at once)
 // when 4l < live, ci's live count, and the warp's winner; best_t/best_i
-// (the same in every lane) are updated.
+// (the same in every lane) are updated.  Among equal t the lowest primitive
+// id wins, as in a brute-force search over the primitives in id order (K1,
+// the reference): within the cluster and against the best so far, which a
+// later cluster can hold at the same t (two triangles that share an edge).
+// The ids (s.prim) are read only on such a tie.
 template <bool kSpheres>
 __device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, int live,
                                              const WalkRay& r, float t_min, float t_max,
@@ -178,6 +237,7 @@ __device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, int li
   constexpr int kRows = kSpheres ? 4 : 10;
   unsigned lane_key = kNoKey;
   int lane_slot = 0;
+  int lane_last = 0;  // the last of the lane's slots q whose key is lane_key
   float lane_t = 0.0f;
   if (4 * lane < live) {
     const float4* __restrict__ f =
@@ -199,21 +259,52 @@ __device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, int li
         lane_slot = 4 * lane + q;
         lane_t = t;
       }
+      lane_last = key == lane_key ? q : lane_last;
     }
   }
   const unsigned least = __reduce_min_sync(kFullMask, lane_key);
   if (least == kNoKey) return;
-  const unsigned slot = __reduce_min_sync(kFullMask, lane_key == least ? (unsigned)lane_slot : kNoKey);
+  const bool at = lane_key == least;
+  unsigned slot = __reduce_min_sync(kFullMask, at ? (unsigned)lane_slot : kNoKey);
   const float t = __shfl_sync(kFullMask, lane_t, (int)(slot >> 2));
-  if (t < best_t) {
-    best_t = t;
-    best_i = s.id_base + ci * kClusterSlots + (int)slot;
+  if (t > best_t) return;
+  if (t == best_t || (__ballot_sync(kFullMask, at) & ~(1u << (slot >> 2))) != 0 ||
+      __shfl_sync(kFullMask, lane_last, (int)(slot >> 2)) != (int)(slot & 3)) {
+    // A tie within the cluster (another lane, or a later slot of the
+    // winner's lane, at the least key) or with the best so far.  Each lane
+    // at the least key tests its slots again (the rows are in L1) to find
+    // which hold it, and takes the lowest id among them.
+    unsigned lane_rank = kNoKey;
+    int lane_rslot = 0;
+    if (at) {
+      const long long col = (long long)ci * kClusterSlots + 4 * lane;
+      const int4 ids = __ldg(reinterpret_cast<const int4*>(s.prim + col));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned id = (unsigned)component(ids, q);
+        if (id < lane_rank && slot_key<kSpheres>(s, col + q, r, t_min, t_max, cull) == least) {
+          lane_rank = id;
+          lane_rslot = 4 * lane + q;
+        }
+      }
+    }
+    const unsigned rank = __reduce_min_sync(kFullMask, lane_rank);
+    slot = __reduce_min_sync(kFullMask, at && lane_rank == rank ? (unsigned)lane_rslot : kNoKey);
+    if (t == best_t) {
+      // The best's id, where it is a slot of this set (else it is a sphere,
+      // of a lower id than any triangle).
+      const long long bi = (long long)best_i - s.id_base;
+      const unsigned best_rank = bi >= 0 && bi < s.stride ? (unsigned)__ldg(s.prim + bi) : 0u;
+      if (!(rank < best_rank)) return;
+    }
   }
+  best_t = t;
+  best_i = s.id_base + ci * kClusterSlots + (int)slot;
 }
 
 // Visits the admitted boxes of one ballot in ascending order, entering each
 // whose entry distance (held by the lane of its bit, beside its live count)
-// is below the best t.
+// is not above the best t (a box entered at the best t can hold a tie).
 template <bool kSpheres>
 __device__ __forceinline__ void visit_clusters(const ClusterSet& s, unsigned admitted, float tn_lane,
                                                int live_lane, int first, const WalkRay& r,
@@ -223,7 +314,7 @@ __device__ __forceinline__ void visit_clusters(const ClusterSet& s, unsigned adm
     const int b = __ffs(m) - 1;
     const float tn = __shfl_sync(kFullMask, tn_lane, b);
     const int live = __shfl_sync(kFullMask, live_lane, b);
-    if (!(tn < best_t)) continue;
+    if (!(tn <= best_t)) continue;
     walk_cluster<kSpheres>(s, first + b, live, r, t_min, t_max, cull, lane, best_t, best_i);
   }
 }
@@ -237,18 +328,20 @@ __device__ __forceinline__ void walk_set(const ClusterSet& s, const WalkRay& r, 
   for (int s0 = 0; s0 < s.n_supers; s0 += 32) {
     float tn_s = 0.0f;
     const int sl = s0 + lane;
-    const bool adm_s = sl < s.n_supers && admits(s.supers + 8 * sl, r, tn_s);
+    const bool adm_s = sl < s.n_supers && admits<kSpheres>(s.supers + 8 * sl, r, s, tn_s);
     for (unsigned m = __ballot_sync(kFullMask, adm_s); m; m &= m - 1) {
       const int b = __ffs(m) - 1;
-      if (!(__shfl_sync(kFullMask, tn_s, b) < best_t)) continue;
+      if (!(__shfl_sync(kFullMask, tn_s, b) <= best_t)) continue;
       const int c0 = (s0 + b) * kSuperClusters;
       float tn_lo = 0.0f, tn_hi = 0.0f;
       const int cl = c0 + lane, ch = c0 + 32 + lane;
       // Each lane's clusters' live counts, loaded beside their boxes.
       const int live_lo = cl < s.n_clusters ? __ldg(s.live + cl) : 0;
       const int live_hi = ch < s.n_clusters ? __ldg(s.live + ch) : 0;
-      const bool adm_lo = cl < s.n_clusters && admits(s.clusters + 8 * cl, r, tn_lo);
-      const bool adm_hi = ch < s.n_clusters && admits(s.clusters + 8 * ch, r, tn_hi);
+      const bool adm_lo =
+          cl < s.n_clusters && admits<kSpheres>(s.clusters + 8 * cl, r, s, tn_lo);
+      const bool adm_hi =
+          ch < s.n_clusters && admits<kSpheres>(s.clusters + 8 * ch, r, s, tn_hi);
       const unsigned m_lo = __ballot_sync(kFullMask, adm_lo);
       const unsigned m_hi = __ballot_sync(kFullMask, adm_hi);
       visit_clusters<kSpheres>(s, m_lo, tn_lo, live_lo, c0, r, t_min, t_max, cull, lane, best_t,

@@ -709,25 +709,29 @@ extern "C" int rt_megakernel_flat(const float* params, int n_pixels, int pixel_b
 }
 
 // K5: per kind the super and cluster AABBs f32[., 8] (16-byte aligned), the
-// slot table f32[rows, n_clusters * 128] of scene.ClusterData and each
-// cluster's live count i32[n_clusters] (cluster_ops.live_counts); triangle
-// slot ids start at n_sph_slots.  `table` is the slot-ordered shade table,
-// one row per slot.  `next_pixel` is one int, 0 at launch.
+// slot table f32[rows, n_clusters * 128] of scene.ClusterData, each
+// cluster's live count i32[n_clusters] (cluster_ops.live_counts), each slot's
+// primitive id i32[n_clusters * 128] (ClusterData.sph_prim / tri_prim) and the
+// two widening factors of its boxes (cluster_ops.cluster_args); triangle slot
+// ids start at n_sph_slots.  `table` is the slot-ordered shade table, one row
+// per slot.  `next_pixel` is one int, 0 at launch.
 extern "C" int rt_megakernel_clustered(
     const float* params, int n_pixels, int pixel_base, int spp, int sample_offset,
     unsigned int seed, int width, int n_global, int max_depth, int atlas_h, int atlas_w,
     int flags, const float* sph_super, int n_sph_super, const float* sph_cluster,
-    int n_sph_cluster, const float* sph_slots, const int* sph_live, const float* tri_super,
-    int n_tri_super, const float* tri_cluster, int n_tri_cluster, const float* tri_slots,
-    const int* tri_live, int n_sph_slots, const float* table, const float* atlas, float* out,
-    int* next_pixel, void* stream) {
+    int n_sph_cluster, const float* sph_slots, const int* sph_live, const int* sph_prim,
+    float sph_reach_lin, float sph_reach_sq, const float* tri_super, int n_tri_super,
+    const float* tri_cluster, int n_tri_cluster, const float* tri_slots, const int* tri_live,
+    const int* tri_prim, float tri_reach_lin, float tri_reach_sq, int n_sph_slots,
+    const float* table, const float* atlas, float* out, int* next_pixel, void* stream) {
   const rt::Ints q{n_pixels, pixel_base, spp, sample_offset, seed, width, n_global, max_depth,
                    0, 0, atlas_h, atlas_w, flags};
-  const rt::ClusterSet sph{sph_super, sph_cluster, sph_slots, sph_live, n_sph_super,
-                           n_sph_cluster, (long long)n_sph_cluster * rt::kClusterSlots, 0};
-  const rt::ClusterSet tri{tri_super, tri_cluster, tri_slots, tri_live, n_tri_super,
+  const rt::ClusterSet sph{sph_super, sph_cluster, sph_slots, sph_live, sph_prim, n_sph_super,
+                           n_sph_cluster, (long long)n_sph_cluster * rt::kClusterSlots, 0,
+                           sph_reach_lin, sph_reach_sq};
+  const rt::ClusterSet tri{tri_super, tri_cluster, tri_slots, tri_live, tri_prim, n_tri_super,
                            n_tri_cluster, (long long)n_tri_cluster * rt::kClusterSlots,
-                           n_sph_slots};
+                           n_sph_slots, tri_reach_lin, tri_reach_sq};
   const rt::Params p = rt::load_params(params);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(rt::launch_clustered(p, q, sph, tri, table, atlas, out, next_pixel, s));

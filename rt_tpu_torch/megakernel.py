@@ -559,7 +559,8 @@ def flat_search(scene, cfg, rays):
 
 def cluster_search(scene, cfg, rays):
     """K5's search in plain PyTorch: the cluster walk (K4's plain version)
-    over the whole cluster tables -> (t, slot id)."""
+    over the whole cluster tables, ties of t to the lowest primitive id ->
+    (t, slot id)."""
     cl = scene.clusters
     return cluster_ops.cluster_nearest_plain(
         rays, *cluster_ops.cluster_tables(cl), cl.n_sph_slots, cfg.t_min, cfg.t_max,

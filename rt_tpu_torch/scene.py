@@ -92,12 +92,25 @@ class ClusterData(nn.Module):
     Mt_pad*128] the slot tables (cluster.pack_*_slots).  ``shade_table``
     f32[40, slots_pad] is ordered by slot, so that the kernels' winner
     slot ids index it directly; ``n_sph_slots`` is the first triangle
-    slot id."""
+    slot id.  ``sph_prim`` and ``tri_prim`` i32[slots] hold each slot's
+    global primitive id (spheres first, 2**31 - 1 for a dead slot), by
+    which the walks break ties of t as a brute-force search does
+    (``slot_ids`` gives a scene that has none the first slot's rule)."""
 
-    def __init__(self, *, n_sph_slots: int, **tables):
+    def __init__(self, *, n_sph_slots: int, sph_prim, tri_prim, **tables):
         super().__init__()
         _buffers(self, CLUSTER_TABLES, tables)
+        _buffers(self, ("sph_prim", "tri_prim"), {"sph_prim": sph_prim, "tri_prim": tri_prim})
         self.n_sph_slots = int(n_sph_slots)
+
+
+def slot_ids(n_sph_slots: int, n_tri_slots: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Primitive ids equal to the global slot ids, int32[n_sph_slots] and
+    int32[n_tri_slots] (triangles from n_sph_slots on): the walks visit
+    slots in ascending id, so under these the first slot visited keeps a
+    tie of t, as in the JAX package's kernels."""
+    ids = torch.arange(n_sph_slots + n_tri_slots, dtype=torch.int32)
+    return ids[:n_sph_slots], ids[n_sph_slots:]
 
 
 class SceneData(nn.Module):
@@ -460,11 +473,15 @@ class SceneBuilder:
         live_t = t_slots >= 0
         shade_slots[:, n_sph_slots + np.nonzero(live_t)[0]] = shade_np[:, ns + t_slots[live_t]]
 
+        dead = np.iinfo(np.int32).max
+        sph_prim = np.where(live_s, s_slots, dead).astype(np.int32)
+        tri_prim = np.where(live_t, ns + t_slots, dead).astype(np.int32)
         t = torch.from_numpy
         return ClusterData(
             sph_super=t(s_sup), sph_cluster=t(s_cl), sph_slots=t(sph_slot_tab),
             tri_super=t(t_sup), tri_cluster=t(t_cl), tri_slots=t(tri_slot_tab),
-            shade_table=t(shade_slots), n_sph_slots=n_sph_slots,
+            shade_table=t(shade_slots), n_sph_slots=n_sph_slots, sph_prim=t(sph_prim),
+            tri_prim=t(tri_prim),
         )
 
     def _prim_bounds(self) -> tuple[np.ndarray, np.ndarray]:

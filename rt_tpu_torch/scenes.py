@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 
+from rt_tpu_torch import profiling
 from rt_tpu_torch.camera import Camera, make_camera
 from rt_tpu_torch.config import RenderConfig
 from rt_tpu_torch.scene import SceneBuilder, SceneData
@@ -26,6 +27,11 @@ from rt_tpu_torch.sky import SkyParams
 WIDTH = 800  # window.rs:29
 HEIGHT = 600  # window.rs:30
 MAX_DEPTH = 100  # scenes.rs:15
+
+# The sizes of the last scene composed by ``cover_scene`` or
+# ``default_scene``: the lattice's grid cells, the spheres added (the three
+# big ones and the lattice's kept) and the glTF's triangles.
+COUNTS = {"lattice_cells": 0, "spheres": 0, "mesh_triangles": 0}
 
 
 def cam1(width: int = WIDTH, height: int = HEIGHT) -> Camera:
@@ -130,18 +136,57 @@ def cover_scene(
     with_ground: bool = True,
     texture_dir: str | None = None,
 ) -> SceneData:
-    """The RTIOW cover scene (scenes.rs:146-238), deterministic.
+    """The RTIOW cover scene (scenes.rs:146-238), deterministic: the big
+    spheres and the lattice of ``add_cover_lattice`` over a checkered
+    ground (main.rs:31-34)."""
+    b = SceneBuilder()
+    big = _cover_materials(b, texture_dir)
+    if with_ground:
+        _checkered_ground(b, z)
+    spheres = add_cover_lattice(b, grid_i, grid_j, camera, z, seed, materials=big)
+    COUNTS.update(lattice_cells=4 * grid_i * grid_j, spheres=spheres, mesh_triangles=0)
+    return b.build(sky=SkyParams.default())
+
+
+def _cover_materials(b: SceneBuilder, texture_dir: str | None = None) -> tuple[int, int, int]:
+    """The big spheres' glass, metal and textured "saul" materials."""
+    glass = b.dielectric(1.5)
+    metal = b.metal_solid((0.7, 0.6, 0.5), None)
+    saul = b.lambertian(b.image_texture(_load_or_procedural("saul", texture_dir)))
+    return glass, metal, saul
+
+
+def _checkered_ground(b: SceneBuilder, z: float) -> None:
+    """The 10000 x 10000 ground quad at ``z`` under a 3.0-scale checker
+    (main.rs:31-34)."""
+    even = b.solid_color((0.1, 0.1, 0.1))
+    odd = b.solid_color((0.95, 0.95, 0.95))
+    add_ground_plane(b, 10000.0, 10000.0, z, b.lambertian(b.checker(3.0, even, odd)), True)
+
+
+def add_cover_lattice(
+    b: SceneBuilder,
+    grid_i: int,
+    grid_j: int,
+    camera: Camera | None = None,
+    z: float = -0.2,
+    seed: int = 0,
+    materials: tuple[int, int, int] | None = None,
+) -> int:
+    """Add the cover scene's spheres to ``b`` (scenes.rs:146-238); returns
+    how many.
 
     Big spheres: glass at p1, metal at p3, textured "saul" sphere facing the
-    camera at the top-left position.  Small spheres: a grid_i x grid_j
-    lattice with random offsets, 5%/15%/80% glass/metal/lambertian mix and
-    collision avoidance around the big-sphere sites.  Above 2500 grid
+    camera at the top-left position (their ``materials``, created here when
+    None).  Small spheres: a grid_i x grid_j lattice with random offsets,
+    5%/15%/80% glass/metal/lambertian mix and collision avoidance around the
+    big-sphere sites, drawn from ``default_rng(seed)``.  Above 2500 grid
     cells the spheres are drawn in bulk, as the JAX package draws them
-    (another arrangement than the loop's for the same seed).
+    (another arrangement than the loop's for the same seed).  The span
+    ``rt.scenes.lattice`` (args: the cells and the small spheres kept)
+    holds the SceneBuilder's work after the draw.
     """
-    rng = np.random.default_rng(seed)
-    b = SceneBuilder()
-
+    glass, metal, saul = materials if materials is not None else _cover_materials(b)
     big_r = 0.7
     saul_loc = np.array([-1.0, 1.732, big_r + z])
     p1 = np.array([-1.0, -1.732, big_r + z])
@@ -149,67 +194,87 @@ def cover_scene(
     p3 = np.array([-2.0, 0.0, big_r + z])
     p4 = np.array([1.0, 1.732, big_r + z])
     p5 = np.array([1.0, -1.732, big_r + z])
-
-    glass = b.dielectric(1.5)
-    metal = b.metal_solid((0.7, 0.6, 0.5), None)
-    saul_mat = b.lambertian(b.image_texture(_load_or_procedural("saul", texture_dir)))
-
-    if with_ground:
-        even = b.solid_color((0.1, 0.1, 0.1))
-        odd = b.solid_color((0.95, 0.95, 0.95))
-        checker_mat = b.lambertian(b.checker(3.0, even, odd))  # main.rs:31-34
-        add_ground_plane(b, 10000.0, 10000.0, z, checker_mat, True)
-
-    b.add_sphere(p1, big_r, glass)
-    b.add_sphere(p3, big_r, metal)
-    viewer = camera.center.numpy() if camera is not None else np.array([3.0, -5.0, 0.6])
-    b.add_sphere(saul_loc, big_r, saul_mat, front_direction=viewer)
-
     big_sites = [p1, p2, p3, p4, saul_loc, p5]
+    small = _draw_lattice(grid_i, grid_j, z, seed, big_sites, big_r)
+
+    viewer = camera.center.numpy() if camera is not None else np.array([3.0, -5.0, 0.6])
+    with profiling.span("scenes.lattice", f"cells={4 * grid_i * grid_j} spheres={len(small)}"):
+        b.add_sphere(p1, big_r, glass)
+        b.add_sphere(p3, big_r, metal)
+        b.add_sphere(saul_loc, big_r, saul, front_direction=viewer)
+        for center, choose, albedo, fuzz in small:
+            if choose > 0.95:
+                mat = b.dielectric(1.5)
+            elif choose > 0.8:
+                mat = b.metal_solid(albedo, fuzz)
+            else:
+                mat = b.lambertian_rgb(*albedo)
+            b.add_sphere(center, 0.2, mat)
+    return 3 + len(small)
+
+
+def _draw_lattice(grid_i, grid_j, z, seed, big_sites, big_r) -> list[tuple]:
+    """The lattice's kept spheres in order: (center, choose, albedo, fuzz),
+    fuzz drawn only where the sphere is metal in the loop's order."""
+    rng = np.random.default_rng(seed)
+    radius = 0.2
+    collide = radius + big_r + 1.0
+    out = []
     if grid_i * grid_j <= 2500:
         # Sequential generation, as the reference does (scenes.rs:198-236).
         for i in range(-grid_i, grid_i):
             for j in range(-grid_j, grid_j):
-                radius = 0.2
                 albedo = rng.uniform(0.0, 1.0, 3)
                 offset = np.array([rng.uniform(0.0, 0.9), rng.uniform(0.0, 0.9), z])
                 center = np.array([float(i), float(j), radius]) + offset
-                collide = radius + big_r + 1.0
                 if any(np.linalg.norm(center - s) < collide for s in big_sites):
                     continue
                 choose = rng.uniform(0.0, 1.0)
-                if choose > 0.95:
-                    mat = b.dielectric(1.5)
-                elif choose > 0.8:
-                    mat = b.metal_solid(albedo, rng.uniform(0.0, 0.5))
-                else:
-                    mat = b.lambertian_rgb(*albedo)
-                b.add_sphere(center, radius, mat)
-    else:
-        # Bulk generation for cover-large (rt_tpu/scenes.py:202-232): the
-        # same distributions in another draw order.
-        ii, jj = np.meshgrid(np.arange(-grid_i, grid_i), np.arange(-grid_j, grid_j), indexing="ij")
-        n = ii.size
-        radius = 0.2
-        albedo = rng.uniform(0.0, 1.0, (n, 3))
-        offsets = np.stack([rng.uniform(0.0, 0.9, n), rng.uniform(0.0, 0.9, n), np.full(n, z)], -1)
-        centers = np.stack([ii.ravel(), jj.ravel(), np.full(n, radius)], -1) + offsets
-        collide = radius + big_r + 1.0
-        keep = np.ones(n, bool)
-        for site in big_sites:
-            keep &= np.linalg.norm(centers - site, axis=-1) >= collide
-        choose = rng.uniform(0.0, 1.0, n)
-        fuzz = rng.uniform(0.0, 0.5, n)
-        for k in np.nonzero(keep)[0]:
-            if choose[k] > 0.95:
-                mat = b.dielectric(1.5)
-            elif choose[k] > 0.8:
-                mat = b.metal_solid(albedo[k], fuzz[k])
-            else:
-                mat = b.lambertian_rgb(*albedo[k])
-            b.add_sphere(centers[k], radius, mat)
+                fuzz = rng.uniform(0.0, 0.5) if 0.8 < choose <= 0.95 else None
+                out.append((center, choose, albedo, fuzz))
+        return out
+    # Bulk generation for cover-large (rt_tpu/scenes.py:202-232): the same
+    # distributions in another draw order.
+    ii, jj = np.meshgrid(np.arange(-grid_i, grid_i), np.arange(-grid_j, grid_j), indexing="ij")
+    n = ii.size
+    albedo = rng.uniform(0.0, 1.0, (n, 3))
+    offsets = np.stack([rng.uniform(0.0, 0.9, n), rng.uniform(0.0, 0.9, n), np.full(n, z)], -1)
+    centers = np.stack([ii.ravel(), jj.ravel(), np.full(n, radius)], -1) + offsets
+    keep = np.ones(n, bool)
+    for site in big_sites:
+        keep &= np.linalg.norm(centers - site, axis=-1) >= collide
+    choose = rng.uniform(0.0, 1.0, n)
+    fuzz = rng.uniform(0.0, 0.5, n)
+    return [(centers[k], choose[k], albedo[k], fuzz[k]) for k in np.nonzero(keep)[0]]
 
-    return b.build(sky=SkyParams.default())
+
+def default_scene(
+    camera: Camera,
+    gltf_path: str,
+    grid: int = 300,
+    seed: int = 0,
+    transform: np.ndarray | None = None,
+    sky: SkyParams | None = None,
+) -> SceneData:
+    """What the upstream's ``cargo run`` renders (main.rs:27-57): the
+    checkered ground, the cover scene's big spheres and ``grid x grid``
+    lattice (``add_cover_lattice``; bulk-drawn above 2500 cells), and a glTF
+    model through ``io.gltf_loader.add_gltf_to_scene`` with the upstream's
+    own material mapping (``Material::from_gltf``, material.rs:20-33: every
+    part metal, fuzz = roughness), placed by ``transform``'s linear part
+    (as ``scale_rotate_mat`` gives it).  ``sky`` defaults to the live
+    Hosek-Wilkie sky at ``SkyParams.hosek()``'s defaults.  Span
+    ``rt.scenes.default``; ``COUNTS`` gets the composition's sizes."""
+    from rt_tpu_torch.io.gltf_loader import add_gltf_to_scene
+
+    z = -0.2
+    with profiling.span("scenes.default"):
+        b = SceneBuilder()
+        _checkered_ground(b, z)
+        spheres = add_cover_lattice(b, grid, grid, camera, z, seed)
+        triangles = add_gltf_to_scene(b, gltf_path, compat_all_metal=True, transform=transform)
+        COUNTS.update(lattice_cells=4 * grid * grid, spheres=spheres, mesh_triangles=triangles)
+        return b.build(sky=sky if sky is not None else SkyParams.hosek())
 
 
 def earth_scene(texture_dir: str | None = None) -> SceneData:

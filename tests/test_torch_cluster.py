@@ -141,16 +141,17 @@ def test_scene_cluster_tables_identical(name, monkeypatch):
         assert len(pages) == len(ref.clusters.pages) > 2
         for k, ((tables, s_base, t_base), rp) in enumerate(zip(pages, ref.clusters.pages)):
             page = SimpleNamespace(**dict(zip(cases.WALK_TABLES, tables)))
-            cases.assert_same_tables(page, rp, cases.WALK_TABLES, f"pages[{k}].")
+            cases.assert_same_tables(page, rp, cases.PAGE_TABLES, f"pages[{k}].")
             assert (s_base, t_base) == (rp.sph_slot_base, rp.tri_slot_base)
     if name == "image_tris_140":
         assert got.clusters.tri_slots.shape[0] == 24
 
 
 def test_cluster_data_holds_only_the_walked_tables():
-    """A clustered scene's ClusterData is the whole two-level tables and
-    the slot-ordered shade table, with no submodules: nothing that no path
-    of the port reads is built or moved to the card."""
+    """A clustered scene's ClusterData is the whole two-level tables, the
+    slot-ordered shade table and the slots' primitive ids (by which the
+    walks break ties), with no submodules: nothing that no path of the port
+    reads is built or moved to the card."""
     cl = cases.tri_cloud(tscene).build().clusters
     names = [name for name, _ in cl.named_buffers()]
     assert sorted(names) == sorted([*cases.WALK_TABLES, "shade_table"])
@@ -188,9 +189,12 @@ def _k4_case():
     return js, ts, rays
 
 
-def _tables(cl):
+def _jax_tables(cl):
     return (cl.sph_super, cl.sph_cluster, cl.sph_slots, cl.tri_super, cl.tri_cluster,
             cl.tri_slots)
+
+
+_tables = cluster_ops.cluster_tables
 
 
 @pytest.mark.parametrize("cull", [True, False])
@@ -198,7 +202,7 @@ def test_worklist_plain_matches_pallas(cull):
     """K4's plain version against ``_worklist_kernel`` in interpret mode."""
     js, ts, rays = _k4_case()
     jc, tc = js.clusters, ts.clusters
-    ref = j_worklist(jnp.asarray(rays), *_tables(jc), jc.n_sph_slots, T_MIN, T_MAX, cull,
+    ref = j_worklist(jnp.asarray(rays), *_jax_tables(jc), jc.n_sph_slots, T_MIN, T_MAX, cull,
                      interpret=True)
     got = cluster_ops.cluster_worklist_nearest(torch.from_numpy(rays), *_tables(tc),
                                                tc.n_sph_slots, T_MIN, T_MAX, cull)
@@ -212,8 +216,8 @@ def test_cluster_nearest_plain_matches_pallas():
     and equal to K4's."""
     js, ts, rays = _k4_case()
     jc, tc = js.clusters, ts.clusters
-    ref = j_cluster_nearest(jnp.asarray(rays), *_tables(jc), jc.n_sph_slots, T_MIN, T_MAX, True,
-                            interpret=True)
+    ref = j_cluster_nearest(jnp.asarray(rays), *_jax_tables(jc), jc.n_sph_slots, T_MIN, T_MAX,
+                            True, interpret=True)
     got = cluster_ops.cluster_nearest(torch.from_numpy(rays), *_tables(tc), tc.n_sph_slots,
                                       T_MIN, T_MAX, True)
     _assert_k4_parity(got, ref)

@@ -3,7 +3,8 @@
 The ``cuda`` tests run only where a card is present: built without fused
 multiply-adds, each kernel must agree with its plain version bit for bit
 (winners and t for K4/K4b, the image for K5), on the test scenes, on the
-tie scene of test_torch_walk_order.py and on the prefix scenes of
+tie scene and the far grazing rays of test_torch_walk_order.py (whose
+widened sphere boxes must give the brute-force hits) and on the prefix scenes of
 torch_cluster_cases.py, whose clusters hold 1 to 128 live slots (so the
 last lane that loads a cluster holds live and dead slots, or none loads).  This file imports nothing of the JAX package, so
 that it also runs on a machine that has PyTorch for CUDA but not the JAX
@@ -20,7 +21,8 @@ from rt_tpu_torch import scene as tscene
 from rt_tpu_torch.camera import make_camera
 from rt_tpu_torch.config import RenderConfig
 import torch_cluster_cases as cases  # tests/torch_cluster_cases.py
-from test_torch_walk_order import tie_rays, tie_scene
+from test_torch_walk_order import (FAR_BANDS, _far_field, _reversed_ids, tie_grid_scene, tie_rays,
+                                   tie_scene, with_ids)
 
 torch.set_num_threads(2)
 
@@ -46,13 +48,18 @@ def test_wrappers_check_shapes():
     with pytest.raises(ValueError, match="cluster_nearest"):
         cluster_ops.cluster_nearest(rays[:6], *tables, cl.n_sph_slots, T_MIN, T_MAX)
     bad = list(tables)
-    bad[4] = bad[4][:32]  # clusters not a multiple of 64
+    bad[5] = bad[5][:32]  # clusters not a multiple of 64
     with pytest.raises(ValueError, match="cluster_nearest"):
         cluster_ops.cluster_nearest(rays, *bad, cl.n_sph_slots, T_MIN, T_MAX)
     bad = list(tables)
-    bad[5] = bad[5][:, :-128]  # slots do not match the clusters
+    bad[6] = bad[6][:, :-128]  # slots do not match the clusters
     with pytest.raises(ValueError, match="cluster_nearest"):
         cluster_ops.cluster_nearest(rays, *bad, cl.n_sph_slots, T_MIN, T_MAX)
+    for prim in (tables[7][:-1], tables[7].to(torch.int64)):  # not an int32 id a slot
+        bad = list(tables)
+        bad[7] = prim
+        with pytest.raises(ValueError, match="cluster_nearest"):
+            cluster_ops.cluster_nearest(rays, *bad, cl.n_sph_slots, T_MIN, T_MAX)
 
 
 def test_plain_walk_does_not_depend_on_its_chunks(monkeypatch):
@@ -138,6 +145,57 @@ def test_cuda_cluster_kernel_ties_bit_for_bit():
             for a, b in zip(got, ref):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert (ref[1] >= 0).sum() > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ties", "grid"])
+def test_cuda_cluster_kernels_break_ties_by_primitive_id(name):
+    """K4, K4b and K5 with slot primitive ids: on the tie scene with ids
+    that reverse the slot order and on the grid scene with its own ids,
+    winners, t and the image bit for bit with the plain versions."""
+    _cuda()
+    scene = (tie_scene() if name == "ties" else tie_grid_scene()).to("cuda")
+    cl = scene.clusters
+    tables = _tables(cl)
+    if name == "ties":
+        tables = with_ids(tables, *(p.to("cuda") for p in _reversed_ids(cl)))
+    rays = tie_rays().to("cuda")
+    for cull in (True, False):
+        ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+        for fn in (cluster_ops.cluster_nearest, cluster_ops.cluster_worklist_nearest):
+            got = fn(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if name == "grid":
+        down = make_camera((0.5, -3.5, 5.0), (0.0, 0.0, 0.5), (0, 0, 1), focus_distance=6.0,
+                           defocus_angle=0.0, image_width=W, image_height=H, vertical_fov=60.0)
+        cfg = RenderConfig(width=W, height=H, samples_per_pixel=2, max_depth=6)
+        ref = megakernel.render_megakernel_plain(scene, down, cfg, 2, 0, 0)
+        got = megakernel.render_megakernel(scene, down, cfg, 2, 0, 0)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", list(FAR_BANDS))
+def test_cuda_cluster_kernels_widen_sphere_boxes(band):
+    """K4 and K4b on the far grazing rays of test_torch_walk_order.py, out
+    to the largest distance a configuration meets: winners and t bit for
+    bit with the plain walk, and t equal to the brute-force search's (the
+    sphere boxes widened on the card as in the plain version)."""
+    _cuda()
+    scene, cfg, rays6 = _far_field(band)
+    scene = scene.to("cuda")
+    cl = scene.clusters
+    rays = torch.cat([rays6, torch.zeros((2, rays6.shape[1]))]).to("cuda")
+    ref = cluster_ops.cluster_nearest_plain(rays, *_tables(cl), cl.n_sph_slots, cfg.t_min,
+                                            cfg.t_max)
+    for fn in (cluster_ops.cluster_nearest, cluster_ops.cluster_worklist_nearest):
+        got = fn(rays, *_tables(cl), cl.n_sph_slots, cfg.t_min, cfg.t_max)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    t_flat, _ = megakernel.flat_search(scene, cfg, rays[:6])
+    torch.testing.assert_close(ref[0], t_flat, rtol=0, atol=0)
+    assert (ref[1] >= 0).sum() > 100
 
 
 @pytest.mark.cuda

@@ -178,7 +178,7 @@ def test_wavefront_walks_the_whole_tables_once_an_iteration():
     img = wavefront.render_wavefront(scene, cam, pix, cfg, 1, 0, rng.key(0), cluster_nearest=counting)
     assert len(calls) == wavefront.COUNTS["iterations"] > 0
     tables = cluster_ops.cluster_tables(scene.clusters)
-    assert all(len(a) == 11 and all(x is y for x, y in zip(a[1:7], tables)) for a in calls)
+    assert all(len(a) == 13 and all(x is y for x, y in zip(a[1:9], tables)) for a in calls)
     ref = wavefront.render_wavefront(scene, cam, pix, cfg, 1, 0, rng.key(0))
     assert torch.equal(img, ref)
 

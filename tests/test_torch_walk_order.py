@@ -9,12 +9,13 @@ an entered cluster's 128 slots are tested 4 a lane (lane l takes slots 4l
 to 4l + 3, and only when 4l is below the cluster's live count, the index of
 its last live slot plus one: the other lanes load nothing and hold no
 key), and the winner is the least packed key (order(t), slot) over a
-lane's 4 slots, then over 32 lanes, which replaces the best only when its t
-is below it.  ``warp_walk`` below
-is a plain-PyTorch model of exactly that, vectorized over rays; the tests
-hold it against ``cluster_ops.cluster_nearest_plain`` (the sequential
-strict-``<`` walk that the kernels were held against before), t and ids
-bit for bit, with culling on and off, over triangle-cloud tables, a
+lane's 4 slots, then over 32 lanes; where t ties within the cluster or
+with the best so far, the lowest primitive id among the tied slots wins,
+and it replaces a best of equal t only with a lower id.  ``warp_walk``
+below is a plain-PyTorch model of exactly that, vectorized over rays; the
+tests hold it against ``cluster_ops.cluster_nearest_plain`` (the
+sequential walk that the kernels are held against), t and ids bit for
+bit, with culling on and off, over triangle-cloud tables, a
 sphere-and-triangle scene and a tie scene built here: a triangulated grid
 (shared edges), a row of spheres, a slot that repeats
 another within its cluster, and a new super whose clusters repeat the
@@ -40,7 +41,7 @@ from rt_tpu_torch.cluster import build_clusters, pack_sphere_slots, pack_triangl
 from rt_tpu_torch import scene as tscene
 from rt_tpu_torch.cluster_ops import BIG, CLUSTER_SLOTS, SUPER_CLUSTERS
 from rt_tpu_torch.elementwise import div
-from rt_tpu_torch.scene import ClusterData
+from rt_tpu_torch.scene import ClusterData, slot_ids
 import torch_cluster_cases as cases  # tests/torch_cluster_cases.py
 
 torch.set_num_threads(2)
@@ -105,37 +106,43 @@ def walk_rays(rays: torch.Tensor) -> dict:
 def warp_walk(rays, tables, n_sph_slots: int, t_min: float, t_max: float, cull: bool,
               stats: dict | None = None):
     """The warp walk of csrc/cluster_walk.cuh for every ray of ``rays``
-    f32[>=6, N] over whole tables: (t f32[N], slot id int32[N]).
+    f32[>=6, N] over whole tables (``cluster_ops.cluster_tables``' order):
+    (t f32[N], slot id int32[N]).
     ``stats`` counts the equal-t decisions it makes ("slot_ties": a
     cluster with two valid slots of its least key; "best_ties": a
-    cluster winner equal to the best so far, which it leaves alone) and
-    the lanes that sat out an entered cluster ("idle_lanes").  The live
-    counts are the kernels' (``cluster_ops.live_counts``)."""
+    cluster winner equal to the best so far) and the lanes that sat out an
+    entered cluster ("idle_lanes").  The live counts are the kernels'
+    (``cluster_ops.live_counts``).  The slots' primitive ids decide ties of
+    t as the kernel does: read only on a tie, the lowest id wins within a
+    cluster, and a winner equal to the best so far replaces it only with a
+    lower id."""
     stats = {} if stats is None else stats
     r = walk_rays(rays)
     n = rays.shape[1]
     best_t = torch.full((n,), BIG)
     best_i = torch.full((n,), -1, dtype=torch.int32)
-    kinds = ((tables[0:3], 0, "sphere",
+    kinds = ((tables[0:4], 0, "sphere",
               lambda rr, s: cluster_ops._sphere_pairs(rr, s, t_min, t_max)),
-             (tables[3:6], n_sph_slots, "triangle",
+             (tables[4:8], n_sph_slots, "triangle",
               lambda rr, s: cluster_ops._triangle_pairs(rr, s, t_min, t_max, cull)))
-    for (supers, clusters, slots), id_base, kind, pairs in kinds:
+    for (supers, clusters, slots, prim), id_base, kind, pairs in kinds:
         live = cluster_ops.live_counts(slots, kind).tolist()
+        reach = cluster_ops.sphere_reach(slots) if kind == "sphere" else None
         for s0 in range(0, supers.shape[0], LANES):
             # One slab test a lane, ignoring the best; the ballot's bits.
-            tn_s, adm_s = cluster_ops._enters(supers[s0 : s0 + LANES], r, None)
+            tn_s, adm_s = cluster_ops._enters(supers[s0 : s0 + LANES], r, None, reach)
             for b in range(adm_s.shape[1]):
-                rows = torch.nonzero(adm_s[:, b] & (tn_s[:, b] < best_t))[:, 0]
+                rows = torch.nonzero(adm_s[:, b] & (tn_s[:, b] <= best_t))[:, 0]
                 if rows.numel() == 0:
                     continue
                 sub = {key: v[rows] for key, v in r.items()}
                 c0 = (s0 + b) * SUPER_CLUSTERS
                 # Two clusters a lane: the ballots of lanes' first and second
                 # clusters, visited one after the other, each in lane order.
-                tn_c, adm_c = cluster_ops._enters(clusters[c0 : c0 + SUPER_CLUSTERS], sub, None)
+                tn_c, adm_c = cluster_ops._enters(clusters[c0 : c0 + SUPER_CLUSTERS], sub, None,
+                                                  reach)
                 for k in range(adm_c.shape[1]):
-                    enter = adm_c[:, k] & (tn_c[:, k] < best_t[rows])
+                    enter = adm_c[:, k] & (tn_c[:, k] <= best_t[rows])
                     hit = torch.nonzero(enter)[:, 0]
                     if hit.numel() == 0:
                         continue
@@ -145,11 +152,44 @@ def warp_walk(rays, tables, n_sph_slots: int, t_min: float, t_max: float, cull: 
                     t, slot, found = lane_minimum(cand, live[ci], stats)
                     g = rows[hit]
                     stats["best_ties"] = stats.get("best_ties", 0) + int((found & (t == best_t[g])).sum())
-                    better = found & (t < best_t[g])
+                    slot, wins = _id_winner(cand, slot, t, best_t[g], best_i[g], prim, ci,
+                                            id_base)
+                    better = found & ((t < best_t[g]) | wins)
                     best_t[g] = torch.where(better, t, best_t[g])
                     best_i[g] = torch.where(better, (slot + id_base + ci * CLUSTER_SLOTS).to(torch.int32),
                                             best_i[g])
     return best_t, best_i
+
+
+def _id_winner(cand, slot, t, best_t, best_i, prim, ci: int, id_base: int):
+    """The kernel's tie path for rays whose cluster winner ties within the
+    cluster or with the best so far: (the slot of the least primitive id
+    among the slots at the least key, then the least slot; whether it
+    replaces a best of equal t, by a lower id than the best's, which is 0
+    where the best is of another kind)."""
+    valid = cand < BIG
+    keys = torch.where(valid, order_key(cand), NO_KEY)
+    at = valid & (keys == order_key(t)[:, None])
+    ids = prim[ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS].to(torch.int64)[None]
+    rank = torch.where(at, ids, 1 << 40).min(dim=1).values
+    first = (at & (ids == rank[:, None])).to(torch.int8).argmax(dim=1)
+    tied = (at.sum(dim=1) > 1) | (t == best_t)
+    bi = best_i.to(torch.int64) - id_base
+    own = (bi >= 0) & (bi < prim.shape[0])
+    best_rank = torch.where(own, prim.to(torch.int64)[torch.clamp(bi, 0, prim.shape[0] - 1)], 0)
+    return torch.where(tied, first, slot), (t == best_t) & (rank < best_rank)
+
+
+def with_ids(tables, sph_prim, tri_prim) -> tuple:
+    """``tables`` (``cluster_ops.cluster_tables``' order) with other
+    primitive ids."""
+    return (*tables[0:3], sph_prim, *tables[4:7], tri_prim)
+
+
+def by_slot(tables) -> tuple:
+    """``tables`` with their slot ids for primitive ids: the first slot
+    visited keeps a tie of t."""
+    return with_ids(tables, *slot_ids(tables[2].shape[1], tables[6].shape[1]))
 
 
 # -- the tie scene ----------------------------------------------------------------
@@ -178,14 +218,11 @@ def _repeat_first_cluster(sup, cl, slots, shade, first_col: int):
             torch.cat([torch.zeros((shade.shape[0], pad * n)), new_shade], dim=1))
 
 
-def tie_scene(grid: int = GRID):
-    """A scene of exact ties for the cluster walk (port only, on the CPU):
-    a grid of grid x grid cells of two triangles over [-3, 3]^2, its
-    vertices at heights 0.5 to 0.75,
-    a row of 16 spheres of radius 0.15 along y = 0, z = 1.5, and a ground
-    sphere; then, in its cluster tables, slot 127 of the first cluster of
-    each kind repeats that cluster's slot 0 (its lowest live slot), and a new
-    super of each kind repeats the first cluster twice."""
+def tie_grid_scene(grid: int = GRID):
+    """A grid of grid x grid cells of two triangles over [-3, 3]^2, its
+    vertices at heights 0.5 to 0.75, a row of 16 spheres of radius 0.15
+    along y = 0, z = 1.5, and a ground sphere, as the scene builder builds
+    it (its slots' primitive ids included)."""
     b = tscene.SceneBuilder()
     b.add_sphere((0, 0, -1000), 1000, b.lambertian(b.solid_color((0.5, 0.5, 0.5))))
     tile = b.lambertian(b.checker(0.5, b.solid_color((0.2, 0.3, 0.4)), b.solid_color((0.9, 0.8, 0.7))))
@@ -202,7 +239,16 @@ def tie_scene(grid: int = GRID):
             b.add_triangle(p00, p11, p01, tile)
     for k in range(16):
         b.add_sphere((-3.0 + 0.4 * k, 0.0, 1.5), 0.15, ball)
-    scene = b.build()
+    return b.build()
+
+
+def tie_scene(grid: int = GRID):
+    """A scene of exact ties for the cluster walk (port only, on the CPU):
+    ``tie_grid_scene``; then, in its cluster tables, slot 127 of the first
+    cluster of each kind repeats that cluster's slot 0 (its lowest live
+    slot), and a new super of each kind repeats the first cluster twice (the
+    slots' primitive ids are their slot ids: ties go to the first slot)."""
+    scene = tie_grid_scene(grid)
     cl = scene.clusters
     shade = cl.shade_table.clone()
     ns = cl.n_sph_slots
@@ -217,8 +263,10 @@ def tie_scene(grid: int = GRID):
     tri_shade = torch.cat([shade[:, ns : ns + cl.tri_slots.shape[1]], tri[3]], dim=1)
     tables = dict(sph_super=sph[0], sph_cluster=sph[1], sph_slots=sph[2], tri_super=tri[0],
                   tri_cluster=tri[1], tri_slots=tri[2])
+    sph_prim, tri_prim = slot_ids(n_sph_slots, tri[2].shape[1])
     scene.clusters = ClusterData(
-        n_sph_slots=n_sph_slots, shade_table=torch.cat([sph_shade, tri_shade], dim=1), **tables)
+        n_sph_slots=n_sph_slots, sph_prim=sph_prim, tri_prim=tri_prim,
+        shade_table=torch.cat([sph_shade, tri_shade], dim=1), **tables)
     return scene
 
 
@@ -304,6 +352,65 @@ def test_warp_walk_matches_sequential_walk(name, cull):
         assert stats["idle_lanes"] > 0, stats
 
 
+def _reversed_ids(cl):
+    """Slot primitive ids per kind that fall as slots rise (spheres below
+    triangles): ties then go to the last slot visited, not the first."""
+    ns, nt = cl.sph_slots.shape[1], cl.tri_slots.shape[1]
+    return (torch.arange(ns - 1, -1, -1, dtype=torch.int32),
+            torch.arange(ns + nt - 1, ns - 1, -1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("name", ["ties", "grid"])
+def test_warp_walk_breaks_ties_by_primitive_id(name, cull):
+    """The warp walk and the sequential walk agree bit for bit on the tie
+    scene with primitive ids that reverse the slot order (so that every tie
+    the first slot keeps goes elsewhere) and on the grid scene with its own
+    ids; t is that of the slot-id walk."""
+    scene = tie_scene() if name == "ties" else tie_grid_scene()
+    cl = scene.clusters
+    rays = tie_rays()
+    tables = cluster_ops.cluster_tables(cl)
+    if name == "ties":
+        tables = with_ids(tables, *_reversed_ids(cl))
+    stats = {}
+    got = warp_walk(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, cull, stats)
+    ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    first = cluster_ops.cluster_nearest_plain(rays, *by_slot(tables), cl.n_sph_slots, T_MIN,
+                                              T_MAX, cull)
+    assert torch.equal(ref[0], first[0])
+    if name == "ties":
+        assert (ref[1] != first[1]).sum() > 50 and stats["best_ties"] > 50, stats
+
+
+def test_walk_breaks_ties_as_brute_force():
+    """On the grid scene, rays through its shared vertices tie between
+    triangles: with its slots' primitive ids the cluster walk returns the t
+    and the primitive of a brute-force search over every primitive in id
+    order (K1's, the reference's), where the first slot would have won
+    another.  Rays parallel to an axis are left out: one that runs in the
+    plane of a box's face meets the slab test's edge case (a zero direction
+    component with the origin on the face), in which the box is not
+    admitted."""
+    from rt_tpu_torch import megakernel
+    from rt_tpu_torch.config import RenderConfig
+
+    scene = tie_grid_scene()
+    cl, cfg = scene.clusters, RenderConfig()
+    rays = tie_rays()
+    rays = rays[:, (rays[3:6] != 0).all(dim=0)]
+    t_flat, id_flat = megakernel.flat_search(scene, cfg, rays)
+    t_walk, slot = megakernel.cluster_search(scene, cfg, rays)
+    ids = torch.cat([cl.sph_prim, cl.tri_prim]).to(torch.int64)
+    walk_ids = torch.where(slot >= 0, ids[torch.clamp(slot, min=0).to(torch.int64)], -1)
+    assert torch.equal(t_walk, t_flat) and torch.equal(walk_ids, id_flat.to(torch.int64))
+    _, first = cluster_ops.cluster_nearest_plain(rays, *by_slot(cluster_ops.cluster_tables(cl)),
+                                                 cl.n_sph_slots, cfg.t_min, cfg.t_max)
+    first_ids = torch.where(first >= 0, ids[torch.clamp(first, min=0).to(torch.int64)], -1)
+    assert (first_ids != walk_ids).sum() > 10
+
+
 @pytest.mark.parametrize("name", list(cases.PREFIX_CASES))
 def test_prefix_scene_last_live_slots_win(name):
     """On a prefix scene the ray straight down onto each cluster's last
@@ -357,12 +464,12 @@ def test_walk_counts_row_bytes_of_a_two_cluster_scene():
     b, c = a + np.float32([0.8, 0.0, 0.0]), a + np.float32([0.4, 0.8, 0.0])
     _, tri, tri_cl, tri_sup = build_clusters(np.minimum(np.minimum(a, b), c),
                                              np.maximum(np.maximum(a, b), c))
-    tables = tuple(torch.from_numpy(t) for t in (
-        sph_sup, sph_cl, pack_sphere_slots(sph, centers, radius), tri_sup, tri_cl,
-        pack_triangle_slots(tri, a, b, c)))
+    raw = [torch.from_numpy(t) for t in (sph_sup, sph_cl, pack_sphere_slots(sph, centers, radius),
+                                         tri_sup, tri_cl, pack_triangle_slots(tri, a, b, c))]
+    tables = by_slot((*raw[0:3], None, *raw[3:6], None))
     n_sph_slots = tables[2].shape[1]
     assert cluster_ops.live_counts(tables[2], "sphere").tolist() == [3] + [0] * 63
-    assert cluster_ops.live_counts(tables[5], "triangle").tolist() == [5] + [0] * 63
+    assert cluster_ops.live_counts(tables[6], "triangle").tolist() == [5] + [0] * 63
     # Straight down onto each sphere (3 rays), each triangle (5), and one
     # ray that meets no box.
     xs = [-5.0, -4.0, -3.0, 4.4, 5.4, 6.4, 7.4, 8.4, 0.0]
@@ -415,3 +522,67 @@ def test_order_key_orders_like_the_float():
     assert bool((keys[1:] >= keys[:-1]).all()) and keys[3] == keys[4]
     assert bool((keys[:3] < keys[3]).all()) and bool((keys[5:] > keys[4]).all())
     assert int(keys.max()) < NO_KEY
+
+
+# -- far grazing rays ---------------------------------------------------------------
+
+
+# Bands of distance from a ray's origin to the sphere it grazes, with how
+# far above the sphere the rays pass: the second is the largest distance
+# that a configuration's sphere walk meets (main_default_scene: the
+# lattice's spheres, radius 0.2 (its least), over [-300, 300]^2, so at most
+# ~850 apart), where the rounding reaches furthest.
+FAR_BANDS = {"far": ((150.0, 300.0), 0.06), "farthest": ((800.0, 900.0), 0.4)}
+
+
+def _far_field(band: str = "far"):
+    """A field of 3,000 spheres of radius 0.2 on z = 0 over [-300, 300]^2
+    (cluster tables, no BVH) and 2,048 rays each aimed to pass just above
+    one of them from ``FAR_BANDS[band]``'s distances, nearly level: where
+    the float32 discriminant of such a ray cancels to >= 0, a brute-force
+    search takes a hit outside the sphere's box."""
+    from rt_tpu_torch.config import RenderConfig
+    from rt_tpu_torch.scene import SceneBuilder
+
+    g = np.random.default_rng(11)
+    centers = np.c_[g.uniform(-300, 300, (3000, 2)), np.zeros(3000)]
+    b = SceneBuilder()
+    mat = b.lambertian_rgb(0.5, 0.5, 0.5)
+    for c in centers:
+        b.add_sphere(c, 0.2, mat)
+    scene = b.build(use_bvh=False)
+    aim = centers[g.integers(0, 3000, 2048)]
+    heading = g.uniform(0, 2 * np.pi, 2048)
+    level = np.c_[np.cos(heading), np.sin(heading), np.zeros(2048)]
+    side = np.c_[-np.sin(heading), np.cos(heading), np.zeros(2048)]
+    (near, far), above = FAR_BANDS[band]
+    lift = 0.2 + g.uniform(0.0, above, 2048)
+    tilt = g.uniform(-2e-3, 2e-3, 2048)
+    dirs = level + tilt[:, None] * np.float64([0, 0, 1])
+    up = np.cross(side, dirs)
+    up /= np.linalg.norm(up, axis=1, keepdims=True)
+    dist = g.uniform(near, far, 2048)
+    origins = aim + lift[:, None] * up - dist[:, None] * dirs
+    rays = np.c_[origins, dirs * g.uniform(0.5, 6.0, (2048, 1))].T
+    rays = torch.from_numpy(rays.astype(np.float32))
+    return scene, RenderConfig(), rays
+
+
+@pytest.mark.parametrize("band", list(FAR_BANDS))
+def test_walk_finds_the_brute_force_hits_of_far_grazing_rays(band, monkeypatch):
+    """The walk widens sphere boxes by the reach of the sphere test's
+    rounding (``cluster_ops.SPHERE_REACH``), so that it returns the t of a
+    brute-force search over every sphere (K1's, the reference's) on rays
+    whose rounding takes hits outside a sphere's box, out to the largest
+    distance a configuration meets; unwidened, it misses some of them."""
+    from rt_tpu_torch import megakernel
+
+    scene, cfg, rays = _far_field(band)
+    assert scene.clusters is not None
+    t_flat, _ = megakernel.flat_search(scene, cfg, rays)
+    t_walk, _ = megakernel.cluster_search(scene, cfg, rays)
+    assert (t_flat < BIG).sum() > 100
+    assert torch.equal(t_walk, t_flat)
+    monkeypatch.setattr(cluster_ops, "SPHERE_REACH", 0.0)
+    t_bare, _ = megakernel.cluster_search(scene, cfg, rays)
+    assert (t_bare != t_flat).sum() > 10

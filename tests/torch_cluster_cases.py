@@ -11,8 +11,11 @@ import numpy as np
 
 from rt_tpu_torch.scene import BVH_TABLES, CLUSTER_TABLES, TABLES
 
-# The walk's tables in the order cluster_ops.cluster_tables gives them.
-WALK_TABLES = ("sph_super", "sph_cluster", "sph_slots", "tri_super", "tri_cluster", "tri_slots")
+# The walk's tables in the order cluster_ops.cluster_tables gives them, and
+# those of them that the JAX package's cluster pages hold too.
+WALK_TABLES = ("sph_super", "sph_cluster", "sph_slots", "sph_prim", "tri_super", "tri_cluster",
+               "tri_slots", "tri_prim")
+PAGE_TABLES = tuple(name for name in WALK_TABLES if not name.endswith("_prim"))
 
 
 def load_jax_native(seconds: float = 120.0) -> bool:
@@ -59,7 +62,9 @@ def cluster_pages(cl, size: int = 512):
     sphere pages first; or one page of the whole tables where neither kind
     needs more than one.  Returns [(tables, sph_slot_base, tri_slot_base)]
     a page, the tables contiguous on the clusters' device in
-    ``WALK_TABLES`` order, as K4 takes them with the page's slot bases."""
+    ``WALK_TABLES`` order, as K4 takes them with the page's slot bases (a
+    page's primitive ids are its slots' ids in the whole tables; the dummy
+    tables' are a dead slot's)."""
     import torch
 
     from rt_tpu_torch import cluster_ops
@@ -74,14 +79,15 @@ def cluster_pages(cl, size: int = 512):
     empty_box = torch.tensor([inf, inf, inf, -inf, -inf, -inf, 0.0, 0.0], device=dev)
     no_super, no_clusters = empty_box.repeat(1, 1), empty_box.repeat(64, 1)
     no_sph, no_tri = (torch.zeros((rows, 64 * 128), device=dev) for rows in (8, 16))
+    no_prim = torch.full((64 * 128,), 2**31 - 1, dtype=torch.int32, device=dev)
 
-    def cut(sup, clusters, slots, lo, hi):
+    def cut(sup, clusters, slots, prim, lo, hi):
         return (sup[lo // 64 : -(-hi // 64)].contiguous(), clusters[lo:hi].contiguous(),
-                slots[:, lo * 128 : hi * 128].contiguous())
+                slots[:, lo * 128 : hi * 128].contiguous(), prim[lo * 128 : hi * 128].contiguous())
 
-    return ([((*cut(*whole[0:3], lo, hi), no_super, no_clusters, no_tri), lo * 128, 0)
+    return ([((*cut(*whole[0:4], lo, hi), no_super, no_clusters, no_tri, no_prim), lo * 128, 0)
              for lo, hi in spans[0]]
-            + [((no_super, no_clusters, no_sph, *cut(*whole[3:6], lo, hi)), 0, lo * 128)
+            + [((no_super, no_clusters, no_sph, no_prim, *cut(*whole[4:8], lo, hi)), 0, lo * 128)
                for lo, hi in spans[1]])
 
 
@@ -273,11 +279,13 @@ def prefix_scene(case: str, grid: int = 12):
     field of spheres of radius 0.12 at z 0.6 over [4, 9.5] x [-3, 3], so
     that a ray straight down onto a primitive hits it first.  Returns
     (scene, {kind: [(cluster, last live slot id, source)]}), the slot ids
-    global as the kernels return them."""
+    global as the kernels return them.  The slots' primitive ids are their
+    slot ids (``scene.slot_ids``): a slot that repeats an earlier one loses
+    the tie."""
     import torch
 
     from rt_tpu_torch import cluster_ops
-    from rt_tpu_torch.scene import ClusterData, SceneBuilder
+    from rt_tpu_torch.scene import ClusterData, SceneBuilder, slot_ids
 
     b = SceneBuilder()
     tile = b.lambertian(b.checker(0.5, b.solid_color((0.2, 0.3, 0.4)),
@@ -308,8 +316,9 @@ def prefix_scene(case: str, grid: int = 12):
     tables = dict(sph_super=out["sphere"][0], sph_cluster=out["sphere"][1],
                   sph_slots=out["sphere"][2], tri_super=out["triangle"][0],
                   tri_cluster=out["triangle"][1], tri_slots=out["triangle"][2])
+    sph_prim, tri_prim = slot_ids(n_sph_slots, out["triangle"][2].shape[1])
     scene.clusters = ClusterData(
-        n_sph_slots=n_sph_slots,
+        n_sph_slots=n_sph_slots, sph_prim=sph_prim, tri_prim=tri_prim,
         shade_table=torch.cat([out["sphere"][3], out["triangle"][3]], dim=1), **tables)
     return scene, lasts
 
