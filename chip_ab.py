@@ -25,8 +25,8 @@ this checkout's ``chip_smoke.timed_cuda``, at the bench configuration:
   two;
 - K5 (``megakernel.render_megakernel`` on a clustered scene) on the scenes,
   cameras and depths of rtbench's K5 cells, built as rtbench builds them:
-  a blob-frames frame (800x450, 64 spp) and a car-preview sweep (1920x1080,
-  4 spp);
+  a blob-frames frame (800x450, 64 spp), a car-preview sweep (1920x1080,
+  4 spp) and a field-frames frame (800x600, 64 spp);
 - K4 and K4b (``cluster_ops.cluster_worklist_nearest`` / ``cluster_nearest``)
   on 65,536 rays of that blob frame (``chip_smoke.mesh_rays``: camera rays
   and first bounces).
@@ -132,6 +132,9 @@ def run(root: str, tag: str) -> None:
         lambda: mk.render_megakernel(blob, blob_cam, blob_cfg, 64, 0, 1), 3)
     outs["k5_car"], ms["k5_car_sweep_ms"] = timed(
         lambda: mk.render_megakernel(car, car_cam, car_cfg, 4, 0, 1), 5)
+    field, field_cam, field_cfg = cell_scene("field-frames", dev)
+    outs["k5_field"], ms["k5_field_frame_ms"] = timed(
+        lambda: mk.render_megakernel(field, field_cam, field_cfg, 64, 0, 1), 3)
     cl = blob.clusters
     walk = (smoke.mesh_rays(blob, blob_cam, blob_cfg, 65_536, dev),
             *cluster_ops.cluster_tables(cl), cl.n_sph_slots, blob_cfg.t_min, blob_cfg.t_max,

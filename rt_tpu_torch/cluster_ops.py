@@ -17,8 +17,8 @@ f32[M, 8] (M a multiple of 64) and the slot table (cluster.pack_*_slots:
 f32[>=4, M*128] for spheres, f32[>=10, M*128] for triangles).  They return
 t f32[N] (``BIG`` on a miss) and the global slot id int32[N] (-1 on a
 miss): a sphere winner is ``sph_slot_base`` + its slot, a triangle winner
-``n_sph_slots + tri_slot_base`` + its slot.  Among equal t the lowest slot
-wins, spheres before triangles.
+``n_sph_slots + tri_slot_base`` + its slot.  Among equal t the lowest
+primitive id wins, then the lowest slot, spheres before triangles.
 
 On a CUDA tensor each wrapper launches the kernel of csrc/cluster_nearest.cu
 (one kernel for both; the walk itself is csrc/cluster_walk.cuh, which K5
@@ -46,9 +46,14 @@ CLUSTER_SLOTS = 128  # slots per cluster (cluster.CLUSTER_SLOTS)
 TRI_EPS = 1e-7
 TINY = 1e-20
 # The slab test's outward pad of the exit distance, as f32 values
-# (rt_tpu/megakernel.py:922).
+# (rt_tpu/megakernel.py:922), and the inward pad of the entry distance by
+# as much, so that the box that holds a ray's nearest hit is entered
+# whatever the order of the walk (csrc/cluster_walk.cuh, "Exactness").
 PAD_MUL = float(np.float32(1.0 + 6e-7))
+ENTRY_MUL = float(np.float32(1.0 - 6e-7))
 PAD_ADD = float(np.float32(1e-6))
+LANES = 32  # a warp: the walk's lanes
+NO_KEY = 0xFFFFFFFF  # a box not admitted, a slot not hit: the key of no float but a NaN
 # Sphere boxes are widened by the reach of the sphere pair test's rounding
 # past a sphere (csrc/cluster_walk.cuh admits), so that the walk finds
 # what a brute-force search over every sphere finds: by the lesser of
@@ -123,6 +128,7 @@ def _enters(box, r, best, reach: float | None = None):
     """The padded slab test of rt_tpu/megakernel.py:903-923 for rays r
     (component tensors [K]) against boxes ``box`` f32[B, 8] -> (tn [K, B],
     entered ignoring best [K, B]); a ray enters when also tn <= its best.
+    tn is padded inward as the exit distance is padded outward.
     With a ``reach`` (sphere boxes: ``sphere_reach``) each box is first
     widened by the sphere test's reach, as SPHERE_REACH says."""
     live = box[:, 0][None] <= box[:, 3][None]
@@ -142,10 +148,29 @@ def _enters(box, r, best, reach: float | None = None):
     t0z, t1z = (lz - oz) * idz, (hz - oz) * idz
     tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
                        torch.clamp(torch.minimum(t0z, t1z), min=0.0))
+    tn = tn * ENTRY_MUL - PAD_ADD
     tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
                        torch.maximum(t0z, t1z))
     tf = tf * PAD_MUL + PAD_ADD
     return tn, (tn <= tf) & (tf >= 0.0) & live
+
+
+def order_key(t):
+    """order(t) of csrc/rt_common.cuh as int64: an unsigned that orders like
+    the float, -0 taken as +0."""
+    bits = torch.where(t == 0, 0.0, t).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(bits >= 1 << 31, ~bits & 0xFFFFFFFF, bits | (1 << 31))
+
+
+def near_order(tn, admitted):
+    """The kernels' near-to-far order (csrc/cluster_walk.cuh next_box) of a
+    group of at most 64 boxes for each ray: ``tn``, ``admitted`` [K, G] ->
+    the boxes' places [K, G], admitted boxes by their keys order(tn), equal
+    keys by lane (box b is lane b % 32's), a lane's first box before its
+    second."""
+    b = torch.arange(tn.shape[1], device=tn.device)
+    key = torch.where(admitted, order_key(tn), NO_KEY) * 64 + (b % LANES) * 2 + b // LANES
+    return torch.argsort(key, dim=1)
 
 
 def _sphere_pairs(r, s, t_min: float, t_max: float):
@@ -195,18 +220,21 @@ def _triangle_pairs(r, s, t_min: float, t_max: float, cull: bool):
 
 def _walk_set(r, best_t, best_i, best_r, supers, clusters, slots, prim, id_base: int,
               slot_base: int, pairs, work: dict | None, kind: str):
-    """One kind's walk for all rays r, in the kernel's order: supers in
+    """One kind's walk for all rays r, in ascending order: supers in
     turn, each entered super's clusters in turn, each entered cluster's
     slots; ``best_t``/``best_i`` [N] and the best's rank ``best_r`` [N]
     are updated in place.  Among equal t the lowest primitive id ``prim``
-    (int32[slots]) wins, then the lowest slot.  ``work``, when
+    (int32[slots]) wins, then the lowest slot (the first visited).  The
+    kernels visit boxes near to far and enter fewer; they return the same
+    winner (csrc/cluster_walk.cuh, "Exactness").  ``work``, when
     given, counts the slab tests and the pair tests the walk makes on live
     boxes and slots, as the kernel makes them, and the slot-row bytes the
     kernel loads for the clusters it enters (``row_bytes``:
     "<kind>_row_bytes" for the lanes below each cluster's live count,
-    "<kind>_row_bytes_whole" for all 32 lanes), and gathers the supers and
-    clusters some ray entered (by their index in the unpaged tables,
-    ``slot_base`` / CLUSTER_SLOTS + the page's own index)."""
+    "<kind>_row_bytes_whole" for all 32 lanes) and the (ray, box) pairs it
+    enters ("<kind>_super_entries", "<kind>_cluster_entries"), and gathers
+    the supers and clusters some ray entered (by their index in the unpaged
+    tables, ``slot_base`` / CLUSTER_SLOTS + the page's own index)."""
     reach = sphere_reach(slots) if kind == "sphere" else None
     ranks = prim.to(device=slots.device, dtype=torch.int64)
     no_rank = torch.iinfo(torch.int64).max
@@ -218,7 +246,7 @@ def _walk_set(r, best_t, best_i, best_r, supers, clusters, slots, prim, id_base:
         alive = (slots[LIVE_ROW[kind]] > LIVE_MIN[kind]).reshape(-1, CLUSTER_SLOTS)
         live_slots = alive.sum(dim=1).tolist()
         loads = [row_bytes(n, kind) for n in live_counts(slots, kind).tolist()]
-        for key in ("row_bytes", "row_bytes_whole"):
+        for key in ("row_bytes", "row_bytes_whole", "super_entries", "cluster_entries"):
             work.setdefault(f"{kind}_{key}", 0)
         work["slab"] = work.get("slab", 0) + r["ox"].shape[0] * sum(sup_live)
         entered_supers = work.setdefault(f"{kind}_supers", set())
@@ -236,6 +264,7 @@ def _walk_set(r, best_t, best_i, best_r, supers, clusters, slots, prim, id_base:
         tn_c, ent_c = _enters(clusters[c_lo:c_hi], sub, bt, reach)
         if work is not None:
             work["slab"] += rays_s.numel() * sum(cl_live[c_lo:c_hi])
+            work[f"{kind}_super_entries"] += rays_s.numel()
             entered_supers.add((first + c_lo) // SUPER_CLUSTERS)
         for ci in range(c_lo, c_hi):
             if not cl_live[ci]:
@@ -248,6 +277,7 @@ def _walk_set(r, best_t, best_i, best_r, supers, clusters, slots, prim, id_base:
                 work[f"{kind}_pairs"] = work.get(f"{kind}_pairs", 0) + rows.numel() * live_slots[ci]
                 work[f"{kind}_row_bytes"] += rows.numel() * loads[ci][0]
                 work[f"{kind}_row_bytes_whole"] += rows.numel() * loads[ci][1]
+                work[f"{kind}_cluster_entries"] += rows.numel()
                 entered_clusters.add(first + ci)
             cand = pairs({key: v[rows] for key, v in sub.items()},
                          slots[:, ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS])
@@ -270,16 +300,25 @@ def cluster_nearest_plain(rays, sph_super, sph_cluster, sph_slots, sph_prim, tri
                           tri_slot_base: int = 0, work: dict | None = None):
     """K4's plain version: the arguments and result of
     ``cluster_worklist_nearest`` (``rays`` f32[>=6, N], any N).  The walk of
-    csrc/cluster_walk.cuh vectorized over rays: the entered masks per (ray,
-    super) and per (ray, cluster) come from the same padded slab test and
-    the same ``tn <= best`` rule, in the kernel's order, with pair tests over
-    each ray's entered clusters only.  Ties of t go to the lowest primitive
-    id ``sph_prim`` / ``tri_prim`` (ClusterData's).  ``work``, when given,
+    csrc/cluster_walk.cuh vectorized over rays, in the sequential order of a
+    scan (supers, then each entered super's clusters, in ascending index):
+    the entered masks per (ray, super) and per (ray, cluster) come from the
+    same padded slab test and the same ``tn <= best`` rule, with pair tests
+    over each ray's entered clusters only.  The kernels visit the admitted
+    boxes near to far instead, and so enter fewer; the winner is the least
+    (t, id, slot) over the valid slots of the entered clusters, and the
+    cluster that holds it is entered in either order, so the two return
+    the same t and slot.  Ties of t go to the lowest primitive id
+    ``sph_prim`` / ``tri_prim`` (ClusterData's), then the lowest slot.
+    ``work``, when given,
     accumulates the walk's slab tests ("slab") and pair tests ("sphere_pairs",
     "triangle_pairs"), the slot-row bytes the kernel loads under the live
     counts and under whole clusters ("sphere_row_bytes",
     "sphere_row_bytes_whole", "triangle_row_bytes",
-    "triangle_row_bytes_whole"), and the sets of supers and clusters some
+    "triangle_row_bytes_whole"), the (ray, box) pairs entered
+    ("sphere_super_entries", "sphere_cluster_entries",
+    "triangle_super_entries", "triangle_cluster_entries"), and the sets of
+    supers and clusters some
     ray entered ("sphere_supers", "sphere_clusters", "triangle_supers",
     "triangle_clusters"), from which a measurement works out the kernel's
     least time."""

@@ -21,8 +21,11 @@
 // box and slot read was a scattered load.  It ran at 0.1-0.3% of its
 // operation bound, limited by load latency at ~16 warps an SM (PERF.md).
 // This walk gives each step 32 independent pieces of work instead:
-//   - supers: lane l slab-tests supers l, l + 32, ...; a ballot gives the
-//     admitted set, visited in ascending order;
+//   - supers: lane l slab-tests supers l and l + 32 of each group of 64
+//     (groups in index order), ignoring the best; the admitted ones are
+//     visited near to far, each step taking the least entry distance left
+//     by one warp minimum over the lanes' keys (next_box), and the visit
+//     stops at the first one past the best t;
 //   - clusters: the 64 clusters of an entered super, two a lane, likewise;
 //   - slots: lane l tests slots 4l..4l+3 of an entered cluster, so a field
 //     row of the cluster (128 consecutive floats, 512 B) is one coalesced
@@ -39,34 +42,48 @@
 // of the slot rows (L2) and the walk's chain of ballots and shuffles: the
 // callers keep enough warps resident to hide them.
 //
-// Exactness: the walk visits the same boxes and slots as a sequential scan
-// and returns the same t and id, bit for bit (a lane that loads nothing
-// holds only slots past the last live one, which are never valid):
+// Exactness: the walk returns the t and id of a sequential scan in
+// ascending order (cluster_ops.cluster_nearest_plain), bit for bit, though
+// it visits fewer boxes (a lane that loads nothing holds only slots past
+// the last live one, which are never valid):
 //   - a box is admitted ignoring the best t, then entered only if its entry
 //     distance tn <= best_t when it is reached: that is the padded slab test
 //     with the current best, since nothing else in it depends on best;
-//   - boxes are reached in ascending order, spheres first;
 //   - a cluster's winner is the smallest key (order(t), id, slot) over its
 //     valid slots, taken over a lane's 4 slots then 32 lanes, and replaces the
-//     best when t < best_t, or t == best_t and its id is lower (ids are the
-//     slots' primitive ids, s.prim, read only when t ties; a scene that has
-//     none gives each slot its global slot id, so that the first slot
-//     visited keeps a tie).  A sequential
-//     scan in ascending slot order with that rule returns the least t and,
-//     among equal t, the least id: what a brute-force search over the
-//     primitives in id order returns.  order() maps a float's bits to an
-//     unsigned that orders like the float (the usual flip for signed
-//     values), with -0 taken as +0 so that the two tie as they do under `<`;
-//     the winning t itself comes from the lane that tested it.
+//     best when t < best_t, or t == best_t and its (id, slot) is lower (ids
+//     are the slots' primitive ids, s.prim, read only when t ties; a scene
+//     that has none gives each slot its global slot id).  So the walk
+//     returns the least (t, id, slot) over the valid slots of the clusters
+//     it enters, whatever the order in which it enters them;
+//   - the box that holds that least (t*, id*, slot*) is entered in any
+//     order: its tn is at most t*, and t* is at most best_t at every moment
+//     (best_t is a t of the clusters entered).  A super holds its clusters'
+//     boxes, so its tn is no larger.  The slab test pads tn inward by the
+//     pad of its exit distance (admits), so that rounding does not put tn
+//     past t* for a hit on the box's entry face: were it there, a walk that
+//     had found a hit of equal t in another cluster first would stop short
+//     of the winner's box (tests/test_torch_walk_order.py builds that
+//     case).  Boxes are reached spheres first, then triangles; within a
+//     kind, near to far (the next_box order), where the sequential scan goes
+//     in ascending index: the two enter different boxes and return the same
+//     winner.  A scan in ascending slot order with the rule above returns
+//     the least t and, among equal t, the least id: what a brute-force
+//     search over the primitives in id order returns.  order() maps a
+//     float's bits to an unsigned that orders like the float (the usual flip
+//     for signed values), with -0 taken as +0 so that the two tie as they do
+//     under `<`; the winning t itself comes from the lane that tested it.
 // The slab test pads its exit distance outward (rt_tpu/megakernel.py:918-922),
-// so rounding never culls a true hit on a flat box; sphere boxes are also
+// so rounding never culls a true hit on a flat box, and its entry distance
+// inward by as much, so that rounding never enters the box that holds the
+// winner too late; sphere boxes are also
 // widened by the reach of the sphere test's rounding (admits), so the
 // walk finds what a brute-force search over every sphere finds.  Inverted
 // (dummy) boxes and dead slots (radius 0, live flag 0) are never admitted or
 // valid.  The
 // plain PyTorch version is cluster_ops.cluster_nearest_plain, which walks
-// in the sequential order; with -fmad=false and IEEE division and sqrt the
-// two agree bit for bit.
+// in ascending order; with -fmad=false and IEEE division and sqrt the two
+// agree bit for bit.
 //
 // Layout: the slot tables stay field-row-major as the scene holds them
 // ([rows, n_slots], a field's values for consecutive slots adjacent): the
@@ -85,6 +102,7 @@ namespace rt {
 constexpr int kSuperClusters = 64;   // clusters per super (cluster.SUPER_SLOTS)
 constexpr int kClusterSlots = 128;   // slots per cluster (cluster.CLUSTER_SLOTS)
 constexpr unsigned kNoKey = 0xffffffffu;  // no valid slot (the key of no float but a NaN)
+constexpr int kVisitGroup = 64;      // boxes of one near-to-far visit: two a lane
 
 // One primitive kind's two-level tables.  Winner ids are id_base + slot.
 struct ClusterSet {
@@ -117,8 +135,9 @@ __device__ __forceinline__ WalkRay walk_ray(float ox, float oy, float oz, float 
 
 // The padded slab test of rt_tpu/megakernel.py:903-923 without its best-t
 // condition: is box b live and does the ray's line meet it ahead of the
-// origin?  Sets tn, the entry distance; the ray enters b when also tn <=
-// its best t.
+// origin?  Sets tn, the entry distance, padded inward as the exit distance
+// is padded outward (see "Exactness" above); the ray enters b when also
+// tn <= its best t.
 // With kWiden (sphere boxes) the box is first widened by how far the sphere
 // pair test's rounding reaches past a sphere.  For a ray whose closest
 // approach to a sphere's centre (at distance D from its origin) is p, the
@@ -155,6 +174,7 @@ __device__ __forceinline__ bool admits(const float* __restrict__ b, const WalkRa
   const float t0y = (ly - r.oy) * r.idy, t1y = (hy - r.oy) * r.idy;
   const float t0z = (lz - r.oz) * r.idz, t1z = (hz - r.oz) * r.idz;
   tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), 0.0f));
+  tn = tn * (float)(1.0 - 6e-7) - (float)1e-6;
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   tf = tf * (float)(1.0 + 6e-7) + (float)1e-6;
   return lo.x <= lo.w && tn <= tf && tf >= 0.0f;  // lx > hx: an inverted dummy box
@@ -227,9 +247,11 @@ __device__ __forceinline__ unsigned slot_key(const ClusterSet& s, long long col,
 // when 4l < live, ci's live count, and the warp's winner; best_t/best_i
 // (the same in every lane) are updated.  Among equal t the lowest primitive
 // id wins, as in a brute-force search over the primitives in id order (K1,
-// the reference): within the cluster and against the best so far, which a
-// later cluster can hold at the same t (two triangles that share an edge).
-// The ids (s.prim) are read only on such a tie.
+// the reference): within the cluster and against the best so far, which
+// another cluster can hold at the same t (two triangles that share an
+// edge); among equal t and id, the lowest slot, so that the winner does not
+// depend on the order in which clusters are entered.  The ids (s.prim) are
+// read only on such a tie.
 template <bool kSpheres>
 __device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, int live,
                                              const WalkRay& r, float t_min, float t_max,
@@ -292,62 +314,75 @@ __device__ __forceinline__ void walk_cluster(const ClusterSet& s, int ci, int li
     slot = __reduce_min_sync(kFullMask, at && lane_rank == rank ? (unsigned)lane_rslot : kNoKey);
     if (t == best_t) {
       // The best's id, where it is a slot of this set (else it is a sphere,
-      // of a lower id than any triangle).
+      // of a lower id than any triangle and a lower slot).
       const long long bi = (long long)best_i - s.id_base;
       const unsigned best_rank = bi >= 0 && bi < s.stride ? (unsigned)__ldg(s.prim + bi) : 0u;
-      if (!(rank < best_rank)) return;
+      if (!(rank < best_rank ||
+            (rank == best_rank && s.id_base + ci * kClusterSlots + (int)slot < best_i))) {
+        return;
+      }
     }
   }
   best_t = t;
   best_i = s.id_base + ci * kClusterSlots + (int)slot;
 }
 
-// Visits the admitted boxes of one ballot in ascending order, entering each
-// whose entry distance (held by the lane of its bit, beside its live count)
-// is not above the best t (a box entered at the best t can hold a tie).
-template <bool kSpheres>
-__device__ __forceinline__ void visit_clusters(const ClusterSet& s, unsigned admitted, float tn_lane,
-                                               int live_lane, int first, const WalkRay& r,
-                                               float t_min, float t_max, bool cull, int lane,
-                                               float& best_t, int& best_i) {
-  for (unsigned m = admitted; m; m &= m - 1) {
-    const int b = __ffs(m) - 1;
-    const float tn = __shfl_sync(kFullMask, tn_lane, b);
-    const int live = __shfl_sync(kFullMask, live_lane, b);
-    if (!(tn <= best_t)) continue;
-    walk_cluster<kSpheres>(s, first + b, live, r, t_min, t_max, cull, lane, best_t, best_i);
+// The key of box b of a table of n boxes for the near-to-far visit:
+// order(tn) if the padded slab test admits it (ignoring the best), else
+// kNoKey.
+template <bool kWiden>
+__device__ __forceinline__ unsigned box_key(const float* __restrict__ boxes, int b, int n,
+                                            const WalkRay& r, const ClusterSet& s) {
+  float tn;
+  return b < n && admits<kWiden>(boxes + 8 * b, r, s, tn) ? order_key(tn) : kNoKey;
+}
+
+// One step of the near-to-far visit of a group of 64 boxes, lane l holding
+// boxes l and l + 32 (keys key_lo / key_hi).  Returns false when no box is
+// left whose tn <= best_t: the keys left are no smaller than the least, and
+// best_t only falls, so no later box would be entered.  Else sets b to the
+// place in the group of the box of the least key (of the lowest lane that
+// holds it; its first box before its second) and clears that key.  One
+// warp minimum and two ballots a step.
+__device__ __forceinline__ bool next_box(unsigned& key_lo, unsigned& key_hi, float best_t,
+                                         int lane, int& b) {
+  const unsigned least = __reduce_min_sync(kFullMask, key_hi < key_lo ? key_hi : key_lo);
+  if (least == kNoKey || least > order_key(best_t)) return false;
+  const unsigned at_lo = __ballot_sync(kFullMask, key_lo == least);
+  const unsigned at_hi = __ballot_sync(kFullMask, key_hi == least);
+  const int owner = __ffs(at_lo | at_hi) - 1;
+  const bool hi = ((at_lo >> owner) & 1u) == 0u;
+  b = owner + (hi ? 32 : 0);
+  if (lane == owner) {
+    if (hi) {
+      key_hi = kNoKey;
+    } else {
+      key_lo = kNoKey;
+    }
   }
+  return true;
 }
 
 // One kind's walk of one ray by the whole warp (every lane passes the same
-// ray and best; all 32 lanes must take part).
+// ray and best; all 32 lanes must take part): the supers of each group of
+// 64, near to far, and each entered super's clusters, near to far.
 template <bool kSpheres>
 __device__ __forceinline__ void walk_set(const ClusterSet& s, const WalkRay& r, float t_min,
                                          float t_max, bool cull, int lane, float& best_t,
                                          int& best_i) {
-  for (int s0 = 0; s0 < s.n_supers; s0 += 32) {
-    float tn_s = 0.0f;
-    const int sl = s0 + lane;
-    const bool adm_s = sl < s.n_supers && admits<kSpheres>(s.supers + 8 * sl, r, s, tn_s);
-    for (unsigned m = __ballot_sync(kFullMask, adm_s); m; m &= m - 1) {
-      const int b = __ffs(m) - 1;
-      if (!(__shfl_sync(kFullMask, tn_s, b) <= best_t)) continue;
-      const int c0 = (s0 + b) * kSuperClusters;
-      float tn_lo = 0.0f, tn_hi = 0.0f;
-      const int cl = c0 + lane, ch = c0 + 32 + lane;
-      // Each lane's clusters' live counts, loaded beside their boxes.
-      const int live_lo = cl < s.n_clusters ? __ldg(s.live + cl) : 0;
-      const int live_hi = ch < s.n_clusters ? __ldg(s.live + ch) : 0;
-      const bool adm_lo =
-          cl < s.n_clusters && admits<kSpheres>(s.clusters + 8 * cl, r, s, tn_lo);
-      const bool adm_hi =
-          ch < s.n_clusters && admits<kSpheres>(s.clusters + 8 * ch, r, s, tn_hi);
-      const unsigned m_lo = __ballot_sync(kFullMask, adm_lo);
-      const unsigned m_hi = __ballot_sync(kFullMask, adm_hi);
-      visit_clusters<kSpheres>(s, m_lo, tn_lo, live_lo, c0, r, t_min, t_max, cull, lane, best_t,
-                               best_i);
-      visit_clusters<kSpheres>(s, m_hi, tn_hi, live_hi, c0 + 32, r, t_min, t_max, cull, lane,
+  for (int s0 = 0; s0 < s.n_supers; s0 += kVisitGroup) {
+    unsigned skey_lo = box_key<kSpheres>(s.supers, s0 + lane, s.n_supers, r, s);
+    unsigned skey_hi = box_key<kSpheres>(s.supers, s0 + 32 + lane, s.n_supers, r, s);
+    int sb;
+    while (next_box(skey_lo, skey_hi, best_t, lane, sb)) {
+      const int c0 = (s0 + sb) * kSuperClusters;
+      unsigned key_lo = box_key<kSpheres>(s.clusters, c0 + lane, s.n_clusters, r, s);
+      unsigned key_hi = box_key<kSpheres>(s.clusters, c0 + 32 + lane, s.n_clusters, r, s);
+      int cb;
+      while (next_box(key_lo, key_hi, best_t, lane, cb)) {
+        walk_cluster<kSpheres>(s, c0 + cb, __ldg(s.live + c0 + cb), r, t_min, t_max, cull, lane,
                                best_t, best_i);
+      }
     }
   }
 }

@@ -90,6 +90,10 @@ namespace {
 
 constexpr int kFlatBlock = 256;       // K1: eight warps a block
 constexpr int kClusteredBlock = 256;  // K5: eight warps a block
+// K5's blocks an SM, asked of ptxas: three hold it at 80 registers a thread,
+// 24 warps an SM.  Left to itself ptxas gives the near-to-far walk 111
+// registers and 16 warps, which the car preview runs ~7% slower (PERF.md).
+constexpr int kClusteredMinBlocks = 3;
 
 struct Hit {
   float t;
@@ -580,7 +584,7 @@ __global__ void __launch_bounds__(kFlatBlock)
 
 // K5: a persistent grid of warps in a converged step loop (see the top of
 // this file).  `next_pixel` is a device int, 0 at launch: the claim counter.
-__global__ void __launch_bounds__(kClusteredBlock)
+__global__ void __launch_bounds__(kClusteredBlock, kClusteredMinBlocks)
     megakernel_clustered(const Params p, const Ints q, const ClusterSet sph, const ClusterSet tri,
                          const float* __restrict__ table, const float* __restrict__ atlas,
                          float* __restrict__ out, int* __restrict__ next_pixel) {

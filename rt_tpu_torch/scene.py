@@ -95,7 +95,7 @@ class ClusterData(nn.Module):
     slot id.  ``sph_prim`` and ``tri_prim`` i32[slots] hold each slot's
     global primitive id (spheres first, 2**31 - 1 for a dead slot), by
     which the walks break ties of t as a brute-force search does
-    (``slot_ids`` gives a scene that has none the first slot's rule)."""
+    (``slot_ids`` gives a scene that has none the lowest slot's rule)."""
 
     def __init__(self, *, n_sph_slots: int, sph_prim, tri_prim, **tables):
         super().__init__()
@@ -106,9 +106,9 @@ class ClusterData(nn.Module):
 
 def slot_ids(n_sph_slots: int, n_tri_slots: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Primitive ids equal to the global slot ids, int32[n_sph_slots] and
-    int32[n_tri_slots] (triangles from n_sph_slots on): the walks visit
-    slots in ascending id, so under these the first slot visited keeps a
-    tie of t, as in the JAX package's kernels."""
+    int32[n_tri_slots] (triangles from n_sph_slots on): under these the
+    lowest slot keeps a tie of t, as the first slot visited does in the JAX
+    package's kernels, which visit slots in ascending id."""
     ids = torch.arange(n_sph_slots + n_tri_slots, dtype=torch.int32)
     return ids[:n_sph_slots], ids[n_sph_slots:]
 

@@ -4,10 +4,14 @@ The ``cuda`` tests run only where a card is present: built without fused
 multiply-adds, each kernel must agree with its plain version bit for bit
 (winners and t for K4/K4b, the image for K5), on the test scenes, on the
 tie scene and the far grazing rays of test_torch_walk_order.py (whose
-widened sphere boxes must give the brute-force hits) and on the prefix scenes of
+widened sphere boxes must give the brute-force hits), on the prefix scenes of
 torch_cluster_cases.py, whose clusters hold 1 to 128 live slots (so the
-last lane that loads a cluster holds live and dead slots, or none loads).  This file imports nothing of the JAX package, so
-that it also runs on a machine that has PyTorch for CUDA but not the JAX
+last lane that loads a cluster holds live and dead slots, or none loads),
+on its row scenes, where the kernels' near-to-far visit enters other
+clusters than the plain version's ascending one (also with more than 64
+supers, and with two clusters whose slots tie in t and primitive id), and
+on its face scene, whose hits lie on the entry faces of flat boxes.
+This file imports nothing of the JAX package, so that it also runs on a machine that has PyTorch for CUDA but not the JAX
 package's dependencies; the comparisons with the JAX package are in
 test_torch_cluster.py and test_torch_clustered.py.
 """
@@ -21,8 +25,8 @@ from rt_tpu_torch import scene as tscene
 from rt_tpu_torch.camera import make_camera
 from rt_tpu_torch.config import RenderConfig
 import torch_cluster_cases as cases  # tests/torch_cluster_cases.py
-from test_torch_walk_order import (FAR_BANDS, _far_field, _reversed_ids, tie_grid_scene, tie_rays,
-                                   tie_scene, with_ids)
+from test_torch_walk_order import (FAR_BANDS, ROW_SUPERS, _far_field, _reversed_ids,
+                                   tie_grid_scene, tie_rays, tie_scene, with_ids)
 
 torch.set_num_threads(2)
 
@@ -227,5 +231,67 @@ def test_cuda_cluster_kernels_on_partly_filled_clusters(case):
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=2, max_depth=6)
     ref = megakernel.render_megakernel_plain(scene, above, cfg, 2, 0, 0)
     got = megakernel.render_megakernel(scene, above, cfg, 2, 0, 0)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert float(ref.mean()) > 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rows", "row_supers"])
+def test_cuda_cluster_kernels_on_the_row_scene(layout):
+    """K4, K4b and K5 on a row scene, whose rays meet clusters in falling
+    index (the near-to-far walk enters the nearest and stops, the plain
+    walk enters them all): winners, t and the image bit for bit with the
+    plain versions, culling on and off; on the plain row scene also with
+    the nearest wall repeated at a lower and a higher cluster with equal
+    primitive ids (the lower slot wins)."""
+    _cuda()
+    scene = (cases.row_scene() if layout == "rows" else cases.row_scene(**ROW_SUPERS)).to("cuda")
+    cl = scene.clusters
+    rays = cases.row_rays().to("cuda")
+    variants = [_tables(cl)]
+    if layout == "rows":
+        variants += [cases.copy_nearest_wall(_tables(cl), copy) for copy in (20, 48)]
+    for tables in variants:
+        for cull in (True, False):
+            ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX,
+                                                    cull)
+            for fn in (cluster_ops.cluster_nearest, cluster_ops.cluster_worklist_nearest):
+                got = fn(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+                for a, b in zip(got, ref):
+                    torch.testing.assert_close(a, b, rtol=0, atol=0)
+            assert (ref[1] >= 0).sum() > rays.shape[1] // 4
+    along = make_camera((cases.ROW_FAR, 0.5, 1.2), (0.0, 0.8, 1.0), (0, 0, 1), focus_distance=8.0,
+                        defocus_angle=0.0, image_width=W, image_height=H, vertical_fov=40.0)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=2, max_depth=6)
+    ref = megakernel.render_megakernel_plain(scene, along, cfg, 2, 0, 0)
+    got = megakernel.render_megakernel(scene, along, cfg, 2, 0, 0)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert float(ref.mean()) > 0.01
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_kernels_on_the_face_scene():
+    """K4, K4b and K5 on the face scene, whose nearest hits lie on the entry
+    face of two flat cluster boxes and go to the lower ids (FACE_LOW),
+    though the near-to-far walk enters the copy first: winners, t and the
+    image bit for bit with the plain versions, culling on and off."""
+    _cuda()
+    scene = cases.face_scene().to("cuda")
+    cl = scene.clusters
+    rays = cases.face_rays().to("cuda")
+    tables = _tables(cl)
+    low = cl.n_sph_slots + cases.FACE_LOW * 128
+    for cull in (True, False):
+        ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+        assert bool(((ref[1] >= low) & (ref[1] < low + 128)).all())
+        for fn in (cluster_ops.cluster_nearest, cluster_ops.cluster_worklist_nearest):
+            got = fn(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+    facing = make_camera((12.0, 0.3, 0.2), (0.0, 0.0, 0.0), (0, 0, 1), focus_distance=12.0,
+                         defocus_angle=0.0, image_width=W, image_height=H, vertical_fov=12.0)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=2, max_depth=6)
+    ref = megakernel.render_megakernel_plain(scene, facing, cfg, 2, 0, 0)
+    got = megakernel.render_megakernel(scene, facing, cfg, 2, 0, 0)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert float(ref.mean()) > 0.01

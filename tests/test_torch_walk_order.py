@@ -2,20 +2,26 @@
 proved on the CPU.
 
 The CUDA walk that K4/K4b and K5 share takes a ray with a whole warp: each
-lane slab-tests boxes ``lane, lane + 32, ...`` ignoring the ray's best t, a
-ballot gives the admitted boxes, and they are visited in ascending order,
-each entered only if its entry distance is below the best t at that moment;
-an entered cluster's 128 slots are tested 4 a lane (lane l takes slots 4l
+lane slab-tests boxes ``lane`` and ``lane + 32`` of a group of 64 ignoring
+the ray's best t, and the admitted boxes are visited near to far (by their
+entry distance; equal ones by lane, a lane's first box before its second),
+each entered only if its entry distance is not above the best t at that
+moment, the visit stopping at the first that is; supers so in groups of 64,
+then each entered super's clusters.  An entered cluster's 128 slots are
+tested 4 a lane (lane l takes slots 4l
 to 4l + 3, and only when 4l is below the cluster's live count, the index of
 its last live slot plus one: the other lanes load nothing and hold no
 key), and the winner is the least packed key (order(t), slot) over a
 lane's 4 slots, then over 32 lanes; where t ties within the cluster or
 with the best so far, the lowest primitive id among the tied slots wins,
-and it replaces a best of equal t only with a lower id.  ``warp_walk``
-below is a plain-PyTorch model of exactly that, vectorized over rays; the
+and it replaces a best of equal t only with a lower id, or an equal id and
+a lower slot.  So the walk returns the least (t, id, slot) over the valid
+slots of the clusters it enters, and the cluster that holds it is entered
+in any order: ``warp_walk`` below is a plain-PyTorch model of exactly that
+walk, vectorized over rays; the
 tests hold it against ``cluster_ops.cluster_nearest_plain`` (the
-sequential walk that the kernels are held against), t and ids bit for
-bit, with culling on and off, over triangle-cloud tables, a
+sequential walk in ascending order that the kernels are held against), t
+and ids bit for bit, with culling on and off, over triangle-cloud tables, a
 sphere-and-triangle scene and a tie scene built here: a triangulated grid
 (shared edges), a row of spheres, a slot that repeats
 another within its cluster, and a new super whose clusters repeat the
@@ -25,11 +31,16 @@ vertices, edges and diagonals and along the planes of its boxes.  The
 prefix scenes of tests/torch_cluster_cases.py fill their clusters to live
 counts 1, 3, 4, 5, 64, 127 and 128, put a cluster with no live slot where
 its predecessor's rays enter it, and make the last live slot tie an
-earlier one; their rays go onto every live slot.
+earlier one; their rays go onto every live slot.  Its row scenes put
+walls and spheres in a row whose cluster indices rise toward the rays'
+origins, so that the two orders enter different clusters (one of them
+with more than 64 supers).  Its face scene puts every nearest hit on the
+entry face of its cluster's box, with a copy of equal t and higher id
+that the near-to-far walk reaches first: the slab test's inward pad of the
+entry distance is what lets the walk still enter the winner's box.
 
 The kernels themselves are held against the plain version on the card
-(tests/test_torch_cluster_cuda.py, chip_smoke.py), on this tie scene too.
-Serial CPU time of this file: ~4 s.
+(tests/test_torch_cluster_cuda.py, chip_smoke.py), on these scenes too.
 """
 
 import numpy as np
@@ -39,27 +50,20 @@ import torch
 from rt_tpu_torch import cluster_ops
 from rt_tpu_torch.cluster import build_clusters, pack_sphere_slots, pack_triangle_slots
 from rt_tpu_torch import scene as tscene
-from rt_tpu_torch.cluster_ops import BIG, CLUSTER_SLOTS, SUPER_CLUSTERS
+# The kernels' order(t) and their near-to-far visit order of a group of boxes.
+from rt_tpu_torch.cluster_ops import (BIG, CLUSTER_SLOTS, LANES, NO_KEY, SUPER_CLUSTERS,
+                                      near_order as visit_order, order_key)
 from rt_tpu_torch.elementwise import div
 from rt_tpu_torch.scene import ClusterData, slot_ids
 import torch_cluster_cases as cases  # tests/torch_cluster_cases.py
 
 torch.set_num_threads(2)
 
-LANES = 32
-NO_KEY = 0xFFFFFFFF  # no valid slot: the key of no float but a NaN
 T_MIN, T_MAX = 1e-3, 1e9
 GRID = 24  # cells a side of the tie scene's grid over [-3, 3]^2: 0.25 apart
 
 
 # -- the model ------------------------------------------------------------------
-
-
-def order_key(t: torch.Tensor) -> torch.Tensor:
-    """The kernel's order(t) as int64: an unsigned that orders like the
-    float, -0 taken as +0 (the usual flip of a signed float's bits)."""
-    bits = torch.where(t == 0, 0.0, t).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return torch.where(bits >= 1 << 31, ~bits & 0xFFFFFFFF, bits | (1 << 31))
 
 
 def lane_minimum(cand: torch.Tensor, live: int, stats: dict):
@@ -107,16 +111,24 @@ def warp_walk(rays, tables, n_sph_slots: int, t_min: float, t_max: float, cull: 
               stats: dict | None = None):
     """The warp walk of csrc/cluster_walk.cuh for every ray of ``rays``
     f32[>=6, N] over whole tables (``cluster_ops.cluster_tables``' order):
-    (t f32[N], slot id int32[N]).
-    ``stats`` counts the equal-t decisions it makes ("slot_ties": a
-    cluster with two valid slots of its least key; "best_ties": a
-    cluster winner equal to the best so far) and the lanes that sat out an
-    entered cluster ("idle_lanes").  The live counts are the kernels'
-    (``cluster_ops.live_counts``).  The slots' primitive ids decide ties of
-    t as the kernel does: read only on a tie, the lowest id wins within a
-    cluster, and a winner equal to the best so far replaces it only with a
-    lower id."""
+    (t f32[N], slot id int32[N]).  Per kind, the supers of each group of 64
+    (groups in index order) are visited near to far (``visit_order``), then
+    each entered super's clusters near to far; a box is entered when its
+    entry distance is not above the best t, and the visit stops at the
+    first that is.
+    ``stats`` counts the boxes the walk enters ("supers_entered",
+    "clusters_entered": (ray, box) pairs), the admitted ones it passes over
+    ("supers_passed", and "clusters_passed" in the supers it enters), the
+    equal-t decisions it makes ("slot_ties": a cluster with two valid slots
+    of its least key; "best_ties": a cluster winner equal to the best so
+    far) and the lanes that sat out an entered cluster ("idle_lanes").  The
+    live counts are the kernels' (``cluster_ops.live_counts``).  The slots'
+    primitive ids decide ties of t as the kernel does: read only on a tie,
+    the lowest id wins within a cluster, and a winner equal to the best so
+    far replaces it only with a lower (id, slot)."""
     stats = {} if stats is None else stats
+    for key in ("supers_entered", "clusters_entered", "supers_passed", "clusters_passed"):
+        stats.setdefault(key, 0)
     r = walk_rays(rays)
     n = rays.shape[1]
     best_t = torch.full((n,), BIG)
@@ -128,37 +140,57 @@ def warp_walk(rays, tables, n_sph_slots: int, t_min: float, t_max: float, cull: 
     for (supers, clusters, slots, prim), id_base, kind, pairs in kinds:
         live = cluster_ops.live_counts(slots, kind).tolist()
         reach = cluster_ops.sphere_reach(slots) if kind == "sphere" else None
-        for s0 in range(0, supers.shape[0], LANES):
-            # One slab test a lane, ignoring the best; the ballot's bits.
-            tn_s, adm_s = cluster_ops._enters(supers[s0 : s0 + LANES], r, None, reach)
-            for b in range(adm_s.shape[1]):
-                rows = torch.nonzero(adm_s[:, b] & (tn_s[:, b] <= best_t))[:, 0]
-                if rows.numel() == 0:
-                    continue
-                sub = {key: v[rows] for key, v in r.items()}
-                c0 = (s0 + b) * SUPER_CLUSTERS
-                # Two clusters a lane: the ballots of lanes' first and second
-                # clusters, visited one after the other, each in lane order.
-                tn_c, adm_c = cluster_ops._enters(clusters[c0 : c0 + SUPER_CLUSTERS], sub, None,
-                                                  reach)
-                for k in range(adm_c.shape[1]):
-                    enter = adm_c[:, k] & (tn_c[:, k] <= best_t[rows])
-                    hit = torch.nonzero(enter)[:, 0]
-                    if hit.numel() == 0:
-                        continue
-                    ci = c0 + k
-                    cand = pairs({key: v[hit] for key, v in sub.items()},
-                                 slots[:, ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS])
-                    t, slot, found = lane_minimum(cand, live[ci], stats)
-                    g = rows[hit]
-                    stats["best_ties"] = stats.get("best_ties", 0) + int((found & (t == best_t[g])).sum())
-                    slot, wins = _id_winner(cand, slot, t, best_t[g], best_i[g], prim, ci,
-                                            id_base)
-                    better = found & ((t < best_t[g]) | wins)
-                    best_t[g] = torch.where(better, t, best_t[g])
-                    best_i[g] = torch.where(better, (slot + id_base + ci * CLUSTER_SLOTS).to(torch.int32),
-                                            best_i[g])
+        for s0 in range(0, supers.shape[0], 2 * LANES):
+            # Two slab tests a lane, ignoring the best.
+            tn_s, adm_s = cluster_ops._enters(supers[s0 : s0 + 2 * LANES], r, None, reach)
+            order = visit_order(tn_s, adm_s)
+            entered = torch.zeros_like(adm_s)
+            for k in range(order.shape[1]):
+                place = order[:, k : k + 1]
+                enter = adm_s.gather(1, place)[:, 0] & (tn_s.gather(1, place)[:, 0] <= best_t)
+                if not enter.any():
+                    break  # every ray has stopped: the keys left are larger, the best no larger
+                entered.scatter_(1, place, enter[:, None])
+                for sb in torch.unique(place[enter, 0]).tolist():
+                    rows = torch.nonzero(enter & (place[:, 0] == sb))[:, 0]
+                    _visit_clusters(r, rows, (s0 + sb) * SUPER_CLUSTERS, clusters, slots, prim,
+                                    live, reach, id_base, pairs, best_t, best_i, stats)
+            stats["supers_entered"] += int(entered.sum())
+            stats["supers_passed"] += int((adm_s & ~entered).sum())
     return best_t, best_i
+
+
+def _visit_clusters(r, rows, c0: int, clusters, slots, prim, live, reach, id_base: int, pairs,
+                    best_t, best_i, stats):
+    """The clusters c0.. of one super for the rays ``rows`` that entered it,
+    near to far, each entered cluster's winner replacing the best as the
+    kernel's walk_cluster decides; ``best_t``/``best_i`` are updated in
+    place."""
+    sub = {key: v[rows] for key, v in r.items()}
+    tn_c, adm_c = cluster_ops._enters(clusters[c0 : c0 + SUPER_CLUSTERS], sub, None, reach)
+    order = visit_order(tn_c, adm_c)
+    entered = torch.zeros_like(adm_c)
+    for j in range(order.shape[1]):
+        place = order[:, j : j + 1]
+        enter = adm_c.gather(1, place)[:, 0] & (tn_c.gather(1, place)[:, 0] <= best_t[rows])
+        if not enter.any():
+            break
+        entered.scatter_(1, place, enter[:, None])
+        for k in torch.unique(place[enter, 0]).tolist():
+            ci = c0 + k
+            hit = torch.nonzero(enter & (place[:, 0] == k))[:, 0]
+            cand = pairs({key: v[hit] for key, v in sub.items()},
+                         slots[:, ci * CLUSTER_SLOTS : (ci + 1) * CLUSTER_SLOTS])
+            t, slot, found = lane_minimum(cand, live[ci], stats)
+            g = rows[hit]
+            stats["best_ties"] = stats.get("best_ties", 0) + int((found & (t == best_t[g])).sum())
+            slot, wins = _id_winner(cand, slot, t, best_t[g], best_i[g], prim, ci, id_base)
+            better = found & ((t < best_t[g]) | wins)
+            best_t[g] = torch.where(better, t, best_t[g])
+            best_i[g] = torch.where(better, (slot + id_base + ci * CLUSTER_SLOTS).to(torch.int32),
+                                    best_i[g])
+    stats["clusters_entered"] += int(entered.sum())
+    stats["clusters_passed"] += int((adm_c & ~entered).sum())
 
 
 def _id_winner(cand, slot, t, best_t, best_i, prim, ci: int, id_base: int):
@@ -166,7 +198,8 @@ def _id_winner(cand, slot, t, best_t, best_i, prim, ci: int, id_base: int):
     cluster or with the best so far: (the slot of the least primitive id
     among the slots at the least key, then the least slot; whether it
     replaces a best of equal t, by a lower id than the best's, which is 0
-    where the best is of another kind)."""
+    where the best is of another kind, or by an equal id and a lower
+    slot)."""
     valid = cand < BIG
     keys = torch.where(valid, order_key(cand), NO_KEY)
     at = valid & (keys == order_key(t)[:, None])
@@ -177,7 +210,10 @@ def _id_winner(cand, slot, t, best_t, best_i, prim, ci: int, id_base: int):
     bi = best_i.to(torch.int64) - id_base
     own = (bi >= 0) & (bi < prim.shape[0])
     best_rank = torch.where(own, prim.to(torch.int64)[torch.clamp(bi, 0, prim.shape[0] - 1)], 0)
-    return torch.where(tied, first, slot), (t == best_t) & (rank < best_rank)
+    slot = torch.where(tied, first, slot)
+    lower = (rank < best_rank) | ((rank == best_rank)
+                                  & (slot + id_base + ci * CLUSTER_SLOTS < best_i.to(torch.int64)))
+    return slot, (t == best_t) & lower
 
 
 def with_ids(tables, sph_prim, tri_prim) -> tuple:
@@ -310,11 +346,17 @@ def tie_rays(grid: int = GRID) -> torch.Tensor:
 # -- the tests ------------------------------------------------------------------------
 
 
+# The row scene with a super a cluster: more than 64 supers of triangles.
+ROW_SUPERS = dict(per_super=1, walls=66, spheres=4)
+
+
 def _scenes():
     scenes = {
         "tri_cloud": lambda: cases.tri_cloud(tscene, n_tris=3000).build(),
         "spheres_and_triangles": lambda: cases.cluster_scene(tscene, np.random.default_rng(4)),
         "ties": tie_scene,
+        "rows": cases.row_scene,
+        "row_supers": lambda: cases.row_scene(**ROW_SUPERS),
     }
     for case in cases.PREFIX_CASES:
         scenes[case] = lambda case=case: cases.prefix_scene(case)[0]
@@ -326,12 +368,14 @@ def _rays(name, cl):
         return tie_rays()
     if name in cases.PREFIX_CASES:
         return cases.prefix_rays(cl)
+    if name.startswith("row"):
+        return cases.row_rays()
     return torch.from_numpy(cases.random_rays(np.random.default_rng(5), n=1024, extent=4.0))
 
 
 @pytest.mark.parametrize("cull", [True, False])
-@pytest.mark.parametrize("name", ["tri_cloud", "spheres_and_triangles", "ties",
-                                  *cases.PREFIX_CASES])
+@pytest.mark.parametrize("name", ["tri_cloud", "spheres_and_triangles", "ties", "rows",
+                                  "row_supers", *cases.PREFIX_CASES])
 def test_warp_walk_matches_sequential_walk(name, cull):
     scene = _scenes()[name]()
     cl = scene.clusters
@@ -350,6 +394,126 @@ def test_warp_walk_matches_sequential_walk(name, cull):
     if name in cases.PREFIX_CASES and name != "live_128":
         # Lanes past the live counts sat out clusters that rays entered.
         assert stats["idle_lanes"] > 0, stats
+
+
+def test_visit_order_is_near_to_far():
+    """Admitted boxes by entry distance, equal ones by lane (box b is lane
+    b % 32's), a lane's first box before its second; boxes not admitted
+    last."""
+    tn = torch.full((1, 64), 5.0)
+    adm = torch.zeros((1, 64), dtype=torch.bool)
+    for b, t in ((40, 1.0), (3, 2.0), (35, 2.0), (8, 2.0), (60, 0.0), (61, -0.0), (17, 9.0)):
+        tn[0, b], adm[0, b] = t, True
+    order = visit_order(tn, adm)[0].tolist()
+    assert order[:7] == [60, 61, 40, 3, 35, 8, 17]
+    assert sorted(order[7:]) == [b for b in range(64) if b not in (40, 3, 35, 8, 60, 61, 17)]
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("layout", ["rows", "row_supers"])
+def test_near_order_enters_fewer_clusters(layout, cull):
+    """On a row scene the rays that come down the row of walls from +x
+    meet the walls' clusters in falling index.  The near-to-far walk enters
+    the nearest wall's cluster and stops (and again in the second group of
+    64 supers where each wall is a super), passing over the rest; the
+    ascending walk enters every one.  Both return the same t and id, on
+    these rays and on all of the scene's."""
+    scene = _scenes()[layout]()
+    cl = scene.clusters
+    tables = cluster_ops.cluster_tables(cl)
+    rays = cases.row_rays()
+    walls = ROW_SUPERS["walls"] if layout == "row_supers" else cases.ROW_WALLS
+    groups = 2 if layout == "row_supers" else 1  # groups of 64 supers the walls span
+    q = rays.shape[1] // 4
+    for batch in (rays, rays[:, :q]):  # every ray, then those down the row of walls
+        stats, work = {}, {}
+        got = warp_walk(batch, tables, cl.n_sph_slots, T_MIN, T_MAX, cull, stats)
+        ref = cluster_ops.cluster_nearest_plain(batch, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull,
+                                                work=work)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        ascending = sum(work[f"{k}_row_bytes_whole"] / cluster_ops.row_bytes(0, k)[1]
+                        for k in ("sphere", "triangle"))
+        assert stats["clusters_entered"] < ascending
+    assert bool((got[1] >= cl.n_sph_slots).all())
+    assert ascending == q * walls
+    assert stats["clusters_entered"] == groups * q and stats["supers_entered"] == groups * q
+    passed = ("supers_passed" if layout == "row_supers" else "clusters_passed")
+    assert stats[passed] == (walls - groups) * q
+
+
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("copy", [20, 48])
+def test_equal_t_and_id_go_to_the_lower_slot(copy, cull):
+    """On the row scene, the nearest wall's cluster (47: lane 15's second
+    box) repeated in cluster ``copy`` with its slots' primitive ids: the
+    rays down the row meet both at the same t and id.  The near-to-far walk
+    visits the copy second (lane 20's or lane 16's first box): at 20, below
+    47, it must replace the best; at 48 it must not.  Either way the lower
+    slot wins, as in the ascending walk."""
+    cl = cases.row_scene().clusters
+    tables = cases.copy_nearest_wall(cluster_ops.cluster_tables(cl), copy)
+    rays = cases.row_rays()[:, : 2048 // 4]
+    stats = {}
+    got = warp_walk(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, cull, stats)
+    ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    low = cl.n_sph_slots + min(copy, cases.ROW_WALLS - 1) * CLUSTER_SLOTS
+    assert bool(((got[1] >= low) & (got[1] < low + CLUSTER_SLOTS)).all())
+    assert stats["best_ties"] == rays.shape[1]
+
+
+@pytest.mark.parametrize("name", ["rows", "row_supers", "ties", "spheres_and_triangles"])
+def test_order_counts_replay_the_near_walk(name):
+    """walk_counts_cuda.order_counts replays the walk from the rays' slab
+    tests and each admitted cluster's least t: in the near-to-far order it
+    enters the supers and clusters the model enters, fewer clusters than
+    the plain walk enters in ascending order (``ascending_counts``, from
+    the plain walk's counters, which agree with its slot-row bytes)."""
+    from walk_counts_cuda import ascending_counts, order_counts
+
+    cl = _scenes()[name]().clusters
+    rays = _rays(name, cl)
+    tables = cluster_ops.cluster_tables(cl)
+    stats, work = {}, {}
+    warp_walk(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, True, stats)
+    cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, True, work=work)
+    got = order_counts(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, True)
+    ascending = ascending_counts(work)
+    kinds = ("sphere", "triangle")
+    assert ascending["clusters"] == sum(
+        work[f"{k}_row_bytes_whole"] // cluster_ops.row_bytes(0, k)[1] for k in kinds)
+    assert ascending["supers"] >= got["near"]["supers"] > 0
+    assert got["near"]["clusters"] == stats["clusters_entered"]
+    assert got["near"]["supers"] == stats["supers_entered"]
+    assert got["near"]["clusters"] < ascending["clusters"]
+    assert got["near"]["live_slots"] < ascending["live_slots"]
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_entry_face_hits_go_to_the_lower_id(cull, monkeypatch):
+    """On the face scene every ray's nearest hit lies on the entry face of
+    two flat cluster boxes, FACE_LOW's and its copy FACE_HIGH's (higher
+    ids), and the near-to-far walk enters the copy first.  With the entry
+    distance padded inward the walk still enters FACE_LOW's box and returns
+    its slot, as the ascending walk does; with the entry distance left
+    as the slab test computes it, rounding puts it past the hit's t on
+    some rays, and the walk stops before FACE_LOW's box."""
+    cl = cases.face_scene().clusters
+    tables = cluster_ops.cluster_tables(cl)
+    rays = cases.face_rays()
+    n = rays.shape[1]
+    low = cl.n_sph_slots + cases.FACE_LOW * CLUSTER_SLOTS
+    stats = {}
+    got = warp_walk(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, cull, stats)
+    ref = cluster_ops.cluster_nearest_plain(rays, *tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert bool(((got[1] >= low) & (got[1] < low + CLUSTER_SLOTS)).all())
+    assert stats["clusters_entered"] == 2 * n and stats["best_ties"] == n
+    monkeypatch.setattr(cluster_ops, "ENTRY_MUL", 1.0)
+    monkeypatch.setattr(cluster_ops, "PAD_ADD", 0.0)
+    bare = warp_walk(rays, tables, cl.n_sph_slots, T_MIN, T_MAX, cull)
+    assert torch.equal(bare[0], ref[0])
+    assert int((bare[1] >= low + CLUSTER_SLOTS).sum()) > n // 20
 
 
 def _reversed_ids(cl):

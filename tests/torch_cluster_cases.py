@@ -224,10 +224,7 @@ def _regroup(slots, shade, alive, pattern, kind: str):
     """One kind's live slot columns, in slot order, regrouped into clusters
     filled as ``pattern`` says -> (supers, clusters, slots, shade columns,
     [(cluster, last live slot, source)])."""
-    import torch
-
-    n = 128
-    cols = torch.nonzero(alive)[:, 0]
+    cols = alive.nonzero()[:, 0]
     groups, k, at = [], 0, 0
     while at < cols.numel():
         count, source = pattern[k % len(pattern)]
@@ -238,13 +235,27 @@ def _regroup(slots, shade, alive, pattern, kind: str):
             source = None  # the last cluster takes what is left, with no copy
         groups.append((cols[at : at + take], source))
         at += take
-    m = -(-len(groups) // 64) * 64
+    return _pack_groups(slots, shade, groups, range(len(groups)), kind)
+
+
+def _pack_groups(slots, shade, groups, places, kind: str, pad: float = 1e-3):
+    """One kind's tables with group k of ``groups`` [(slot columns, source)]
+    in cluster ``places[k]`` (the clusters between them dummies) ->
+    (supers, clusters, slots, shade columns, [(cluster, last live slot,
+    source)]).  A source s makes the group's last live slot a copy of its
+    slot s; a group of no column takes its predecessor's box.  Each box is
+    its primitives' bounds grown by ``pad`` on every side."""
+    import torch
+
+    n = 128
+    places = list(places)
+    m = -(-(max(places) + 1) // 64) * 64
     new_slots = torch.zeros((slots.shape[0], m * n))
     new_shade = torch.zeros((shade.shape[0], m * n))
     boxes = torch.zeros((m, 8))
     boxes[:, 0:3], boxes[:, 3:6] = float("inf"), float("-inf")
     last = []
-    for ci, (g, source) in enumerate(groups):
+    for ci, (g, source) in zip(places, groups):
         base = ci * n
         new_slots[:, base : base + g.numel()] = slots[:, g]
         new_shade[:, base : base + g.numel()] = shade[:, g]
@@ -262,14 +273,32 @@ def _regroup(slots, shade, alive, pattern, kind: str):
         else:
             verts = torch.stack([s[0:3], s[0:3] + s[3:6], s[0:3] + s[6:9]])
             lo, hi = verts.amin(dim=0), verts.amax(dim=0)
-        boxes[ci, 0:3], boxes[ci, 3:6] = lo.amin(dim=1) - 1e-3, hi.amax(dim=1) + 1e-3
+        boxes[ci, 0:3], boxes[ci, 3:6] = lo.amin(dim=1) - pad, hi.amax(dim=1) + pad
         last.append((ci, base + live - 1, source))
     supers = torch.zeros((m // 64, 8))
+    supers[:, 0:3], supers[:, 3:6] = float("inf"), float("-inf")
     for si in range(m // 64):
         block = boxes[si * 64 : (si + 1) * 64]
         block = block[block[:, 0] <= block[:, 3]]
-        supers[si, 0:3], supers[si, 3:6] = block[:, 0:3].amin(dim=0), block[:, 3:6].amax(dim=0)
+        if block.shape[0]:
+            supers[si, 0:3], supers[si, 3:6] = block[:, 0:3].amin(dim=0), block[:, 3:6].amax(dim=0)
     return supers, boxes, new_slots, new_shade, last
+
+
+def _with_tables(scene, sph, tri):
+    """``scene`` with cluster tables made of ``_pack_groups``' results for
+    each kind, the slots' primitive ids their slot ids."""
+    import torch
+
+    from rt_tpu_torch.scene import ClusterData, slot_ids
+
+    n_sph_slots = sph[2].shape[1]
+    sph_prim, tri_prim = slot_ids(n_sph_slots, tri[2].shape[1])
+    scene.clusters = ClusterData(
+        n_sph_slots=n_sph_slots, sph_prim=sph_prim, tri_prim=tri_prim,
+        shade_table=torch.cat([sph[3], tri[3]], dim=1), sph_super=sph[0], sph_cluster=sph[1],
+        sph_slots=sph[2], tri_super=tri[0], tri_cluster=tri[1], tri_slots=tri[2])
+    return scene
 
 
 def prefix_scene(case: str, grid: int = 12):
@@ -282,10 +311,8 @@ def prefix_scene(case: str, grid: int = 12):
     global as the kernels return them.  The slots' primitive ids are their
     slot ids (``scene.slot_ids``): a slot that repeats an earlier one loses
     the tie."""
-    import torch
-
     from rt_tpu_torch import cluster_ops
-    from rt_tpu_torch.scene import ClusterData, SceneBuilder, slot_ids
+    from rt_tpu_torch.scene import SceneBuilder
 
     b = SceneBuilder()
     tile = b.lambertian(b.checker(0.5, b.solid_color((0.2, 0.3, 0.4)),
@@ -313,14 +340,7 @@ def prefix_scene(case: str, grid: int = 12):
     n_sph_slots = out["sphere"][2].shape[1]
     for kind, base in (("sphere", 0), ("triangle", n_sph_slots)):
         lasts[kind] = [(ci, base + slot, source) for ci, slot, source in out[kind][4]]
-    tables = dict(sph_super=out["sphere"][0], sph_cluster=out["sphere"][1],
-                  sph_slots=out["sphere"][2], tri_super=out["triangle"][0],
-                  tri_cluster=out["triangle"][1], tri_slots=out["triangle"][2])
-    sph_prim, tri_prim = slot_ids(n_sph_slots, out["triangle"][2].shape[1])
-    scene.clusters = ClusterData(
-        n_sph_slots=n_sph_slots, sph_prim=sph_prim, tri_prim=tri_prim,
-        shade_table=torch.cat([out["sphere"][3], out["triangle"][3]], dim=1), **tables)
-    return scene, lasts
+    return _with_tables(scene, out["sphere"], out["triangle"]), lasts
 
 
 def prefix_rays(clusters, seed: int = 0, n: int = 2048):
@@ -350,3 +370,151 @@ def prefix_rays(clusters, seed: int = 0, n: int = 2048):
     org[2] = 3.0
     rays[0:3, k : 2 * k], rays[3:6, k : 2 * k] = org, targets - org
     return rays
+
+
+# The row scene: walls across the x axis and a row of spheres beside them,
+# one cluster each, whose cluster indices rise toward +x, where rays start.
+ROW_WALLS, ROW_SPHERES = 48, 40
+ROW_STEP = 0.2  # x between neighbouring walls (and spheres)
+ROW_FAR = 16.0  # x of the rays that run down the row
+
+
+def row_scene(per_super: int = 64, walls: int = ROW_WALLS, spheres: int = ROW_SPHERES):
+    """A scene (port only) for the order of the cluster walk: ``walls``
+    walls of 4 triangles facing +x at x = ROW_STEP * k over y, z in [-1, 1]
+    x [0, 2], and ``spheres`` spheres of radius 0.08 at x = ROW_STEP * k, y
+    3, z 1.  Each wall and each sphere is a cluster of its own; wall k is
+    cluster ``(k // per_super) * 64 + k % per_super`` (sphere k likewise),
+    so that a ray coming down the row from +x meets the clusters in falling
+    index: an ascending walk enters every one, a near-to-far walk the
+    first.  With ``per_super`` 1 each cluster is a super of its own."""
+    from rt_tpu_torch import cluster_ops
+    from rt_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    wall = b.lambertian_rgb(0.7, 0.6, 0.5)
+    ball = b.lambertian_rgb(0.3, 0.5, 0.8)
+    for k in range(walls):
+        x = ROW_STEP * k
+        for y0, y1 in ((-1.0, 0.0), (0.0, 1.0)):
+            b.add_triangle((x, y0, 0.0), (x, y1, 0.0), (x, y1, 2.0), wall)
+            b.add_triangle((x, y0, 0.0), (x, y1, 2.0), (x, y0, 2.0), wall)
+    for k in range(spheres):
+        b.add_sphere((ROW_STEP * k, 3.0, 1.0), 0.08, ball)
+    scene = b.build(use_bvh=False)
+    cl = scene.clusters
+    ns = cl.n_sph_slots
+    out = {}
+    for kind, slots, prim, shade, base, per in (
+            ("sphere", cl.sph_slots, cl.sph_prim, cl.shade_table[:, :ns], 0, 1),
+            ("triangle", cl.tri_slots, cl.tri_prim, cl.shade_table[:, ns:], spheres, 4)):
+        alive = slots[cluster_ops.LIVE_ROW[kind]] > cluster_ops.LIVE_MIN[kind]
+        cols = alive.nonzero()[:, 0]
+        item = (prim[cols].long() - base) // per  # the wall or sphere of each live slot
+        count = walls if kind == "triangle" else spheres
+        groups = [(cols[item == k], None) for k in range(count)]
+        places = [(k // per_super) * 64 + k % per_super for k in range(count)]
+        out[kind] = _pack_groups(slots, shade[:, : slots.shape[1]], groups, places, kind)
+    return _with_tables(scene, out["sphere"], out["triangle"])
+
+
+def copy_nearest_wall(tables, copy: int) -> tuple:
+    """``row_scene``'s walk tables (``cluster_ops.cluster_tables``' order)
+    with the nearest wall's cluster repeated in cluster ``copy``, its slots'
+    primitive ids too: rays down the row meet both at the same t and id."""
+    tables = list(tables)
+    near, n = ROW_WALLS - 1, 128
+    src, dst = slice(near * n, (near + 1) * n), slice(copy * n, (copy + 1) * n)
+    boxes, slots, prim = tables[5].clone(), tables[6].clone(), tables[7].clone()
+    boxes[copy], slots[:, dst], prim[dst] = boxes[near], slots[:, src], prim[src]
+    tables[5:8] = boxes, slots, prim
+    return tuple(tables)
+
+
+def row_rays(seed: int = 0, n: int = 2048):
+    """Rays f32[8, n] on the CPU (n a multiple of 256) at ``row_scene``:
+    a quarter coming down the row of walls from x = ROW_FAR (through the
+    walls' y, z span, slightly slanted), an eighth down the row of spheres,
+    an eighth up the walls from x = -4 and the rest random."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rays = random_rays(rng, n=n, extent=6.0)
+    q, e = n // 4, n // 8
+    rays[0, :q] = ROW_FAR
+    rays[1, :q], rays[2, :q] = rng.uniform(-0.9, 0.9, q), rng.uniform(0.1, 1.9, q)
+    rays[3, :q], rays[4:6, :q] = -1.0, rng.uniform(-0.002, 0.002, (2, q))
+    rows = slice(q, q + e)
+    rays[0, rows], rays[1, rows], rays[2, rows] = ROW_FAR, 3.0 + rng.uniform(-0.05, 0.05, e), 1.0
+    rays[3, rows], rays[4:6, rows] = -1.0, rng.uniform(-0.002, 0.002, (2, e))
+    back = slice(q + e, q + 2 * e)
+    rays[0, back], rays[1, back], rays[2, back] = -4.0, rng.uniform(-0.9, 0.9, e), 1.0
+    rays[3, back], rays[4:6, back] = 1.0, rng.uniform(-0.002, 0.002, (2, e))
+    return torch.from_numpy(rays)
+
+
+# The face scene: a wall of triangles in the plane x = FACE_X, in cluster
+# FACE_LOW and again in cluster FACE_HIGH (lane 1's second box, which the
+# near-to-far walk reaches before lane 2's first box, FACE_LOW), each box
+# exactly the wall's bounds, flat in x.
+FACE_X = 0.3
+FACE_LOW, FACE_HIGH = 2, 33
+
+
+def face_scene(grid: int = 7):
+    """A scene (port only) whose nearest hits lie on the entry face of their
+    clusters' boxes: a wall of grid x grid cells of two triangles facing +x
+    at x = FACE_X over y, z in [-1, 1], packed twice, into clusters
+    FACE_LOW and FACE_HIGH with boxes of no margin; a strip of 40 triangles
+    apart (cluster 0, so that SceneBuilder.build makes cluster tables) and a
+    sphere.  Slot ids are the primitive ids, so the copy in FACE_HIGH loses
+    every tie: a ray onto the wall meets both at the same t, and only
+    FACE_LOW's slots are the brute-force winners."""
+    from rt_tpu_torch import cluster_ops
+    from rt_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    wall = b.lambertian_rgb(0.7, 0.6, 0.5)
+    step = 2.0 / grid
+    for i in range(grid):
+        for j in range(grid):
+            y0, z0 = -1.0 + step * i, -1.0 + step * j
+            y1, z1 = y0 + step, z0 + step
+            b.add_triangle((FACE_X, y0, z0), (FACE_X, y1, z0), (FACE_X, y1, z1), wall)
+            b.add_triangle((FACE_X, y0, z0), (FACE_X, y1, z1), (FACE_X, y0, z1), wall)
+    for k in range(40):
+        b.add_triangle((0.5 * k, 8.0, 0.0), (0.5 * k + 0.4, 8.0, 0.0), (0.5 * k, 8.0, 0.4), wall)
+    b.add_sphere((0.0, 5.0, 0.0), 0.5, b.lambertian_rgb(0.3, 0.5, 0.8))
+    scene = b.build(use_bvh=False)
+    cl = scene.clusters
+    ns = cl.n_sph_slots
+    out = {}
+    for kind, slots, prim, shade in (("sphere", cl.sph_slots, cl.sph_prim, cl.shade_table[:, :ns]),
+                                     ("triangle", cl.tri_slots, cl.tri_prim,
+                                      cl.shade_table[:, ns:])):
+        alive = slots[cluster_ops.LIVE_ROW[kind]] > cluster_ops.LIVE_MIN[kind]
+        cols = alive.nonzero()[:, 0]
+        if kind == "sphere":
+            groups, places = [(cols, None)], [0]
+        else:
+            on_wall = prim[cols].long() - 1 < 2 * grid * grid  # the sphere is primitive 0
+            face = (cols[on_wall], None)
+            groups, places = [(cols[~on_wall], None), face, face], [0, FACE_LOW, FACE_HIGH]
+        out[kind] = _pack_groups(slots, shade[:, : slots.shape[1]], groups, places, kind, pad=0.0)
+    return _with_tables(scene, out["sphere"], out["triangle"])
+
+
+def face_rays(seed: int = 0, n: int = 2048):
+    """Rays f32[8, n] on the CPU onto ``face_scene``'s wall from +x: origins
+    at x 1 to 40 over the wall's y, z span, directions nearly along -x and
+    of lengths 0.5 to 3, so that each meets the wall inside one triangle."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rays = np.zeros((8, n), np.float32)
+    rays[0] = rng.uniform(1.0, 40.0, n)
+    rays[1:3] = rng.uniform(-0.8, 0.8, (2, n))
+    tilt = rng.uniform(-0.005, 0.005, (2, n))
+    scale = rng.uniform(0.5, 3.0, n)
+    rays[3], rays[4:6] = -scale, tilt * scale
+    return torch.from_numpy(rays)
