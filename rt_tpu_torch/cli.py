@@ -7,6 +7,7 @@ Examples:
     python -m rt_tpu_torch.cli --scene obj:model.obj --size 200x112 --spp 2 --out m.png
     python -m rt_tpu_torch.cli --scene gltf:model.glb --camera widecam --spp 8 --out g.png
     python -m rt_tpu_torch.cli --scene default:model.glb --spp 64 --out d.png
+    python -m rt_tpu_torch.cli --scene sponza:sponza.glb --spp 64 --out s.png
     python -m rt_tpu_torch.cli --scene cover --size 400x225 --progressive --passes 4 \
         --checkpoint cover.npz --out cover.png
     python -m rt_tpu_torch.cli --scene cover --progressive --serve 8000 --term-preview
@@ -58,6 +59,8 @@ def build_scene(spec: str, camera, seed: int, texture_dir: str | None):
         return b.build()
     if spec.startswith("default:"):
         return scenes.default_scene(camera, spec[8:], seed=seed)
+    if spec.startswith("sponza:"):
+        return scenes.sponza_scene(spec[7:])
     raise SystemExit(f"unknown scene: {spec!r}")
 
 
@@ -66,7 +69,9 @@ def main(argv=None) -> int:
     parser.add_argument("--scene", default="cover",
                         help="cover | cover-large | earth | checkered | textured | triangles | "
                         "obj:PATH | gltf:PATH | default:PATH (the upstream's main.rs scene: the "
-                        "cover-large lattice, a checkered ground and the glTF at PATH)")
+                        "cover-large lattice, a checkered ground and the glTF at PATH) | "
+                        "sponza:PATH (the upstream's sponza(): the atrium's glTF at PATH alone "
+                        "under the live sky)")
     parser.add_argument("--camera", default="cam1", choices=["cam1", "cam2", "widecam", "topdown"])
     parser.add_argument("--size", default="800x600", help="WIDTHxHEIGHT")
     parser.add_argument("--spp", type=int, default=32)

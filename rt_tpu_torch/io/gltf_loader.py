@@ -44,6 +44,11 @@ _COMPONENT_DTYPES = {
 }
 _TYPE_COUNTS = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4, "MAT4": 16}
 
+# Primitive records returned, the distinct materials they name, and the
+# base-colour images decoded with their texels, accumulated over calls;
+# callers reset them.
+COUNTS = {"primitives": 0, "materials": 0, "images": 0, "texels": 0}
+
 
 def load_gltf(path: str, apply_node_transforms: bool = False) -> list[dict]:
     """Parse a glTF/GLB file into flat primitive records.
@@ -53,6 +58,9 @@ def load_gltf(path: str, apply_node_transforms: bool = False) -> list[dict]:
         {"vertices": f32[n,3,3], "uvs": f32[n,3,2] | None,
          "base_color_factor": f32[4], "base_color_image": f32[h,w,3] | None,
          "metallic": float, "roughness": float, "name": str}
+
+    The base-colour images are decoded under the span ``rt.gltf.images``;
+    ``COUNTS`` adds up what was loaded.
     """
     doc, buffers = _read_document(path)
     base_dir = os.path.dirname(os.path.abspath(path))
@@ -91,6 +99,11 @@ def load_gltf(path: str, apply_node_transforms: bool = False) -> list[dict]:
         off = view.get("byteOffset", 0)
         return load_image(bytes(data[off : off + view["byteLength"]]))
 
+    def base_color_source(prim: dict) -> int | None:
+        mat = doc["materials"][prim["material"]] if "material" in prim else {}
+        tex = mat.get("pbrMetallicRoughness", {}).get("baseColorTexture")
+        return None if tex is None else doc["textures"][tex["index"]].get("source")
+
     # Node transforms (corrected mode): world matrix per mesh instance.
     mesh_transforms: dict[int, list[np.ndarray]] = {}
     if apply_node_transforms:
@@ -98,8 +111,15 @@ def load_gltf(path: str, apply_node_transforms: bool = False) -> list[dict]:
             for root in scene_def.get("nodes", []):
                 _walk_nodes(doc, root, np.eye(4, dtype=np.float32), mesh_transforms)
 
+    # Every base-colour image the loaded primitives use, decoded once, in
+    # first-use order, under the span ``rt.gltf.images`` (arg: the images).
+    loaded = [prim for mesh in doc.get("meshes", []) for prim in mesh.get("primitives", [])
+              if "POSITION" in prim.get("attributes", {})]
+    sources = list(dict.fromkeys(s for s in map(base_color_source, loaded) if s is not None))
+    with profiling.span("gltf.images", f"images={len(sources)}"):
+        image_cache = {s: image_array(s) for s in sources}
+
     prims: list[dict] = []
-    image_cache: dict[int, np.ndarray] = {}
     for mesh_idx, mesh in enumerate(doc.get("meshes", [])):
         transforms = mesh_transforms.get(mesh_idx, [np.eye(4, dtype=np.float32)])
         for prim in mesh.get("primitives", []):
@@ -126,14 +146,8 @@ def load_gltf(path: str, apply_node_transforms: bool = False) -> list[dict]:
             base_color = np.asarray(
                 pbr.get("baseColorFactor", [1.0, 1.0, 1.0, 1.0]), np.float32
             )
-            base_image = None
-            if "baseColorTexture" in pbr:
-                tex_idx = pbr["baseColorTexture"]["index"]
-                src = doc["textures"][tex_idx].get("source")
-                if src is not None:
-                    if src not in image_cache:
-                        image_cache[src] = image_array(src)
-                    base_image = image_cache[src]
+            src = base_color_source(prim)
+            base_image = None if src is None else image_cache[src]
 
             for world in transforms:
                 verts = positions[tri_idx]
@@ -152,6 +166,10 @@ def load_gltf(path: str, apply_node_transforms: bool = False) -> list[dict]:
                         "name": mesh.get("name", f"mesh{mesh_idx}"),
                     }
                 )
+    COUNTS["primitives"] += len(prims)
+    COUNTS["materials"] += len({p["material"] for p in loaded if "material" in p})
+    COUNTS["images"] += len(sources)
+    COUNTS["texels"] += sum(im.shape[0] * im.shape[1] for im in image_cache.values())
     return prims
 
 

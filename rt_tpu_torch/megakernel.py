@@ -203,6 +203,15 @@ def ring_slots(n_pixels: int, spp: int) -> int:
     return min(n_pixels, max(1, SCRATCH_CAP // (12 * spp)))
 
 
+def _check_atlas(atlas: torch.Tensor) -> None:
+    """Refuse an atlas the kernels cannot address: ``bounce()`` reads a
+    texel at the int32 index 3 * (row * width + column), which wraps from
+    2^31 floats on."""
+    if atlas.numel() >= 2**31:
+        raise ValueError(f"atlas of {atlas.numel()} floats ({'x'.join(map(str, atlas.shape))}, "
+                         f"{4 * atlas.numel()} bytes): the kernels index fewer than 2^31 floats")
+
+
 def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) -> torch.Tensor:
     """Wrapper of K1: checks its inputs, allocates the output, the ring's
     scratch and its zeroed state, and launches once on the current stream
@@ -211,6 +220,7 @@ def _launch(scene, camera, cfg, spp, sample_offset, seed, pixel_base, n_pixels) 
     global LAUNCHES
     with profiling.span("megakernel.prepare"):
         n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
+        _check_atlas(scene.atlas)
         device = scene.device
         sph = _build.require(scene.sph_packed, "sph_packed", device)
         tri = _build.require(scene.tri_packed, "tri_packed", device)
@@ -258,6 +268,7 @@ def _launch_clustered(scene, camera, cfg, spp, sample_offset, seed, pixel_base,
     global LAUNCHES_CLUSTERED
     with profiling.span("megakernel.prepare"):
         n_pixels = _check_range(camera, spp, pixel_base, n_pixels)
+        _check_atlas(scene.atlas)
         device = scene.device
         cl = scene.clusters
         atlas = _build.require(scene.atlas, "atlas", device)

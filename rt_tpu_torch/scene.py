@@ -55,6 +55,11 @@ TABLES = (
 )
 
 
+# The image atlas of the last build: the distinct images packed, its rows,
+# its columns and its bytes (f32 RGB).
+ATLAS = {"textures": 0, "height": 0, "width": 0, "bytes": 0}
+
+
 def _buffers(module: nn.Module, names, values) -> None:
     for name in names:
         value = values[name]
@@ -363,9 +368,13 @@ class SceneBuilder:
             tex_children = np.zeros((x, 2), np.int32)
             tex_rect = np.zeros((x, 4), np.int32)
 
-            atlas, rects = _pack_atlas(
-                [(i, tx.image) for i, tx in enumerate(self._textures) if tx.kind == TEX_IMAGE]
-            )
+            images = [(i, tx.image) for i, tx in enumerate(self._textures) if tx.kind == TEX_IMAGE]
+            # Args: the image textures handed in and their bytes.
+            with profiling.span("scene.atlas", f"textures={len(images)} "
+                                f"bytes={sum(im.nbytes for _, im in images)}"):
+                atlas, rects = _pack_atlas(images)
+            ATLAS.update(textures=len(set(rects.values())), height=atlas.shape[0],
+                         width=atlas.shape[1], bytes=atlas.nbytes)
             for i, tx in enumerate(self._textures):
                 tex_kind[i] = tx.kind
                 tex_color[i] = tx.color

@@ -28,9 +28,9 @@ WIDTH = 800  # window.rs:29
 HEIGHT = 600  # window.rs:30
 MAX_DEPTH = 100  # scenes.rs:15
 
-# The sizes of the last scene composed by ``cover_scene`` or
-# ``default_scene``: the lattice's grid cells, the spheres added (the three
-# big ones and the lattice's kept) and the glTF's triangles.
+# The sizes of the last scene composed by ``cover_scene``, ``default_scene``
+# or ``sponza_scene``: the lattice's grid cells, the spheres added (the
+# three big ones and the lattice's kept) and the glTF's triangles.
 COUNTS = {"lattice_cells": 0, "spheres": 0, "mesh_triangles": 0}
 
 
@@ -274,6 +274,24 @@ def default_scene(
         spheres = add_cover_lattice(b, grid, grid, camera, z, seed)
         triangles = add_gltf_to_scene(b, gltf_path, compat_all_metal=True, transform=transform)
         COUNTS.update(lattice_cells=4 * grid * grid, spheres=spheres, mesh_triangles=triangles)
+        return b.build(sky=sky if sky is not None else SkyParams.hosek())
+
+
+def sponza_scene(gltf_path: str, *, sky: SkyParams | None = None) -> SceneData:
+    """The upstream's ``sponza()`` (scenes.rs:443-458): the Sponza atrium's
+    glTF at ``gltf_path`` through ``io.gltf_loader.add_gltf_to_scene``, alone
+    below ``sky`` (the default: the live Hosek-Wilkie sky at
+    ``SkyParams.hosek()``'s defaults, its sun overhead, falling through the
+    open roof).  Its materials take the corrected glTF mapping (metallic
+    >= 0.5 is metal, else lambertian: Sponza's stone and fabric are not
+    mirrors).  Span ``rt.scenes.sponza``;
+    ``COUNTS["mesh_triangles"]`` gets the triangles."""
+    from rt_tpu_torch.io.gltf_loader import add_gltf_to_scene
+
+    with profiling.span("scenes.sponza"):
+        b = SceneBuilder()
+        triangles = add_gltf_to_scene(b, gltf_path, compat_all_metal=False)
+        COUNTS.update(lattice_cells=0, spheres=0, mesh_triangles=triangles)
         return b.build(sky=sky if sky is not None else SkyParams.hosek())
 
 

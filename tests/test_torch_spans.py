@@ -124,7 +124,8 @@ def test_sweep_spans_nest_and_leave_the_image_alone(tmp_path):
 
 def test_set_up_spans(tmp_path):
     scene, spans, _ = _recorded(lambda: _mesh(tmp_path))
-    assert _parents(spans) == [("rt.gltf.load", None), ("rt.scene.build", None),
+    assert _parents(spans) == [("rt.gltf.load", None), ("rt.gltf.images", "rt.gltf.load"),
+                               ("rt.scene.build", None), ("rt.scene.atlas", "rt.scene.build"),
                                ("rt.scene.clusters", "rt.scene.build"),
                                ("rt.scene.bounds", "rt.scene.build"),
                                ("rt.scene.bvh", "rt.scene.build")]

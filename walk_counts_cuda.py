@@ -5,7 +5,8 @@ a replay of the same rays in the kernels' visit order.
 
     python3 walk_counts_cuda.py [--pixels N] [--spp S] [--device D] [CELL ...]
 
-For each cell (by default blob-frames, car-preview and field-frames) the
+For each cell (by default blob-frames, car-preview, field-frames and
+atrium-frames) the
 scene, camera and depth are the cell's, built as rtbench builds them.
 The megakernel's plain bounce loop (``megakernel.trace_paths``) traces
 samples 0..S-1 of N pixels (drawn from a fixed seed, render seed 1) on the
@@ -33,7 +34,7 @@ import torch
 
 from rt_tpu_torch import cluster_ops
 
-DEFAULT_CELLS = ("blob-frames", "car-preview", "field-frames")
+DEFAULT_CELLS = ("blob-frames", "car-preview", "field-frames", "atrium-frames")
 # Rays a pass of order_counts: bounds its [rays, clusters] tables.
 ORDER_CHUNK = 4096
 
